@@ -1,0 +1,111 @@
+"""Carry the JAX package's solver objects over to the port.
+
+Each function takes one of ``cuadmm_tpu``'s objects (SolverState,
+SolveParams, SparseA/EllTable, the ``device_maps`` dict, a precond
+NormalEqSolver) whose array fields are numpy arrays or anything
+``np.asarray`` reads, and returns the port's counterpart on ``device``.
+So one step of each package can start from identical state. This module
+never imports jax: it only reads attributes and converts arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from cuadmm_tpu_torch.ops.chol import NormalEqSolver, _tri_inv
+from cuadmm_tpu_torch.ops.precond_apply import pad_factor
+from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA
+from cuadmm_tpu_torch.solver.state import SolveParams, SolverState
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """Array -> tensor owning a copy; integer arrays become int64 index
+    tensors, except 0-d counters, which keep their dtype (the state's int32
+    scalars)."""
+    a = np.array(x)
+    if a.dtype.kind in "iu" and a.ndim > 0:
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=device)
+
+
+def _opt(x, device):
+    return None if x is None else _tensor(x, device)
+
+
+def ell_table_from_numpy(t, device) -> EllTable:
+    return EllTable(
+        idx=tuple(_tensor(i, device) for i in t.idx),
+        vals=tuple(_tensor(v, device) for v in t.vals),
+        out_perm=_opt(t.out_perm, device),
+        out_pos=_opt(t.out_pos, device),
+        out_src=_opt(t.out_src, device),
+        in_len=int(t.in_len),
+        out_len=int(t.out_len),
+    )
+
+
+def sparse_a_from_numpy(sa, device) -> SparseA:
+    return SparseA(
+        a=ell_table_from_numpy(sa.a, device),
+        at=ell_table_from_numpy(sa.at, device),
+        con_num=int(sa.con_num),
+        vec_len=int(sa.vec_len),
+        a_idx_compact=None
+        if sa.a_idx_compact is None
+        else tuple(_tensor(i, device) for i in sa.a_idx_compact),
+    )
+
+
+def maps_from_numpy(maps: Dict[str, Any], device) -> Dict[str, Any]:
+    """The ``device_maps`` dict; its static wrappers become plain ints/bools."""
+
+    def conv(v):
+        if hasattr(v, "value"):  # cuadmm_tpu.ops.svec.Static
+            return v.value
+        return _tensor(v, device)
+
+    out = {k: conv(v) for k, v in maps.items() if k != "buckets"}
+    out["buckets"] = [{k: conv(v) for k, v in bm.items()} for bm in maps["buckets"]]
+    return out
+
+
+def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
+    """A precond NormalEqSolver. The JAX package keeps the padded f32
+    inverse factor only on an accelerator; from a CPU build (f64 factor
+    ``chol_l``) the port's inverse factor is formed the port's way."""
+    if neq.mode != "precond":
+        raise ValueError(f"only precond solvers carry over, got mode={neq.mode!r}")
+    if neq.inv_l is not None:
+        inv_l = _tensor(neq.inv_l, device).to(torch.float32)
+    else:
+        chol_l = _tensor(neq.chol_l, device).to(torch.float32)
+        inv_l = pad_factor(_tri_inv(chol_l))
+    return NormalEqSolver(
+        mode="precond",
+        inv_l=inv_l,
+        sparse_a=sparse_a_from_numpy(neq.sparse_a, device),
+        applies=int(neq.applies),
+        eps_used=float(neq.eps_used),
+    )
+
+
+def state_from_numpy(state, device) -> SolverState:
+    return SolverState(
+        **{
+            name: _tensor(getattr(state, name), device)
+            for name in SolverState.__dataclass_fields__
+        }
+    )
+
+
+def params_from_numpy(params, device) -> SolveParams:
+    scalars = ("b", "C", "normA", "bscale", "Cscale", "objscale", "norm_borg", "norm_Corg")
+    return SolveParams(
+        sparse_a=sparse_a_from_numpy(params.sparse_a, device),
+        maps=maps_from_numpy(params.maps, device),
+        neq=normal_solver_from_numpy(params.neq, device),
+        **{name: _tensor(getattr(params, name), device) for name in scalars},
+    )

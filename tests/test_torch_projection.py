@@ -1,0 +1,61 @@
+"""PSD projection of the port against cuadmm_tpu.ops.projection (eigh, f64)."""
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+from cuadmm_tpu.ops import projection as jproj
+from cuadmm_tpu.ops import svec as jsvec
+
+from cuadmm_tpu_torch.ops import projection as tproj
+from cuadmm_tpu_torch.ops import svec as tsvec
+from cuadmm_tpu_torch.structure import BlockStructure
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+# 1x1, free, pow2-padded and (with pack_to) packed buckets; blocks of very
+# different norms share a packed super-matrix.
+MIXED_BLK = [("s", 1), ("s", 3), ("u", 4), ("s", 5), ("s", 1), ("s", 2), ("s", 7), ("s", 3)]
+
+
+@pytest.mark.parametrize(
+    "pack_to,eig_rank", [(0, None), (8, None), (0, 2)], ids=["plain", "packed", "eig_rank"]
+)
+def test_psd_project_pool_matches_jax(pack_to, eig_rank):
+    st = BlockStructure(MIXED_BLK, "pow2", 64, pack_to)
+    assert any(bk.packed for bk in st.buckets) == bool(pack_to)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(st.vec_len) * 3
+    x[:20] *= 1e-3
+    jm = jsvec.device_maps(st, jnp.float64)
+    tm = tsvec.device_maps(st, torch.float64, CPU)
+    pool = np.array(jsvec.pool_from_svec(jnp.asarray(x), jm))
+    pj = np.asarray(jproj.psd_project_pool(jnp.asarray(pool), jm, eig_rank=eig_rank, method="eigh"))
+    pt = tproj.psd_project_pool(torch.as_tensor(pool), tm, eig_rank=eig_rank).numpy()
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("method", ["poly", "jacobi"])
+def test_unported_methods_raise(method):
+    st = BlockStructure([("s", 3)], "pow2", 64, 0)
+    tm = tsvec.device_maps(st, torch.float64, CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tproj.psd_project_pool(torch.zeros(st.pool_len, dtype=torch.float64), tm, method=method)
+
+
+def test_non_finite_block_stays_nan():
+    """torch's eigh raises on NaN input where XLA's returns NaN; the port
+    keeps NaN on the bad block only, so the driver's divergence guard sees
+    it and every other block is projected as usual."""
+    st = BlockStructure([("s", 3), ("s", 3), ("s", 2)], "exact", 64, 0)
+    tm = tsvec.device_maps(st, torch.float64, CPU)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(st.pool_len))
+    ref = tproj.psd_project_pool(x, tm)
+    x[4] = float("nan")  # first 3x3 block (buckets are ordered by size: 2x2 first)
+    out = tproj.psd_project_pool(x, tm)
+    assert torch.isnan(out[4:13]).all() and not torch.isnan(out[:4]).any()
+    torch.testing.assert_close(out[:4], ref[:4], rtol=0, atol=0)
+    torch.testing.assert_close(out[13:], ref[13:], rtol=0, atol=0)
