@@ -4,7 +4,9 @@ The port of ``cuadmm_tpu`` (JAX) to PyTorch for NVIDIA Hopper. It imports
 torch and never jax; ``cuadmm_tpu`` stays the reference its tests compare
 against. Ported so far: float64 state with the ``precond`` normal solver,
 whose factor application runs the hand-written CUDA kernel K1
-(ops/precond_apply.py), and the ``eigh`` PSD projection.
+(ops/precond_apply.py), and the PSD projection with its "eigh", "poly",
+"jacobi" and calibrated "auto" methods; "jacobi" runs the hand-written
+CUDA kernel K4 (ops/jacobi.py).
 
 Public API:
     Problem        -- problem container + TXT loader

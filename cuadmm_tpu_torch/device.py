@@ -6,6 +6,8 @@ was asked for and is absent raises, it does not drop to the CPU.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -30,6 +32,15 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r} (cuda or cpu)")
     return dev
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` prints them:
+    the label every time measured on it carries."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def synchronize(device: torch.device) -> None:

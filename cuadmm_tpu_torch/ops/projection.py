@@ -1,17 +1,28 @@
 """Projection onto the product of PSD cones, in pool coordinates.
 
-Port of cuadmm_tpu/ops/projection.py (psd_project_pool with the "eigh"
-method, reconstruct_clamped). Each size bucket is one batched
-``torch.linalg.eigh`` (cuSOLVER on the card) and one batched
-V diag(max(w, 0)) V^T product; 1x1 buckets are clamped. The "poly" and
-"jacobi" methods are not ported yet and raise.
+Port of cuadmm_tpu/ops/projection.py (psd_project_pool,
+reconstruct_clamped). Each size bucket is projected by one of three
+methods, per bucket when ``method`` is a dict:
+
+- "eigh": batched ``torch.linalg.eigh`` (cuSOLVER on the card), then one
+  batched V diag(max(w, 0)) V^T product. eigh checks its solver's status
+  on the host, so on CUDA each call waits for the device.
+- "jacobi": the batched Jacobi eigh of ops/jacobi.py (the CUDA kernel K4 on
+  the card; no host wait), then the same product.
+- "poly": the matmul-only polynomial filter of ops/polyfilter.py.
+
+1x1 buckets are clamped.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
+
+from cuadmm_tpu_torch.ops.dispatch import bucket_method
+from cuadmm_tpu_torch.ops.jacobi import jacobi_eigh
+from cuadmm_tpu_torch.ops.polyfilter import psd_project_poly
 
 
 def reconstruct_clamped(
@@ -25,33 +36,38 @@ def reconstruct_clamped(
     return (v * wc.unsqueeze(-2)) @ v.transpose(-1, -2)
 
 
+def _eigh_project(bt: torch.Tensor, eig_rank: Optional[int]) -> torch.Tensor:
+    # eigh raises on non-finite input where XLA returns NaN. Project a
+    # zeroed copy and put NaN back on those blocks, so a diverging iterate
+    # reaches the driver's divergence guard as it does in JAX.
+    finite = torch.isfinite(bt)
+    w, v = torch.linalg.eigh(torch.where(finite, bt, 0.0))
+    proj = reconstruct_clamped(w, v, eig_rank)
+    return torch.where(finite.all(dim=-1).all(dim=-1)[:, None, None], proj, torch.nan)
+
+
 def psd_project_pool(
     P: torch.Tensor,
     maps: Dict[str, Any],
     eig_rank: Optional[int] = None,
-    method: str = "eigh",
+    method: Union[str, Dict[int, str]] = "eigh",
 ) -> torch.Tensor:
     """Project a pool-coordinate vector onto the product cone.
 
     Each bucket's (count, n, n) tensor is a reshape of a pool segment. The
-    projected bucket is multiplied by its 0/1 padding mask so eigh round-off
+    projected bucket is multiplied by its 0/1 padding mask so round-off
     never leaks into padded positions. Free entries pass through unchanged.
-
-    ``torch.linalg.eigh`` checks its solver's status on the host, so on
-    CUDA each call waits for the device.
+    ``method`` is one method for every bucket, or a dict from bucket index
+    to method (the calibrated dispatch of ops/dispatch.py, ``bucket_method``).
     """
-    if method != "eigh":
-        raise NotImplementedError(
-            f"projection={method!r} is not ported yet (ROADMAP.md queue 1: "
-            "'Projection: poly and jacobi methods'); the port has 'eigh'"
-        )
     parts = []
-    for bm in maps["buckets"]:
+    for i, bm in enumerate(maps["buckets"]):
         count, n, base = bm["count"], bm["n"], bm["base"]
         seg = P[base : base + count * n * n]
         if n == 1:
             parts.append(torch.clamp(seg, min=0.0))
             continue
+        meth = bucket_method(method, i)
         bt = seg.reshape(count, n, n)
         packed = bm["packed"]
         if packed:
@@ -65,13 +81,14 @@ def psd_project_pool(
             ok = norms > torch.finfo(bt.dtype).tiny * 16
             s_blk = torch.where(ok, 1.0 / torch.where(ok, norms, 1.0), 1.0)
             bt = bt * s_blk[gid][:, :, None]
-        # eigh raises on non-finite input where XLA returns NaN. Project a
-        # zeroed copy and put NaN back on those blocks, so a diverging
-        # iterate reaches the driver's divergence guard as it does in JAX.
-        finite = torch.isfinite(bt)
-        w, v = torch.linalg.eigh(torch.where(finite, bt, 0.0))
-        proj = reconstruct_clamped(w, v, eig_rank)
-        proj = torch.where(finite.all(dim=-1).all(dim=-1)[:, None, None], proj, torch.nan)
+        if meth == "poly":
+            proj = psd_project_poly(bt)
+        elif meth == "jacobi":
+            proj = reconstruct_clamped(*jacobi_eigh(bt), eig_rank)
+        elif meth == "eigh":
+            proj = _eigh_project(bt, eig_rank)
+        else:
+            raise ValueError(f"unknown projection method {meth!r} for bucket {i}")
         if packed:
             proj = proj * torch.where(ok, norms, 1.0)[gid][:, :, None]
         parts.append((proj * bm["pad_mask"]).reshape(-1))

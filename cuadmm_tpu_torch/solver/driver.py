@@ -21,7 +21,9 @@ import torch
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import resolve_device, synchronize
 from cuadmm_tpu_torch.ops import chol as chol_ops
+from cuadmm_tpu_torch.ops import jacobi
 from cuadmm_tpu_torch.ops import sparse as sparse_ops
+from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
@@ -91,20 +93,28 @@ class SDPSolver:
             self.init_breakdown[name] = round(now - last[0], 3)
             last[0] = now
 
-        # projection="auto" has no calibration table for CUDA (the JAX
-        # package's tables are cpu and tpu), so it means eigh, as the JAX
-        # driver does without a table; eig_rank forces eigh there too.
-        self._projection = cfg.projection
-        if cfg.eig_rank is not None or self._projection == "auto":
-            self._projection = "eigh"
-        if self._projection != "eigh":
-            raise NotImplementedError(
-                f"projection={self._projection!r} is not ported yet (ROADMAP.md "
-                "queue 1: 'Projection: poly and jacobi methods'); use 'eigh'"
-            )
-        # pack_to=None means off away from a TPU (driver.py:104-106).
+        # eig_rank needs explicit eigenvalues and per-block top-k, so it
+        # forces eigh and no packing. pack_to=None means off away from a TPU
+        # (cuadmm_tpu/solver/driver.py:101-106).
+        self._projection = "eigh" if cfg.eig_rank is not None else cfg.projection
         pack_to = 0 if cfg.pack_to is None or cfg.eig_rank is not None else cfg.pack_to
         self.structure = BlockStructure(prob.blk, cfg.bucket_rounding, cfg.exact_above, pack_to)
+        if self._projection == "auto":
+            # Calibrated per-bucket dispatch from the committed sweep of this
+            # device's backend; without a table, eigh (as the JAX driver does
+            # off a TPU).
+            per_bucket = choose_methods(
+                [(bk.n, bk.count) for bk in self.structure.buckets], self.device.type, "float64"
+            )
+            self._projection = "eigh" if per_bucket is None else per_bucket
+            if per_bucket is None and cfg.verbose:
+                print(
+                    f"projection='auto': no calibration table for {self.device.type}/float64 "
+                    "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
+                )
+        for i, bk in enumerate(self.structure.buckets):  # fail before the factorization
+            if bucket_method(self._projection, i) == "jacobi":
+                jacobi.check_size(bk.n)
         if self.structure.vec_len != prob.vec_len:
             raise ValueError("block structure does not match problem vec_len")
         vec_len, con_num = prob.vec_len, prob.con_num
@@ -214,11 +224,11 @@ class SDPSolver:
     def _recovery_restart(self, state: SolverState, level: int) -> SolverState:
         """Escalated numerics + restart iterate after a non-finite chunk.
 
-        Level 1 adds two refinement sweeps to the normal solver (the JAX
-        package also forces the eigh projection for a while, which is the
-        port's only projection). Level 2 swaps in the factor-free CG solver,
-        which is not ported yet, so it raises. The iterate restarts from the
-        best finite iterate seen so far, else from the initial point.
+        Level 1 adds two refinement sweeps to the normal solver; ``solve``
+        also runs the eigh projection for a probation window. Level 2 swaps
+        in the factor-free CG solver, which is not ported yet, so it raises.
+        The iterate restarts from the best finite iterate seen so far, else
+        from the initial point.
         """
         if level != 1:
             raise NotImplementedError(
@@ -277,16 +287,23 @@ class SDPSolver:
 
         state = self._initial_state(X_s, y_s, S_s, sig)
         it_host = 0  # iterations ``state`` has completed (see make_step)
-        step = make_step(
-            stop_tol=stop_tol,
-            switch_admm=cfg.switch_admm,
-            sig_update_threshold=cfg.sig_update_threshold,
-            sig_update_stage_1=cfg.sig_update_stage_1,
-            sig_min=cfg.sig_min,
-            sig_max=cfg.sig_max,
-            eig_rank=cfg.eig_rank,
-            projection=self._projection,
-        )
+
+        def mk_step(projection):
+            # The projection is the only option that changes within a solve
+            # (the probation window below); every other option is fixed here,
+            # so swapping the projection back drops nothing else.
+            return make_step(
+                stop_tol=stop_tol,
+                switch_admm=cfg.switch_admm,
+                sig_update_threshold=cfg.sig_update_threshold,
+                sig_update_stage_1=cfg.sig_update_stage_1,
+                sig_min=cfg.sig_min,
+                sig_max=cfg.sig_max,
+                eig_rank=cfg.eig_rank,
+                projection=projection,
+            )
+
+        step = mk_step(self._projection)
 
         log = IterLogger(enabled=cfg.verbose)
         log.header(self.scaling.norm_Corg, self.scaling.norm_borg)
@@ -300,7 +317,14 @@ class SDPSolver:
         diverged = False
         recoveries = 0
         converged = float(torch.maximum(state.maxfeas, state.relgap)) < stop_tol
+        # After a divergence recovery the step runs the exact eigh projection
+        # for a probation window of 5 checks, then the configured projection
+        # comes back (cuadmm_tpu/solver/driver.py:516-524,580-583).
+        eigh_until = -1
         while it_done < max_iter and not converged:
+            if eigh_until >= 0 and it_done >= eigh_until:
+                step = mk_step(self._projection)
+                eigh_until = -1
             chunk = min(cfg.check_every, max_iter - it_done)
             # Trace one steady-state chunk (the second; the first pays the
             # kernel build and library warm-up).
@@ -335,10 +359,12 @@ class SDPSolver:
                         print(
                             f"  [recovery {recoveries}] non-finite residuals at "
                             f"iteration {it_done}; restarting from best iterate "
-                            "with escalated numerics (+2 refinement sweeps)"
+                            "with escalated numerics (eigh projection, +2 refinement sweeps)"
                         )
                     state = self._recovery_restart(state, recoveries)
                     it_host = 0
+                    step = mk_step("eigh")
+                    eigh_until = it_done + 5 * cfg.check_every
                     continue
                 diverged = True
                 break

@@ -18,7 +18,7 @@ device-side select over every state field.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -62,9 +62,12 @@ def make_step(
     sig_min: float,
     sig_max: float,
     eig_rank: Optional[int] = None,
-    projection: str = "eigh",
+    projection: Union[str, Dict[int, str]] = "eigh",
 ):
     """Build ``step(state, params, it_host) -> (state, info_row)``.
+
+    ``projection`` is one method for every bucket or the per-bucket dict of
+    the calibrated dispatch; it goes to ``psd_project_pool`` unchanged.
 
     ``it_host`` is the host's count of the iterations ``state`` has
     completed. It picks the sGS or ADMM branch on the host, where the JAX

@@ -1,4 +1,5 @@
-"""PSD projection of the port against cuadmm_tpu.ops.projection (eigh, f64)."""
+"""PSD projection of the port against cuadmm_tpu.ops.projection (f64):
+the eigh, jacobi and poly methods, a per-bucket dict, and packing."""
 
 import numpy as np
 import pytest
@@ -38,12 +39,61 @@ def test_psd_project_pool_matches_jax(pack_to, eig_rank):
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-10)
 
 
+def _pools(blk, pack_to, seed=4):
+    st = BlockStructure(blk, "pow2", 64, pack_to)
+    x = np.random.default_rng(seed).standard_normal(st.vec_len) * 3
+    x[:20] *= 1e-3
+    jm = jsvec.device_maps(st, jnp.float64)
+    tm = tsvec.device_maps(st, torch.float64, CPU)
+    return st, jm, tm, np.array(jsvec.pool_from_svec(jnp.asarray(x), jm))
+
+
+@pytest.mark.parametrize(
+    "method,pack_to",
+    [("jacobi", 0), ("poly", 0), ("jacobi", 8), ("poly", 8), ("poly", 128),
+     ({0: "eigh", 1: "jacobi", 2: "poly"}, 0), ({0: "poly"}, 128)],
+    ids=["jacobi", "poly", "jacobi_packed", "poly_packed", "poly_pack128", "dict", "dict_pack128"],
+)
+def test_methods_match_jax(method, pack_to):
+    st, jm, tm, pool = _pools(MIXED_BLK + [("s", 12), ("s", 9)], pack_to)
+    assert any(bk.packed for bk in st.buckets) == bool(pack_to)
+    if pack_to == 128:
+        assert [bk.n for bk in st.buckets] == [1, 128]
+    pj = np.asarray(jproj.psd_project_pool(jnp.asarray(pool), jm, method=method))
+    pt = tproj.psd_project_pool(torch.as_tensor(pool), tm, method=method).numpy()
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-10 * np.abs(pool).max())
+
+
 @pytest.mark.parametrize("method", ["poly", "jacobi"])
 def test_unported_methods_raise(method):
-    st = BlockStructure([("s", 3)], "pow2", 64, 0)
+    """Only the Jacobi kernel's size bound is left unported: a bucket past
+    n = 64 raises for "jacobi" (naming its ROADMAP item), while "poly"
+    projects it as the JAX package does."""
+    st, jm, tm, pool = _pools([("s", 3), ("s", 70)], 0)
+    assert max(bk.n for bk in st.buckets) > 64
+    if method == "jacobi":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tproj.psd_project_pool(torch.as_tensor(pool), tm, method=method)
+        return
+    pj = np.asarray(jproj.psd_project_pool(jnp.asarray(pool), jm, method=method))
+    pt = tproj.psd_project_pool(torch.as_tensor(pool), tm, method=method).numpy()
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-10 * np.abs(pool).max())
+
+
+@pytest.mark.parametrize("method", ["jacobi", "poly"])
+def test_non_finite_block_stays_non_finite(method):
+    """The jacobi and poly routes mask nothing: a non-finite block comes out
+    non-finite, the other blocks as they would without it."""
+    st = BlockStructure([("s", 3), ("s", 3), ("s", 2)], "exact", 64, 0)
     tm = tsvec.device_maps(st, torch.float64, CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tproj.psd_project_pool(torch.zeros(st.pool_len, dtype=torch.float64), tm, method=method)
+    svec = torch.as_tensor(np.random.default_rng(1).standard_normal(st.vec_len))
+    x = tsvec.pool_from_svec(svec, tm)  # symmetric blocks, as the solver's
+    ref = tproj.psd_project_pool(x, tm, method=method)
+    x[4] = float("inf")  # diagonal entry of the first 3x3 block
+    out = tproj.psd_project_pool(x, tm, method=method)
+    assert not torch.isfinite(out[4:13]).all() and torch.isfinite(out[:4]).all()
+    torch.testing.assert_close(out[:4], ref[:4], rtol=0, atol=0)
+    torch.testing.assert_close(out[13:], ref[13:], rtol=0, atol=0)
 
 
 def test_non_finite_block_stays_nan():

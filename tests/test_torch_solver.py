@@ -1,11 +1,14 @@
-"""The whole port slice against cuadmm_tpu's SDPSolver (f64, precond/eigh).
+"""The whole port slice against cuadmm_tpu's SDPSolver (f64, precond).
 
-Both solvers run the same problem with ``normal_solver="precond"``,
-``projection="eigh"`` and ``precond_applies=4`` pinned. Info rows agree to
-rtol 1e-6: the port's normal solve applies an f32 inverse factor with f64
-refinement where the JAX package on the CPU uses an f64 cho_solve, and
-300 iterations carry the difference along.
+Both solvers run the same problem with ``normal_solver="precond"``, the
+projection and ``precond_applies=4`` pinned. Info rows agree to rtol 1e-6:
+the port's normal solve applies an f32 inverse factor with f64 refinement
+where the JAX package on the CPU uses an f64 cho_solve, and 300
+iterations carry the difference along.
 """
+
+import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -37,8 +40,17 @@ def _chordal():
     return prob
 
 
+def _grid(rows=4, cols=6):
+    """Max-cut on the 4-neighbour rows x cols grid graph: mixed block sizes."""
+    path = lambda k: sp.diags([np.ones(k - 1)], [1], shape=(k, k))
+    W = sp.kron(sp.eye(rows), path(cols)) + sp.kron(path(rows), sp.eye(cols))
+    prob, _ = maxcut_chordal((W + W.T).tocsr())
+    return prob
+
+
 def _both(prob, **cfg):
-    kw = dict(verbose=False, normal_solver="precond", projection="eigh", precond_applies=4, **cfg)
+    kw = dict(verbose=False, normal_solver="precond", projection="eigh", precond_applies=4)
+    kw.update(cfg)
     j = cuadmm_tpu.SDPSolver(prob, cuadmm_tpu.SolverConfig(**kw))
     t = cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(**kw), device="cpu")
     return j, t
@@ -86,10 +98,111 @@ def test_unported_configurations_raise():
     prob = _certified()
     with pytest.raises(NotImplementedError, match="float32"):
         cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="poly"):
+    # The Jacobi kernel's size bound: a 70x70 block fails before the factorization.
+    big, *_ = random_certified_sdp([("s", 3), ("s", 70)], con_num=12, seed=3)
+    with pytest.raises(NotImplementedError, match="jacobi"):
         cuadmm_tpu_torch.SDPSolver(
-            prob, cuadmm_tpu_torch.SolverConfig(projection="poly", normal_solver="precond"), device="cpu"
+            big, cuadmm_tpu_torch.SolverConfig(projection="jacobi", normal_solver="precond"), device="cpu"
         )
+
+
+@pytest.mark.parametrize("projection", ["jacobi", "poly"])
+def test_grid_slice_matches_jax(projection):
+    """The slice as a whole: a 4x6 grid max-cut (blocks of sizes 3 to 6 in
+    pow2 buckets 4 and 8) through both solvers with one projection."""
+    prob = _grid()
+    j, t = _both(prob, projection=projection, switch_admm=25, check_every=10)
+    assert len(t.structure.buckets) >= 2 and t._projection == projection
+    rj = j.solve(max_iter=50, stop_tol=0.0)
+    rt = t.solve(max_iter=50, stop_tol=0.0)
+    assert rj.iterations == rt.iterations == 50
+    for f in FIELDS:
+        np.testing.assert_allclose(rt.info[f], rj.info[f], rtol=1e-6, atol=0, err_msg=f)
+
+
+@pytest.fixture
+def cpu_tables(tmp_path, monkeypatch):
+    """Both packages' dispatch tables pointed at one throwaway directory."""
+    from cuadmm_tpu.ops import dispatch as jdisp
+
+    from cuadmm_tpu_torch.ops import dispatch as tdisp
+
+    monkeypatch.setattr(jdisp, "_DATA_DIR", str(tmp_path))
+    monkeypatch.setattr(tdisp, "_DATA_DIR", str(tmp_path))
+    return tmp_path
+
+
+def test_auto_per_bucket_dict_matches_jax(cpu_tables):
+    """projection="auto" with a table that picks a different method for each
+    of the grid's buckets: both solvers resolve the same per-bucket dict and
+    run it to the same info rows."""
+    rows = [
+        {"n": 4, "batch": 10, "eigh_ms": 3.0, "poly_ms": 2.0, "jacobi_ms": 1.0},
+        {"n": 8, "batch": 10, "eigh_ms": 3.0, "poly_ms": 1.0, "jacobi_ms": 2.0},
+    ]
+    with open(cpu_tables / "eig_sweep_cpu_float64.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    j, t = _both(_grid(), projection="auto", switch_admm=25, check_every=10)
+    assert t._projection == j._projection == {0: "jacobi", 1: "poly"}
+    rj = j.solve(max_iter=50, stop_tol=0.0)
+    rt = t.solve(max_iter=50, stop_tol=0.0)
+    for f in FIELDS:
+        np.testing.assert_allclose(rt.info[f], rj.info[f], rtol=1e-6, atol=0, err_msg=f)
+
+
+def test_auto_reads_the_cpu_table_and_eig_rank_forces_eigh():
+    prob = _grid()
+    j, t = _both(prob, projection="auto", pack_to=8)
+    assert isinstance(t._projection, dict) and t._projection == j._projection
+    cfg = cuadmm_tpu_torch.SolverConfig(
+        verbose=False, normal_solver="precond", projection="jacobi", pack_to=128, eig_rank=2
+    )
+    s = cuadmm_tpu_torch.SDPSolver(prob, cfg, device="cpu")
+    assert s._projection == "eigh" and not any(bk.packed for bk in s.structure.buckets)
+
+
+def test_probation_window_after_recovery(monkeypatch):
+    """A poisoned factor makes the first chunk non-finite; level-1 recovery
+    (here also given back the good factor) runs the eigh projection for
+    5 * check_every iterations, then the configured projection returns."""
+    from cuadmm_tpu_torch.solver import driver, step as step_mod
+
+    check_every = 4
+    cfg = cuadmm_tpu_torch.SolverConfig(
+        verbose=False, check_every=check_every, normal_solver="precond",
+        projection="jacobi", switch_admm=10**9,
+    )
+    s = cuadmm_tpu_torch.SDPSolver(_grid(), cfg, device="cpu")
+    good = s.params.neq
+    s.params = dataclasses.replace(
+        s.params, neq=dataclasses.replace(good, inv_l=torch.full_like(good.inv_l, float("nan")))
+    )
+    restart = driver.SDPSolver._recovery_restart
+
+    def restart_and_repair(self, state, level):
+        out = restart(self, state, level)
+        self.params = dataclasses.replace(self.params, neq=dataclasses.replace(good, applies=good.applies + 2))
+        return out
+
+    monkeypatch.setattr(driver.SDPSolver, "_recovery_restart", restart_and_repair)
+    methods = []
+    project = step_mod.psd_project_pool
+
+    def recording(P, maps, eig_rank=None, method="eigh"):
+        methods.append(method)
+        return project(P, maps, eig_rank=eig_rank, method=method)
+
+    monkeypatch.setattr(step_mod, "psd_project_pool", recording)
+    res = s.solve(max_iter=1 + 7 * check_every, stop_tol=0.0)
+    assert res.recoveries == 1 and not res.diverged
+    assert np.all(np.isfinite(res.info["errRp"][1:]))
+    # The first chunk runs jacobi and diverges at its first iteration (the
+    # guard reads the chunk's rows after all of it ran). The next five chunks
+    # (5 * check_every iterations) run eigh, then jacobi returns.
+    k = 5 * check_every
+    assert methods[:check_every] == ["jacobi"] * check_every
+    assert methods[check_every : check_every + k] == ["eigh"] * k
+    assert methods[check_every + k :] == ["jacobi"] * (7 * check_every - k)
 
 
 def test_cuda_requested_without_cuda_raises():
@@ -111,8 +224,6 @@ def test_divergence_guard_and_recovery_levels():
     """A poisoned factor makes the first chunk non-finite. Without recovery
     the solve aborts; with it, level 1 (+2 refinement sweeps) cannot help
     and level 2 (the CG rebuild, not ported yet) raises plainly."""
-    import dataclasses
-
     cfg = cuadmm_tpu_torch.SolverConfig(
         verbose=False, check_every=10, normal_solver="precond", switch_admm=10**9
     )
