@@ -5,8 +5,9 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. require CUDA and print the card's name and power limit;
-2. build the CUDA kernels K1 (csrc/precond_apply.cu) and K4
-   (csrc/jacobi_eigh.cu) into build/, one nvcc each, both at once;
+2. build the CUDA kernels K1 (csrc/precond_apply.cu), K4
+   (csrc/jacobi_eigh.cu) and K2/K3 (csrc/tri_stream.cu) into build/, one
+   nvcc each, all at once;
 3. hold K1 against its plain PyTorch version at n_pad 128, 1024, 17152 and
    32768 (relative error <= 1e-5), with both times from CUDA events;
 4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
@@ -31,7 +32,23 @@ Phases, in order; any failure raises and exits non-zero:
    the stand-in and, for "jacobi", on K4 having run on every bucket of
    every iteration; host syncs per iteration of each method; a profile of
    "jacobi" and "eigh"; "auto" again with pack_to=128;
-7. solve a certified random SDP to 1e-6 and match its known optimum.
+7. hold K2 (packed_solve) and K3 (band_solve) against their plain versions
+   on synthetic factors made on the card (diagonal tiles near the
+   identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at six layouts,
+   one at a time: packed n=256/B=128, packed at the large grid's (nb 67,
+   T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the large grid's
+   (nb 67, nbw 1), pendulum N=80's (n 112,028, bandwidth 1,615: nb 110,
+   nbw 2) and PushBox N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21,
+   13.9 GB); relative error <= 1e-5, both times from CUDA events;
+8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
+   20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
+   projection "auto", 100 warm and 200 timed iterations, with
+   normal_solver "auto" (resolves to banded: RCM bandwidth 4, B 1024,
+   nb 67, nbw 1) and "packed", each gated on the probe rhs residual, finite
+   and decreasing residuals and K3 (resp. K2) on every refinement sweep;
+   the two runs' last errRp agree to 1e-6; host syncs per iteration of
+   each, a profile of the banded run;
+9. solve a certified random SDP to 1e-6 and match its known optimum.
 
 The next-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Everything printed also goes to
@@ -54,7 +71,7 @@ from cuadmm_tpu_torch import SDPSolver, SolverConfig, _build
 from cuadmm_tpu_torch.device import card_line
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops import jacobi, precond_apply
+from cuadmm_tpu_torch.ops import jacobi, precond_apply, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
@@ -75,6 +92,20 @@ GRID = (20, 60)
 GRID_BUCKETS = ((4, 80), (8, 598), (16, 182), (32, 49), (64, 11))
 GRID_N_PAD = 32512
 GRID_WARM, GRID_ITERS, SYNC_ITERS = 100, 200, 10
+# K2/K3's layouts, (label, layout); "grid" are the large grid's own.
+TRI_LAYOUTS = (
+    ("packed probe", tri_stream.make_layout(256, 128)),
+    ("packed grid", tri_stream.make_layout(68350)),
+    ("band probe", tri_stream.make_band_layout(512, 128, 128)),
+    ("band grid", tri_stream.make_band_layout(68350, 4)),
+    ("band pendulum N=80", tri_stream.make_band_layout(112028, 1615)),
+    ("band PushBox N=30", tri_stream.make_band_layout(154256, 20512)),
+)
+TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain version's
+TRI_REPS = 5
+LARGE_GRID = (20, 120)
+LARGE_GRID_CON = 68350
+ERRRP_AGREE = 1e-6  # banded and packed: same iteration, another f32 factor
 REPORT = Path("chiprun_out") / "chip_smoke.json"
 report: dict = {}  # everything printed, written to REPORT at the end
 
@@ -101,7 +132,7 @@ def card() -> str:
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("precond_apply", "jacobi_eigh")
+    names = ("precond_apply", "jacobi_eigh", "tri_stream")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -235,7 +266,9 @@ def _gates(res, vec_len: int, what: str) -> None:
 KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
     "k4": ("jacobi_eigh_kernel",),
+    "k2k3": ("offdiag_kernel", "diag_kernel"),
 }
+FACTOR_KERNEL = {"precond": "k1", "packed": "k2", "banded": "k3"}  # each normal-solver mode's kernel
 
 
 def profile_window(solver, timed_ms_per_it: float) -> dict:
@@ -289,21 +322,25 @@ def timed_run(solver, iters: int, warm: int = 100):
     solver.solve(max_iter=warm, stop_tol=0.0)
     torch.cuda.synchronize()
     precond_apply.LAUNCHES = jacobi.LAUNCHES = 0
+    tri_stream.LAUNCHES.update(packed_solve=0, band_solve=0)
     t0 = time.perf_counter()
     res = solver.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES)
+    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES,
+                  k2=tri_stream.LAUNCHES["packed_solve"], k3=tri_stream.LAUNCHES["band_solve"])
     check(res.iterations == iters, f"ran {res.iterations} of {iters} iterations")
     return res, elapsed, counts
 
 
 def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str) -> None:
-    """K1 on every refinement sweep; K4 on every jacobi bucket of every
-    iteration, and nowhere else."""
+    """The normal solver's kernel (K1, K2 or K3 by its mode) on every
+    refinement sweep; K4 on every jacobi bucket of every iteration, and
+    nowhere else."""
     applies = solver.params.neq.applies
-    check(counts["k1"] >= iters * solves * applies,
-          f"{what}: K1 launched {counts['k1']} times, fewer than {iters}x{solves}x{applies} sweeps")
+    k = FACTOR_KERNEL[solver.params.neq.mode]
+    check(counts[k] >= iters * solves * applies,
+          f"{what}: {k} launched {counts[k]} times, fewer than {iters}x{solves}x{applies} sweeps")
     k4_buckets = sum(m == "jacobi" and bk.n > 1
                      for m, bk in zip(_methods(solver), solver.structure.buckets))
     check(counts["k4"] >= iters * k4_buckets and (k4_buckets or counts["k4"] == 0),
@@ -355,8 +392,8 @@ def standin() -> int:
     return launches
 
 
-def grid_problem():
-    rows, cols = GRID
+def grid_problem(shape=GRID):
+    rows, cols = shape
     path = lambda k: sp.diags([np.ones(k - 1)], [1], shape=(k, k))
     W = sp.kron(sp.eye(rows), path(cols)) + sp.kron(path(rows), sp.eye(cols))
     return maxcut_chordal((W + W.T).tocsr())[0]
@@ -429,6 +466,111 @@ def grid() -> int:
     return launches
 
 
+def _synthetic_factor(lay, seed: int) -> torch.Tensor:
+    """A well-conditioned synthetic factor on the card, made in place:
+    diagonal tiles near the identity, off-diagonal tiles N(0, 1/(B nbw))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B = lay.block
+    packed = isinstance(lay, tri_stream.PackedLayout)
+    nbw = lay.nb - 1 if packed else lay.nbw
+    tiles = torch.empty((lay.T + 1, B, B), device="cuda").normal_(generator=gen)
+    tiles.mul_(1.0 / (B * max(nbw, 1)) ** 0.5)
+    eye = torch.eye(B, device="cuda")
+    for k in range(lay.nb):
+        t = tri_stream.tid(k, k) if packed else tri_stream.tid_band(k, k, lay)
+        tiles[t].mul_(0.1).add_(eye)
+    return tiles
+
+
+def compare_tri_stream() -> dict:
+    """K2 and K3 against their plain versions at each TRI_LAYOUTS layout,
+    one at a time; times in turns (plain, kernel, kernel, plain). Returns
+    the kernel-table numbers at the large grid's own layouts."""
+    at_grid = {}
+    for i, (label, lay) in enumerate(TRI_LAYOUTS):
+        packed = isinstance(lay, tri_stream.PackedLayout)
+        kernel = tri_stream.packed_solve if packed else tri_stream.band_solve
+        plain = tri_stream.packed_solve_ref if packed else tri_stream.band_solve_ref
+        tiles = _synthetic_factor(lay, seed=100 + i)
+        r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(i))
+        y = kernel(tiles, r, lay)
+        ref = plain(tiles, r, lay)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+        max_abs = float((y - ref).abs().max())
+        check(bool(torch.isfinite(y).all()) and rel <= TRI_REL_TOL, f"{label}: rel err {rel:.3e}")
+        p1 = _time_ms(lambda: plain(tiles, r, lay), 1)
+        k_1 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
+        k_2 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
+        p2 = _time_ms(lambda: plain(tiles, r, lay), 1)
+        k_ms, p_ms = (k_1 + k_2) / 2, (p1 + p2) / 2
+        tiles_read = 2 * len(tri_stream._sweep_tables(lay)[0][0])  # both sweeps
+        gbs = tiles_read * lay.block**2 * 4 / (k_ms * 1e-3) / 1e9
+        row = dict(layout=label, kind="packed" if packed else "band", n=lay.n, block=lay.block,
+                   nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T,
+                   factor_gb=lay.T * lay.block**2 * 4 / 1e9, rel_err=rel, max_abs_err=max_abs,
+                   ms=k_ms, plain_ms=p_ms, gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
+        print("K2/K3 " + json.dumps(row), flush=True)
+        report.setdefault("k2k3", []).append(row)
+        if label.endswith("grid"):
+            at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms)
+        del tiles, r, y, ref
+        torch.cuda.empty_cache()
+    return at_grid
+
+
+def large_grid() -> dict:
+    """The 20x120 grid past dense_chol_max: normal_solver "auto" (banded)
+    and "packed", each timed, gated and counted; returns K2's and K3's
+    launch counts from those runs."""
+    t0 = time.perf_counter()
+    prob = grid_problem(LARGE_GRID)
+    emit("large grid problem", dict(
+        graph=f"{LARGE_GRID[0]}x{LARGE_GRID[1]} grid", con_num=prob.con_num, vec_len=prob.vec_len,
+        blocks=len(prob.blk), host_build_s=time.perf_counter() - t0))
+    check(prob.con_num == LARGE_GRID_CON, f"large grid con_num {prob.con_num}")
+    launches, last = {}, {}
+    for ns, mode, k in (("auto", "banded", "k3"), ("packed", "packed", "k2")):
+        what = f"large grid normal_solver={ns}"
+        cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0,
+                           projection="auto", normal_solver=ns)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = SDPSolver(prob, cfg, device="cuda")
+        init_s = time.perf_counter() - t0
+        neq = solver.params.neq
+        check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
+        if mode == "banded":
+            lay = tri_stream.BandLayout(*neq.band_layout)
+            check((lay.block, lay.nb, lay.nbw) == (1024, 67, 1), f"{what}: band layout {lay}")
+        else:
+            lay = tri_stream.PackedLayout(*neq.packed_layout)
+            check((lay.nb, lay.T) == (67, 2278), f"{what}: packed layout {lay}")
+        resid = _probe_normal_solve(solver, prob.con_num)
+        res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
+        _gates(res, prob.vec_len, what)
+        _gate_launches(solver, counts, GRID_ITERS, 1, what)
+        launches[k] = counts[k]
+        last[ns] = float(res.info["errRp"][-1])
+        out = dict(
+            it_per_s=GRID_ITERS / elapsed, init_s=init_s, mode=neq.mode, layout=lay._asdict(),
+            band_permuted=neq.band_perm is not None if mode == "banded" else None,
+            methods=_methods(solver), applies=neq.applies, eps_used=neq.eps_used, launches=counts,
+            residual_norm=resid, errRp_first=float(res.info["errRp"][0]), errRp_last=last[ns],
+            init_breakdown=solver.init_breakdown, host_syncs=host_syncs_per_iteration(solver),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        )
+        if mode == "banded":
+            out["profile"] = profile_window(solver, elapsed * 1e3 / GRID_ITERS)
+        emit(what, out)
+        del solver, neq, res
+        torch.cuda.empty_cache()
+    agree = abs(last["auto"] - last["packed"]) / abs(last["packed"])
+    emit("large grid errRp agreement", dict(banded=last["auto"], packed=last["packed"], rel=agree))
+    check(agree <= ERRRP_AGREE, f"large grid: banded and packed errRp differ by {agree:.3e}")
+    return launches
+
+
 def certified() -> None:
     blk = [("s", 6), ("s", 4), ("s", 6)]
     prob, _, _, _, opt = random_certified_sdp(blk, con_num=12, seed=3)
@@ -446,14 +588,20 @@ def main() -> None:
     build_kernels()
     k1 = compare_k1()
     k4 = compare_k4()
+    k2k3 = compare_tri_stream()
     k1_launches = standin()
     k4_launches = grid()
+    tri_launches = large_grid()
     certified()
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=k1_launches, **k1),
         dict(name="jacobi_eigh", route="cuda", source="cuadmm_tpu_torch/csrc/jacobi_eigh.cu",
              replaces="cuadmm_tpu/ops/jacobi.py:147", launches=k4_launches, **k4),
+        dict(name="packed_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
+             replaces="cuadmm_tpu/ops/tri_stream.py:264", launches=tri_launches["k2"], **k2k3["k2"]),
+        dict(name="band_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
+             replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"], **k2k3["k3"]),
     ]}
     report.update(kernels)
     REPORT.parent.mkdir(exist_ok=True)

@@ -2,9 +2,10 @@
 
 The port of ``cuadmm_tpu`` (JAX) to PyTorch for NVIDIA Hopper. It imports
 torch and never jax; ``cuadmm_tpu`` stays the reference its tests compare
-against. Ported so far: float64 state with the ``precond`` normal solver,
-whose factor application runs the hand-written CUDA kernel K1
-(ops/precond_apply.py), and the PSD projection with its "eigh", "poly",
+against. Ported so far: float64 state with the ``precond``, ``packed`` and
+``banded`` normal solvers, whose factor applications run the hand-written
+CUDA kernels K1 (ops/precond_apply.py) and K2/K3 (ops/tri_stream.py), and
+the PSD projection with its "eigh", "poly",
 "jacobi" and calibrated "auto" methods; "jacobi" runs the hand-written
 CUDA kernel K4 (ops/jacobi.py).
 

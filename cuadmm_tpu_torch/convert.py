@@ -1,8 +1,8 @@
 """Carry the JAX package's solver objects over to the port.
 
 Each function takes one of ``cuadmm_tpu``'s objects (SolverState,
-SolveParams, SparseA/EllTable, the ``device_maps`` dict, a precond
-NormalEqSolver) whose array fields are numpy arrays or anything
+SolveParams, SparseA/EllTable, the ``device_maps`` dict, a precond, packed or
+banded NormalEqSolver) whose array fields are numpy arrays or anything
 ``np.asarray`` reads, and returns the port's counterpart on ``device``.
 So one step of each package can start from identical state. This module
 never imports jax: it only reads attributes and converts arrays.
@@ -73,23 +73,35 @@ def maps_from_numpy(maps: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
-    """A precond NormalEqSolver. The JAX package keeps the padded f32
-    inverse factor only on an accelerator; from a CPU build (f64 factor
-    ``chol_l``) the port's inverse factor is formed the port's way."""
-    if neq.mode != "precond":
-        raise ValueError(f"only precond solvers carry over, got mode={neq.mode!r}")
-    if neq.inv_l is not None:
-        inv_l = _tensor(neq.inv_l, device).to(torch.float32)
-    else:
-        chol_l = _tensor(neq.chol_l, device).to(torch.float32)
-        inv_l = pad_factor(_tri_inv(chol_l))
-    return NormalEqSolver(
-        mode="precond",
-        inv_l=inv_l,
+    """A precond, packed or banded NormalEqSolver; factors become f32, the
+    port's factor dtype on every device.
+
+    precond: the JAX package keeps the padded f32 inverse factor only on an
+    accelerator; from a CPU build (f64 factor ``chol_l``) the port's inverse
+    factor is formed the port's way. packed and banded: the (T+1, B, B)
+    tiles one to one, the layout tuples, and the band's permutations."""
+    common = dict(
+        mode=neq.mode,
         sparse_a=sparse_a_from_numpy(neq.sparse_a, device),
         applies=int(neq.applies),
         eps_used=float(neq.eps_used),
     )
+    f32 = lambda x: _tensor(x, device).to(torch.float32)
+    if neq.mode == "precond":
+        inv_l = f32(neq.inv_l) if neq.inv_l is not None else pad_factor(_tri_inv(f32(neq.chol_l)))
+        return NormalEqSolver(inv_l=inv_l, **common)
+    if neq.mode == "packed":
+        return NormalEqSolver(
+            packed_tiles=f32(neq.packed_tiles), packed_layout=tuple(int(v) for v in neq.packed_layout),
+            **common,
+        )
+    if neq.mode == "banded":
+        return NormalEqSolver(
+            band_tiles=f32(neq.band_tiles), band_layout=tuple(int(v) for v in neq.band_layout),
+            band_perm=_opt(neq.band_perm, device), band_inv_perm=_opt(neq.band_inv_perm, device),
+            **common,
+        )
+    raise ValueError(f"only precond, packed and banded solvers carry over, got mode={neq.mode!r}")
 
 
 def state_from_numpy(state, device) -> SolverState:

@@ -1,7 +1,7 @@
 """SDPSolver: the user-facing solve driver.
 
-Port of cuadmm_tpu/solver/driver.py for float64 state and the precond
-normal solver. The iteration runs in chunks of ``config.check_every``
+Port of cuadmm_tpu/solver/driver.py for float64 state and the precond,
+packed and banded normal solvers. The iteration runs in chunks of ``config.check_every``
 steps between host-side convergence checks; a chunk queues its work on
 the device and its info rows come back in one copy at the chunk's end.
 """
@@ -84,7 +84,7 @@ class SDPSolver:
     def _init(self) -> None:
         prob, cfg = self.problem, self.config
         t0 = time.perf_counter()
-        self.init_breakdown: Dict[str, float] = {}
+        self.init_breakdown: Dict[str, object] = {}
         last = [t0]
 
         def mark(name: str) -> None:
@@ -141,7 +141,7 @@ class SDPSolver:
             prob.At_rows, prob.At_cols, at_vals, con_num, self.structure, self.dtype, self.device
         )
         mark("ell_tables")
-        neq_timings: Dict[str, float] = {}
+        neq_timings: Dict[str, object] = {}
         neq = chol_ops.build_normal_solver(
             prob.At_rows,
             prob.At_cols,
@@ -224,8 +224,10 @@ class SDPSolver:
     def _recovery_restart(self, state: SolverState, level: int) -> SolverState:
         """Escalated numerics + restart iterate after a non-finite chunk.
 
-        Level 1 adds two refinement sweeps to the normal solver; ``solve``
-        also runs the eigh projection for a probation window. Level 2 swaps
+        Level 1 adds two refinement sweeps to the normal solver, whatever
+        its mode (the JAX package skips banded, cuadmm_tpu/solver/driver.py:
+        356, a defect not copied); ``solve`` also runs the eigh projection
+        for a probation window. Level 2 swaps
         in the factor-free CG solver, which is not ported yet, so it raises.
         The iterate restarts from the best finite iterate seen so far, else
         from the initial point.

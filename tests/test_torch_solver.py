@@ -242,3 +242,50 @@ def test_divergence_guard_and_recovery_levels():
     with pytest.raises(NotImplementedError, match="level 2"):
         s.solve(max_iter=50, stop_tol=1e-6)
     assert s.params.neq.applies == applies + 2  # level 1 ran first
+
+
+@pytest.mark.parametrize("mode", ["packed", "banded"])
+def test_grid_packed_and_banded_match_jax(mode):
+    """The 8x12 grid max-cut (1,342 constraints) through both solvers with
+    the tiled factor: packed B 256, nb 6; banded B 512, nb 3 under a real
+    RCM permutation (natural bandwidth 1,261, RCM 4)."""
+    prob = _grid(8, 12)
+    assert prob.con_num == 1342
+    j, t = _both(prob, normal_solver=mode, switch_admm=25, check_every=10)
+    neq = t.params.neq
+    assert neq.mode == j.params.neq.mode == mode
+    if mode == "packed":
+        assert neq.packed_layout[2:4] == (256, 6)
+    else:
+        assert neq.band_layout[2:5] == (512, 3, 1) and neq.band_perm is not None
+        assert t.init_breakdown["neq.band_bw"] == 4
+    rj = j.solve(max_iter=50, stop_tol=0.0)
+    rt = t.solve(max_iter=50, stop_tol=0.0)
+    assert rj.iterations == rt.iterations == 50
+    for f in FIELDS:
+        np.testing.assert_allclose(rt.info[f], rj.info[f], rtol=1e-6, atol=0, err_msg=f)
+
+
+def test_auto_past_the_ceiling_raises_cg_on_the_cpu():
+    """auto past dense_chol_max resolves to cg on the CPU, as the JAX
+    package does there; cg is not ported yet."""
+    cfg = cuadmm_tpu_torch.SolverConfig(verbose=False, dense_chol_max=1000)
+    with pytest.raises(NotImplementedError, match="CG, FSAI"):
+        cuadmm_tpu_torch.SDPSolver(_grid(8, 12), cfg, device="cpu")
+
+
+def test_banded_level1_recovery_adds_two_sweeps():
+    """Level-1 recovery adds two refinement sweeps in banded mode too (the
+    JAX package's driver.py:356 skips banded; that defect is not copied).
+    Poisoned band tiles: level 1 cannot help and level 2 raises."""
+    cfg = cuadmm_tpu_torch.SolverConfig(
+        verbose=False, check_every=10, normal_solver="banded", switch_admm=10**9
+    )
+    s = cuadmm_tpu_torch.SDPSolver(_grid(), cfg, device="cpu")
+    neq = s.params.neq
+    assert neq.mode == "banded"
+    bad = dataclasses.replace(neq, band_tiles=torch.full_like(neq.band_tiles, float("nan")))
+    s.params = dataclasses.replace(s.params, neq=bad)
+    with pytest.raises(NotImplementedError, match="level 2"):
+        s.solve(max_iter=50, stop_tol=1e-6)
+    assert s.params.neq.mode == "banded" and s.params.neq.applies == neq.applies + 2
