@@ -9,13 +9,18 @@ Phases, in order; any failure raises and exits non-zero:
    (csrc/jacobi_eigh.cu) and K2/K3 (csrc/tri_stream.cu) into build/, one
    nvcc each, all at once;
 3. hold K1 against its plain PyTorch version at n_pad 128, 1024, 17152 and
-   32768 (relative error <= 1e-5), with both times from CUDA events;
+   32768 (relative error <= 1e-5), with both times from CUDA events and
+   one torch.linalg.multi_dot call (two cuBLAS matvecs) as library_ms;
 4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
-   8, 13, 16, 32, 45, 64 with the batch of the grid problem's bucket each
-   n falls in (80, 598, 182, 49, 11), in f64 and f32: sorted eigenvalues,
-   the projection V diag(w+) V^T and the orthogonality of V, relative to
-   the largest |entry|, within 1e-10 (f64) / 5e-5 (f32); K4, the plain
-   version and torch.linalg.eigh + reconstruction timed with CUDA events;
+   8, 13, 16, 32, 45, 64, 80, 128 with the batch of the grid problem's
+   bucket each n falls in (80, 598, 182, 49, 11; 56 at n = 128, the
+   bucket under pack_to=128), in f64 and f32, at full sweeps: sorted
+   eigenvalues, the projection V diag(w+) V^T and the orthogonality of V,
+   relative to the largest |entry|, within 1e-10 (f64) / 5e-5 (f32; 5e-5
+   n/32 past n = 64, see k4_tol); at n = 128 in f64 also against
+   torch.linalg.eigh; K4, the plain version, K4 + reconstruction, eigh +
+   reconstruction and eigh alone (library_ms) timed with CUDA events, and
+   us per rotation;
 5. run the stand-in problem (max-cut, chordally decomposed, banded graph
    n=1560 with off-diagonals 1..4: 17,110 constraints, 1,556 5x5 blocks)
    through SDPSolver in float64 with normal_solver and projection "auto":
@@ -31,7 +36,9 @@ Phases, in order; any failure raises and exits non-zero:
    (the committed CUDA table): 100 warm and 200 timed iterations, gated as
    the stand-in and, for "jacobi", on K4 having run on every bucket of
    every iteration; host syncs per iteration of each method; a profile of
-   "jacobi" and "eigh"; "auto" again with pack_to=128;
+   "jacobi" and "eigh"; "auto" again with pack_to=128; "jacobi" with
+   pack_to=128 (one 128x56 bucket: 20 warm, 50 timed iterations, gated on
+   K4 on that bucket every iteration);
 7. hold K2 (packed_solve) and K3 (band_solve) against their plain versions
    on synthetic factors made on the card (diagonal tiles near the
    identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at six layouts,
@@ -39,7 +46,9 @@ Phases, in order; any failure raises and exits non-zero:
    T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the large grid's
    (nb 67, nbw 1), pendulum N=80's (n 112,028, bandwidth 1,615: nb 110,
    nbw 2) and PushBox N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21,
-   13.9 GB); relative error <= 1e-5, both times from CUDA events;
+   13.9 GB); relative error <= 1e-5, two solves of one r bitwise equal,
+   exactly 2 sweep kernels launched per solve (torch.profiler), both times
+   from CUDA events;
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -47,10 +56,13 @@ Phases, in order; any failure raises and exits non-zero:
    nb 67, nbw 1) and "packed", each gated on the probe rhs residual, finite
    and decreasing residuals and K3 (resp. K2) on every refinement sweep;
    the two runs' last errRp agree to 1e-6; host syncs per iteration of
-   each, a profile of the banded run;
+   each, a profile of the banded run (device ops per iteration, busy
+   share);
 9. solve a certified random SDP to 1e-6 and match its known optimum.
 
-The next-to-last line is the kernel table as JSON, the last line
+The next-to-last line is the kernel table as JSON (each kernel's bound_ms
+is the least time for its work on the card: bytes at 3.35 TB/s or flops at
+the data sheet's peak, whichever is larger), the last line
 {"ok": true, "device": {...}}. Everything printed also goes to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -85,9 +97,14 @@ PROFILE_TOP = 10  # device ops listed per mode, by self time
 # K4's shapes: (n, batch); the batch is that of the grid problem's pow2
 # bucket n falls in. The grid's own bucket shapes are GRID_BUCKETS.
 K4_SHAPES = ((2, 80), (3, 80), (4, 80), (5, 598), (8, 598), (13, 182), (16, 182),
-             (32, 49), (45, 11), (64, 11))
-K4_TOL = {torch.float64: 1e-10, torch.float32: 5e-5}  # tests/test_jacobi.py:67-73
+             (32, 49), (45, 11), (64, 11), (80, 11), (128, 56))  # 128x56: the grid under pack_to=128
 K4_REPS = 5
+# Symmetric A: rows p, q and columns p, q coincide outside the 2x2 block,
+# so one pass of 6n flops; V's columns p, q another 6n.
+K4_FLOPS_PER_ROTATION_PER_N = 12
+F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 GRID = (20, 60)
 GRID_BUCKETS = ((4, 80), (8, 598), (16, 182), (32, 49), (64, 11))
 GRID_N_PAD = 32512
@@ -182,17 +199,50 @@ def compare_k1() -> dict:
         k_2 = _time_ms(k1, K1_REPS)
         p2 = _time_ms(plain, K1_REPS)
         k_ms, p_ms = (k_1 + k_2) / 2, (p1 + p2) / 2
+        library = lambda: torch.linalg.multi_dot([m.T, m, r])  # one call, two cuBLAS matvecs
+        library()
+        l_ms = _time_ms(library, K1_REPS)
         gbs = 4.0 * n * n / (k_ms * 1e-3) / 1e9
+        # Bound: M (f32) read once, r in, y out, at the HBM rate; the 4 n^2
+        # flops take a tenth of that at the f32 peak.
+        bound_ms = (4.0 * n * n + 8.0 * n) / HBM_BYTES_PER_S * 1e3
         print(
             f"K1 n_pad={n}: rel_err={rel:.3e} max_abs_err={max_abs:.3e} "
-            f"k1_ms={k_ms:.4f} plain_ms={p_ms:.4f} k1_GB/s={gbs:.1f}"
+            f"k1_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"k1_GB/s={gbs:.1f}"
         )
-        report.setdefault("k1", []).append(dict(n_pad=n, rel_err=rel, k1_ms=k_ms, plain_ms=p_ms))
+        report.setdefault("k1", []).append(dict(n_pad=n, rel_err=rel, k1_ms=k_ms, plain_ms=p_ms,
+                                                library_ms=l_ms, bound_ms=bound_ms))
         if n == STANDIN_N_PAD:
-            at_main_shape = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms)
+            at_main_shape = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                 bound_by="bytes", library_ms=l_ms)
         del m, r, y, ref
         torch.cuda.empty_cache()
     return at_main_shape
+
+
+def k4_tol(n: int, dtype) -> float:
+    """Kernel against plain version: 1e-10 in f64 and 5e-5 in f32
+    (tests/test_jacobi.py:67-73) up to n = 64; past that in f32 5e-5 n/32,
+    since the plain version's own f32 error grows with n (4.0e-5 at n = 64,
+    8.8e-5 at 128, relative to the f64 eigenvalues: tests/test_torch_jacobi
+    .py::test_plain_f32_error_grows_with_n) and two f32 runs that round
+    differently differ by up to twice that."""
+    if dtype == torch.float64:
+        return 1e-10
+    return 5e-5 if n <= 64 else 5e-5 * n / 32
+
+
+def k4_bound_ms(n: int, batch: int, dtype) -> tuple:
+    """The least time for K4's work on the card: 12n flops a rotation at the
+    f64 (f32) peak outside the tensor cores, or the bytes in (A) and out (w,
+    V) at the HBM rate; the larger, and which one it is."""
+    rotations = jacobi.default_sweeps(n) * n * (n - 1) // 2
+    flops = batch * rotations * K4_FLOPS_PER_ROTATION_PER_N * n
+    size = torch.finfo(dtype).bits // 8
+    ops_ms = flops / (F64_FLOPS if dtype == torch.float64 else F32_FLOPS) * 1e3
+    bytes_ms = batch * (2 * n * n + n) * size / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _sym_batch(n: int, batch: int, dtype, seed: int) -> torch.Tensor:
@@ -213,43 +263,63 @@ def _k4_errors(mats, w, v, wr, vr) -> tuple:
 
 
 def compare_k4() -> dict:
-    """K4 against jacobi_eigh_ref at every K4_SHAPES point, f64 and f32;
-    times taken in turns (plain, K4, K4, plain; the first plain run is also
-    the reference of the check), and eigh + reconstruction beside them.
+    """K4 against jacobi_eigh_ref at every K4_SHAPES point, f64 and f32, at
+    full sweeps (after two sweeps the iteration is far from converged and
+    amplifies rounding: 1e-7 of input noise moves the plain version's sorted
+    f32 w by 4e-4 of the largest entry at n = 80, tests/test_torch_jacobi.py::
+    test_unconverged_sweeps_amplify_rounding); times taken in turns
+    (plain, K4, K4, plain; past n = 64 the plain version runs once, ~17 s at
+    n = 128), beside eigh + reconstruction and eigh alone (library_ms). At
+    n = 128 in f64 the kernel is also held against torch.linalg.eigh.
     Returns the f64 sums over the grid's bucket shapes for the kernel table."""
-    at_grid = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    at_grid = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     rows = []
     for dtype in (torch.float64, torch.float32):
-        tol = K4_TOL[dtype]
         for n, batch in K4_SHAPES:
+            tol = k4_tol(n, dtype)
             mats = _sym_batch(n, batch, dtype, seed=n)
             k4 = lambda: jacobi.jacobi_eigh(mats)
             plain = lambda: jacobi.jacobi_eigh_ref(mats)
             eigh = lambda: reconstruct_clamped(*torch.linalg.eigh(mats))
+            k4_proj = lambda: reconstruct_clamped(*jacobi.jacobi_eigh(mats))
+            library = lambda: torch.linalg.eigh(mats)
             w, v = k4()  # first launch, untimed
             torch.cuda.synchronize()
             ref = []
             p1 = _time_ms(lambda: ref.append(plain()), 1)
             k_1 = _time_ms(k4, K4_REPS)
             k_2 = _time_ms(k4, K4_REPS)
-            p2 = _time_ms(plain, 1)
+            p2 = _time_ms(plain, 1) if n <= 64 else p1
             eigh()
             e_ms = _time_ms(eigh, K4_REPS)
+            kp_ms = _time_ms(k4_proj, K4_REPS)
+            l_ms = _time_ms(library, K4_REPS)
             rel_w, rel_p, orth, max_abs = _k4_errors(mats, w, v, *ref[0])
             ok = bool(torch.isfinite(w).all() and torch.isfinite(v).all())
             check(ok and max(rel_w, rel_p, orth) <= tol,
                   f"K4 n={n} batch={batch} {dtype}: rel w {rel_w:.2e} proj {rel_p:.2e} orth {orth:.2e}")
-            row = dict(n=n, batch=batch, dtype=str(dtype).split(".")[-1], rel_err_w=rel_w,
-                       rel_err_proj=rel_p, orth_err=orth, k4_ms=(k_1 + k_2) / 2,
-                       plain_ms=(p1 + p2) / 2, eigh_ms=e_ms)
+            k_ms = (k_1 + k_2) / 2
+            rotations = jacobi.default_sweeps(n) * n * (n - 1) // 2
+            bound_ms, bound_by = k4_bound_ms(n, batch, dtype)
+            row = dict(n=n, batch=batch, dtype=str(dtype).split(".")[-1], tol=tol, rel_err_w=rel_w,
+                       rel_err_proj=rel_p, orth_err=orth, k4_ms=k_ms, us_per_rotation=k_ms * 1e3 / rotations,
+                       plain_ms=(p1 + p2) / 2, k4_proj_ms=kp_ms, eigh_ms=e_ms, library_ms=l_ms,
+                       bound_ms=bound_ms,
+                       bound_by=bound_by)
+            if n == 128 and dtype == torch.float64:  # converged: the kernel against eigh itself
+                we, ve = torch.linalg.eigh(mats)
+                rel_we, rel_pe, _, _ = _k4_errors(mats, w, v, we, ve)
+                check(max(rel_we, rel_pe) <= tol, f"K4 n=128 f64 against eigh: w {rel_we:.2e} proj {rel_pe:.2e}")
+                row.update(rel_err_w_vs_eigh=rel_we, rel_err_proj_vs_eigh=rel_pe)
             rows.append(row)
             print("K4 " + json.dumps(row), flush=True)
             if dtype == torch.float64 and (n, batch) in GRID_BUCKETS:
                 at_grid["max_abs_err"] = max(at_grid["max_abs_err"], max_abs)
-                at_grid["ms"] += row["k4_ms"]
-                at_grid["plain_ms"] += row["plain_ms"]
+                for key, val in (("ms", k_ms), ("plain_ms", row["plain_ms"]), ("bound_ms", bound_ms),
+                                 ("library_ms", l_ms)):
+                    at_grid[key] += val
     report["k4"] = rows
-    return at_grid
+    return dict(at_grid, bound_by="operations")
 
 
 def _gates(res, vec_len: int, what: str) -> None:
@@ -266,7 +336,7 @@ def _gates(res, vec_len: int, what: str) -> None:
 KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
     "k4": ("jacobi_eigh_kernel",),
-    "k2k3": ("offdiag_kernel", "diag_kernel"),
+    "k2k3": ("tri_sweep_kernel",),
 }
 FACTOR_KERNEL = {"precond": "k1", "packed": "k2", "banded": "k3"}  # each normal-solver mode's kernel
 
@@ -427,8 +497,12 @@ def grid() -> int:
         blocks=len(prob.blk), host_build_s=time.perf_counter() - t0))
     launches = None
     rates = {}
-    runs = [("jacobi", 0), ("poly", 0), ("eigh", 0), ("auto", 0), ("auto", 128)]
-    for proj, pack_to in runs:
+    # (projection, pack_to, warm, timed): jacobi at pack_to=128 runs K4 on
+    # one 128x56 bucket, ~95 ms an iteration, so it runs fewer iterations.
+    runs = [("jacobi", 0, GRID_WARM, GRID_ITERS), ("poly", 0, GRID_WARM, GRID_ITERS),
+            ("eigh", 0, GRID_WARM, GRID_ITERS), ("auto", 0, GRID_WARM, GRID_ITERS),
+            ("auto", 128, GRID_WARM, GRID_ITERS), ("jacobi", 128, 20, 50)]
+    for proj, pack_to, warm, iters in runs:
         what = f"grid {proj} pack_to={pack_to}"
         cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0,
                            projection=proj, pack_to=pack_to)
@@ -444,21 +518,21 @@ def grid() -> int:
         if proj != "auto":
             check(set(_methods(solver)) == {proj}, f"{what}: methods {_methods(solver)}")
         resid = _probe_normal_solve(solver, prob.con_num)
-        res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
+        res, elapsed, counts = timed_run(solver, iters, warm)
         _gates(res, prob.vec_len, what)
-        _gate_launches(solver, counts, GRID_ITERS, 1, what)
-        if proj == "jacobi":
+        _gate_launches(solver, counts, iters, 1, what)
+        if (proj, pack_to) == ("jacobi", 0):
             launches = counts["k4"]
-        rates[(proj, pack_to)] = GRID_ITERS / elapsed
+        rates[(proj, pack_to)] = iters / elapsed
         out = dict(
-            it_per_s=GRID_ITERS / elapsed, init_s=init_s, buckets=buckets,
+            it_per_s=iters / elapsed, iterations=iters, init_s=init_s, buckets=buckets,
             methods=_methods(solver), applies=neq.applies, launches=counts,
             residual_norm=resid, errRp_first=float(res.info["errRp"][0]),
             errRp_last=float(res.info["errRp"][-1]), init_breakdown=solver.init_breakdown,
             host_syncs=host_syncs_per_iteration(solver),
         )
-        if proj in ("jacobi", "eigh"):
-            out["profile"] = profile_window(solver, elapsed * 1e3 / GRID_ITERS)
+        if proj in ("jacobi", "eigh") and pack_to == 0:
+            out["profile"] = profile_window(solver, elapsed * 1e3 / iters)
         emit(what, out)
         del solver, neq, res
         torch.cuda.empty_cache()
@@ -482,10 +556,23 @@ def _synthetic_factor(lay, seed: int) -> torch.Tensor:
     return tiles
 
 
+def _launches_per_solve(kernel, tiles, r, lay) -> int:
+    """CUDA kernel launches of one solve, counted by torch.profiler."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        kernel(tiles, r, lay)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and any(m in e.key for m in KERNEL_OPS["k2k3"]))
+
+
 def compare_tri_stream() -> dict:
     """K2 and K3 against their plain versions at each TRI_LAYOUTS layout,
-    one at a time; times in turns (plain, kernel, kernel, plain). Returns
-    the kernel-table numbers at the large grid's own layouts."""
+    one at a time; times in turns (plain, kernel, kernel, plain); two solves
+    of the same r bitwise equal; the sweep kernels a solve launches, from the
+    profiler. Returns the kernel-table numbers at the large grid's own
+    layouts."""
     at_grid = {}
     for i, (label, lay) in enumerate(TRI_LAYOUTS):
         packed = isinstance(lay, tri_stream.PackedLayout)
@@ -499,21 +586,30 @@ def compare_tri_stream() -> dict:
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
         max_abs = float((y - ref).abs().max())
         check(bool(torch.isfinite(y).all()) and rel <= TRI_REL_TOL, f"{label}: rel err {rel:.3e}")
+        check(torch.equal(kernel(tiles, r, lay), y), f"{label}: two solves of one r differ")
+        launches = _launches_per_solve(kernel, tiles, r, lay)
+        check(launches == 2, f"{label}: {launches} sweep kernel launches per solve, not 2")
         p1 = _time_ms(lambda: plain(tiles, r, lay), 1)
         k_1 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
         k_2 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
         p2 = _time_ms(lambda: plain(tiles, r, lay), 1)
         k_ms, p_ms = (k_1 + k_2) / 2, (p1 + p2) / 2
-        tiles_read = 2 * len(tri_stream._sweep_tables(lay)[0][0])  # both sweeps
-        gbs = tiles_read * lay.block**2 * 4 / (k_ms * 1e-3) / 1e9
+        tiles_read = len(tri_stream._sweep_tables(lay)[0][0])  # the tiles a sweep visits
+        sweep_gb = tiles_read * lay.block**2 * 4 / 1e9
+        # Bound: every tile read once, r in and y out, at the HBM rate (the
+        # 4 B^2 flops a tile takes over both sweeps are ~0.01 of that).
+        bound_ms = (sweep_gb * 1e9 + 8.0 * lay.n_pad) / HBM_BYTES_PER_S * 1e3
+        gbs = 2 * sweep_gb / (k_ms * 1e-3)  # both sweeps
         row = dict(layout=label, kind="packed" if packed else "band", n=lay.n, block=lay.block,
-                   nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T,
-                   factor_gb=lay.T * lay.block**2 * 4 / 1e9, rel_err=rel, max_abs_err=max_abs,
-                   ms=k_ms, plain_ms=p_ms, gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
+                   nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T, gb_per_sweep=sweep_gb,
+                   rel_err=rel, max_abs_err=max_abs, deterministic=True, launches_per_solve=launches,
+                   ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k_ms,
+                   gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
         print("K2/K3 " + json.dumps(row), flush=True)
         report.setdefault("k2k3", []).append(row)
         if label.endswith("grid"):
-            at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms)
+            at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                                     bound_ms=bound_ms, bound_by="bytes", library_ms=None)
         del tiles, r, y, ref
         torch.cuda.empty_cache()
     return at_grid

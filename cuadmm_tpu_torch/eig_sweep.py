@@ -28,7 +28,6 @@ import torch
 
 from cuadmm_tpu_torch.device import card_line, resolve_device
 from cuadmm_tpu_torch.ops.dispatch import sweep_path
-from cuadmm_tpu_torch.ops.jacobi import MAX_N as JACOBI_MAX_N
 from cuadmm_tpu_torch.ops.jacobi import jacobi_eigh
 from cuadmm_tpu_torch.ops.polyfilter import psd_project_poly
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
@@ -42,6 +41,7 @@ def jacobi_project(mats: torch.Tensor) -> torch.Tensor:
     return reconstruct_clamped(*jacobi_eigh(mats))
 
 
+JACOBI_MAX_N = 64  # jacobi is timed up to this n, as benchmarks/eig_sweep.py:124 does
 METHODS = {"eigh": eigh_project, "poly": psd_project_poly, "jacobi": jacobi_project}
 SIZES = (2, 4, 8, 16, 32, 64, 128, 256)
 BATCHES = (1, 8, 64, 512, 4096)

@@ -6,11 +6,8 @@ Port of cuadmm_tpu/ops/dispatch.py. A committed sweep
 projection method per (block size, batch count) point; ``choose_methods``
 picks the fastest method per bucket by nearest-neighbour lookup in log
 space. The backend is "cuda" on the card; "cpu" reads the port's copy of
-the JAX package's CPU table, so parity tests can pin either.
-
-One difference from the JAX package: "jacobi" is never chosen for a
-bucket larger than the K4 kernel takes (ops/jacobi.py MAX_N), whatever
-the nearest sweep point says, since it would raise there.
+the JAX package's CPU table, so parity tests can pin either. For the same
+table the port chooses what the JAX package chooses.
 """
 
 from __future__ import annotations
@@ -19,8 +16,6 @@ import json
 import math
 import os
 from typing import Dict, List, Optional, Tuple, Union
-
-from cuadmm_tpu_torch.ops.jacobi import MAX_N as JACOBI_MAX_N
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
@@ -72,7 +67,6 @@ def choose_methods(
             out[i] = "clamp"
             continue
         r = _nearest(rows, n, count)
-        methods = [m for m in METHODS if m != "jacobi" or n <= JACOBI_MAX_N]
-        timed = {m: r[f"{m}_ms"] for m in methods if f"{m}_ms" in r}
+        timed = {m: r[f"{m}_ms"] for m in METHODS if f"{m}_ms" in r}
         out[i] = min(timed, key=timed.get) if timed else "eigh"
     return out

@@ -24,24 +24,11 @@ import torch
 
 from cuadmm_tpu_torch import _build
 
-MAX_N = 64  # the kernel keeps A and V of one matrix in shared memory
-
 # Kernel launches so far (one per jacobi_eigh call on a CUDA tensor).
 LAUNCHES = 0
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
 _READY: set = set()  # device indices whose shared-memory attribute is set
-
-
-def check_size(n: int) -> None:
-    """Raise for a block size the kernel does not take (on every device,
-    so a configuration behaves the same on the CPU and on the card)."""
-    if n > MAX_N:
-        raise NotImplementedError(
-            f"the Jacobi eigh takes n <= {MAX_N}, got n={n} (ROADMAP.md queue 2: "
-            "'Projection: jacobi for blocks larger than 64'); use projection "
-            "'eigh', 'poly' or 'auto' for such buckets"
-        )
 
 
 def default_sweeps(n: int) -> int:
@@ -124,8 +111,10 @@ def _load() -> ctypes.CDLL:
         lib.cuadmm_jacobi_eigh_init.argtypes = []
         lib.cuadmm_jacobi_eigh_init.restype = ctypes.c_int
         for fn in (lib.cuadmm_jacobi_eigh_f64, lib.cuadmm_jacobi_eigh_f32):
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.cuadmm_jacobi_eigh_work_elems.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cuadmm_jacobi_eigh_work_elems.restype = ctypes.c_int
         lib.cuadmm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -137,7 +126,7 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None) -> Tuple[torch
 
     Returns (w (B, n) unsorted, v (B, n, n)), eigenvectors in the columns of
     v. On CUDA the kernel is launched on the current stream without
-    synchronizing. n must be at most ``MAX_N`` (``check_size``).
+    synchronizing. Any n >= 1, as ``jacobi_eigh_jnp`` takes.
     """
     global LAUNCHES
     if mats.dim() != 3 or mats.shape[1] != mats.shape[2]:
@@ -145,7 +134,6 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None) -> Tuple[torch
     if mats.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"need float32 or float64 mats, got {mats.dtype}")
     b, n, _ = mats.shape
-    check_size(n)
     sweeps = default_sweeps(n) if sweeps is None else int(sweeps)
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
@@ -165,8 +153,12 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None) -> Tuple[torch
         if idx not in _READY:
             _check(lib, lib.cuadmm_jacobi_eigh_init(), "set-up")
             _READY.add(idx)
+        # A past the shared-memory budget streams from a scratch copy.
+        work_elems = lib.cuadmm_jacobi_eigh_work_elems(n, mats.element_size())
+        work = torch.empty((b, work_elems), dtype=mats.dtype, device=mats.device) if work_elems else None
         stream = torch.cuda.current_stream(idx).cuda_stream
-        err = fn(mats.data_ptr(), w.data_ptr(), v.data_ptr(), b, n, sweeps, stream)
+        err = fn(mats.data_ptr(), w.data_ptr(), v.data_ptr(), work.data_ptr() if work is not None else None,
+                 b, n, sweeps, stream)
     _check(lib, err, "kernel launch")
     LAUNCHES += 1
     return w, v

@@ -20,7 +20,8 @@ array for array (tests/test_torch_tri_stream.py).
   L x = r in row order and a backward sweep L^T y = x in reverse column
   order, each reading every tile once. On a CUDA tensor they launch the
   hand-written kernel ``csrc/tri_stream.cu`` (one source for both layouts,
-  driven by step tables made from the meta tables) or raise; on a CPU
+  one persistent launch per sweep, driven by work tables built once per
+  layout from the meta tables) or raise; on a CPU
   tensor they run the plain versions ``packed_solve_ref`` /
   ``band_solve_ref``.
 
@@ -44,12 +45,13 @@ from cuadmm_tpu_torch import _build
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
 # Kernel launches so far, one per wrapper call on CUDA tensors (each call
-# queues the forward and the backward sweep of csrc/tri_stream.cu).
+# queues the forward and the backward sweep of csrc/tri_stream.cu, one
+# persistent launch each).
 LAUNCHES: Dict[str, int] = {"packed_solve": 0, "band_solve": 0}
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
-_TARGET_CTAS: dict = {}  # device index -> CTAs a step's products aim for
-_STEPS: dict = {}  # (layout, device) -> step tables of both sweeps
+_CTAS: dict = {}  # (device index, block) -> co-resident CTAs of one sweep
+_STEPS: dict = {}  # (layout, device) -> work tables and tagged scratch of both sweeps
 
 
 class PackedLayout(NamedTuple):
@@ -375,17 +377,51 @@ def _steps(table, transpose: bool) -> dict:
     )
 
 
-def _device_steps(lay, device: torch.device) -> tuple:
+SLAB = 8  # output entries per work item (csrc/tri_stream.cu kSlab)
+
+
+def _work_table(st: dict, B: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A sweep's work items for the persistent kernel, in step order.
+
+    Per step: B/8 output slabs of each off-diagonal tile (tile-major, in
+    table order), then the B/8 slabs of its diagonal tile. items (n, 4)
+    int32: tile, step, slab, partial row (-1 for a diagonal item). steps
+    (nb, 3) int32: block solved, first partial row, partial rows (one per
+    off-diagonal tile, summed in that order). row_blk: the solved block
+    each partial row's tile reads.
+    """
+    slabs = B // SLAB
+    e = np.arange(slabs)
+    items = []
+    for s in range(len(st["step_blk"])):
+        a, b = int(st["off_start"][s]), int(st["off_start"][s + 1])
+        slot = np.repeat(np.arange(a, b), slabs)
+        items.append(np.stack([st["off_tile"][slot], np.full(len(slot), s), np.tile(e, b - a), slot], 1))
+        items.append(np.stack([np.full(slabs, st["diag_tile"][s]), np.full(slabs, s), e, np.full(slabs, -1)], 1))
+    steps = np.stack([st["step_blk"], st["off_start"][:-1], np.diff(st["off_start"])], 1)
+    return (np.concatenate(items).astype(np.int32), steps.astype(np.int32),
+            np.ascontiguousarray(st["off_blk"], np.int32))
+
+
+def _device_steps(lay, device: torch.device) -> dict:
+    """Both sweeps' work tables on ``device`` (built once per layout), the
+    tagged scratch they share (solved vector and partial rows, 64-bit words
+    {value, epoch}), and the epoch of the last sweep on it."""
     key = (type(lay).__name__, tuple(lay), str(device))
     if key not in _STEPS:
-        sweeps = []
+        sweeps, rows = [], 1
         for table, transpose in zip(_sweep_tables(lay), (False, True)):
-            st = _steps(table, transpose)
-            for name in ("off_tile", "off_blk"):
-                st[name] = torch.as_tensor(st[name], device=device)
-            sweeps.append(st)
-        max_off = max(int(np.diff(st["off_start"]).max(initial=0)) for st in sweeps)
-        _STEPS[key] = (sweeps, max(max_off, 1))
+            items, steps, row_blk = _work_table(_steps(table, transpose), lay.block)
+            rows = max(rows, len(row_blk))
+            sweeps.append(dict(items=torch.as_tensor(items, device=device), n_items=len(items),
+                               steps=torch.as_tensor(steps, device=device),
+                               row_blk=torch.as_tensor(np.r_[row_blk, 0].astype(np.int32), device=device)))
+        _STEPS[key] = dict(
+            sweeps=sweeps,
+            solved=torch.zeros(lay.n_pad, dtype=torch.int64, device=device),
+            parts=torch.zeros(rows * lay.block, dtype=torch.int64, device=device),
+            epoch=0,
+        )
     return _STEPS[key]
 
 
@@ -401,15 +437,26 @@ def _load() -> ctypes.CDLL:
         lib = _build.load("tri_stream")
         for fn in (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd):
             fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 8
-                + [ctypes.c_int, ctypes.c_void_p]
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                + [ctypes.c_void_p] * 6
+                + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
+        lib.cuadmm_tri_stream_capacity.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.cuadmm_tri_stream_capacity.restype = ctypes.c_int
         lib.cuadmm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _capacity(lib: ctypes.CDLL, idx: int, B: int) -> int:
+    """Co-resident CTAs of one sweep on device ``idx`` at block B (cached)."""
+    if (idx, B) not in _CTAS:
+        n = ctypes.c_int(0)
+        _check(lib, lib.cuadmm_tri_stream_capacity(B, ctypes.byref(n)), "occupancy query")
+        _CTAS[(idx, B)] = n.value
+    return _CTAS[(idx, B)]
 
 
 def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor:
@@ -433,21 +480,22 @@ def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor
     lib = _load()
     dev = tiles.device
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _TARGET_CTAS:  # two CTAs per SM
-        _TARGET_CTAS[idx] = 2 * torch.cuda.get_device_properties(idx).multi_processor_count
-    (fwd, bwd), max_off = _device_steps(lay, dev)
-    rp = torch.nn.functional.pad(r.to(torch.float32), (0, lay.n_pad - r.shape[0])).contiguous()
-    x = torch.empty(lay.n_pad, dtype=torch.float32, device=dev)
-    y = torch.empty_like(x)
-    partial = torch.empty(max_off * (B // 128) * B, dtype=torch.float32, device=dev)
     with torch.cuda.device(idx):
+        ctas = _capacity(lib, idx, B)
+        tab = _device_steps(lay, dev)
+        rp = torch.nn.functional.pad(r.to(torch.float32), (0, lay.n_pad - r.shape[0])).contiguous()
+        x = torch.empty(lay.n_pad, dtype=torch.float32, device=dev)
+        y = torch.empty_like(x)
         stream = torch.cuda.current_stream(idx).cuda_stream
-        for fn, st, rhs, out in ((lib.cuadmm_tri_stream_fwd, fwd, rp, x), (lib.cuadmm_tri_stream_bwd, bwd, x, y)):
+        fns = (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd)
+        for fn, sw, rhs, out in zip(fns, tab["sweeps"], (rp, x), (x, y)):
+            # A new tag for every sweep, spent even by a refused launch, so
+            # the scratch never needs a reset (wraps after 2^32 sweeps).
+            tab["epoch"] = epoch = (tab["epoch"] + 1) & 0xFFFFFFFF or 1
             err = fn(
-                tiles.data_ptr(), B, len(st["step_blk"]),
-                st["step_blk"].ctypes.data, st["diag_tile"].ctypes.data, st["off_start"].ctypes.data,
-                st["off_tile"].data_ptr(), st["off_blk"].data_ptr(),
-                rhs.data_ptr(), out.data_ptr(), partial.data_ptr(), _TARGET_CTAS[idx], stream,
+                tiles.data_ptr(), B, sw["items"].data_ptr(), sw["n_items"], sw["steps"].data_ptr(),
+                sw["row_blk"].data_ptr(), rhs.data_ptr(), out.data_ptr(), tab["solved"].data_ptr(),
+                tab["parts"].data_ptr(), epoch, ctas, stream,
             )
             _check(lib, err, f"{name} launch")
     LAUNCHES[name] += 1

@@ -21,9 +21,8 @@ import torch
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import resolve_device, synchronize
 from cuadmm_tpu_torch.ops import chol as chol_ops
-from cuadmm_tpu_torch.ops import jacobi
 from cuadmm_tpu_torch.ops import sparse as sparse_ops
-from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
+from cuadmm_tpu_torch.ops.dispatch import choose_methods
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
@@ -112,9 +111,6 @@ class SDPSolver:
                     f"projection='auto': no calibration table for {self.device.type}/float64 "
                     "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
                 )
-        for i, bk in enumerate(self.structure.buckets):  # fail before the factorization
-            if bucket_method(self._projection, i) == "jacobi":
-                jacobi.check_size(bk.n)
         if self.structure.vec_len != prob.vec_len:
             raise ValueError("block structure does not match problem vec_len")
         vec_len, con_num = prob.vec_len, prob.con_num

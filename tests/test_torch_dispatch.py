@@ -62,13 +62,16 @@ def test_missing_table(both):
 
 
 def test_jacobi_never_past_the_kernel(both):
-    """The nearest point of a 65..90 bucket may be an n=64 row where jacobi
-    wins; the port then takes the next fastest method (the JAX package
-    would pick jacobi)."""
-    data_dir, _ = both
-    rows = [{"n": 64, "batch": 8, "eigh_ms": 2.0, "poly_ms": 3.0, "jacobi_ms": 1.0}]
+    """K4 takes every block size, so no bucket is past it: where the nearest
+    row of an n=80 bucket picks jacobi, both packages pick jacobi."""
+    data_dir, jdisp = both
+    rows = [{"n": 64, "batch": 8, "eigh_ms": 2.0, "poly_ms": 3.0, "jacobi_ms": 1.0},
+            {"n": 256, "batch": 8, "eigh_ms": 9.0, "poly_ms": 4.0}]
     _write_table(data_dir, "fake", "float64", rows)
-    assert tdisp.choose_methods([(64, 8), (80, 8)], "fake", "float64") == {0: "jacobi", 1: "eigh"}
+    buckets = [(64, 8), (80, 8), (128, 56), (300, 8)]
+    expected = {0: "jacobi", 1: "jacobi", 2: "jacobi", 3: "poly"}
+    assert tdisp.choose_methods(buckets, "fake", "float64") == expected
+    assert jdisp.choose_methods(buckets, "fake", "float64") == expected
 
 
 def test_committed_tables():

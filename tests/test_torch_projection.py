@@ -66,15 +66,10 @@ def test_methods_match_jax(method, pack_to):
 
 @pytest.mark.parametrize("method", ["poly", "jacobi"])
 def test_unported_methods_raise(method):
-    """Only the Jacobi kernel's size bound is left unported: a bucket past
-    n = 64 raises for "jacobi" (naming its ROADMAP item), while "poly"
-    projects it as the JAX package does."""
+    """No method is left unported at any block size: a bucket past n = 64
+    projects through "jacobi" and "poly" as the JAX package projects it."""
     st, jm, tm, pool = _pools([("s", 3), ("s", 70)], 0)
     assert max(bk.n for bk in st.buckets) > 64
-    if method == "jacobi":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tproj.psd_project_pool(torch.as_tensor(pool), tm, method=method)
-        return
     pj = np.asarray(jproj.psd_project_pool(jnp.asarray(pool), jm, method=method))
     pt = tproj.psd_project_pool(torch.as_tensor(pool), tm, method=method).numpy()
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-10 * np.abs(pool).max())

@@ -98,12 +98,24 @@ def test_unported_configurations_raise():
     prob = _certified()
     with pytest.raises(NotImplementedError, match="float32"):
         cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(dtype="float32"), device="cpu")
-    # The Jacobi kernel's size bound: a 70x70 block fails before the factorization.
+    # Jacobi has no size bound any more: a 70x70 block builds.
     big, *_ = random_certified_sdp([("s", 3), ("s", 70)], con_num=12, seed=3)
-    with pytest.raises(NotImplementedError, match="jacobi"):
-        cuadmm_tpu_torch.SDPSolver(
-            big, cuadmm_tpu_torch.SolverConfig(projection="jacobi", normal_solver="precond"), device="cpu"
-        )
+    t = cuadmm_tpu_torch.SDPSolver(
+        big, cuadmm_tpu_torch.SolverConfig(projection="jacobi", normal_solver="precond"), device="cpu"
+    )
+    assert t._projection == "jacobi" and max(bk.n for bk in t.structure.buckets) == 70
+
+
+def test_jacobi_bucket_past_64_builds():
+    """projection="jacobi" on the 8x12 grid packed to one 128-wide bucket,
+    as the JAX package takes it; only built (a full Jacobi projection at
+    n = 128 takes seconds on the CPU)."""
+    cfg = dict(verbose=False, normal_solver="precond", projection="jacobi", pack_to=128)
+    t = cuadmm_tpu_torch.SDPSolver(_grid(8, 12), cuadmm_tpu_torch.SolverConfig(**cfg), device="cpu")
+    j = cuadmm_tpu.SDPSolver(_grid(8, 12), cuadmm_tpu.SolverConfig(**cfg))
+    big = [i for i, bk in enumerate(t.structure.buckets) if bk.n > 64]
+    assert big and [bk.n for bk in t.structure.buckets] == [bk.n for bk in j.structure.buckets]
+    assert t._projection == "jacobi"
 
 
 @pytest.mark.parametrize("projection", ["jacobi", "poly"])

@@ -256,6 +256,76 @@ def test_kernel_step_tables_cover_every_tile_once():
             assert len(st["off_tile"]) == len(st["off_blk"]) == st["off_start"][-1]
 
 
+WORK_LAYOUTS = [
+    tts.make_layout(256, 128), tts.make_band_layout(512, 128, 128),  # the probes
+    tts.make_layout(1342, 256), tts.make_band_layout(1342, 4, 512),  # the 8x12 grid's (test_torch_solver.py)
+    tts.make_band_layout(4000, 300, 256),  # nbw 2
+]
+WORK_IDS = ["packed_probe", "band_probe", "packed_grid8x12", "band_grid8x12", "band_nbw2"]
+
+
+@pytest.mark.parametrize("lay", WORK_LAYOUTS, ids=WORK_IDS)
+def test_work_tables_cover_every_tile_once_and_wait_backwards(lay):
+    """The persistent kernel's work tables: per sweep every tile's B/8 slabs
+    appear once; items come in step order, an off-diagonal item reads a
+    block an earlier step solved, and a step's diagonal items (its diagonal
+    tile) follow all its off-diagonal ones."""
+    B, slabs = lay.block, lay.block // tts.SLAB
+    for table, transpose in zip(tts._sweep_tables(lay), (False, True)):
+        st = tts._steps(table, transpose)
+        items, steps, row_blk = tts._work_table(st, B)
+        tile, step, slab, prow = items.T
+        assert items.dtype == steps.dtype == row_blk.dtype == np.int32
+        assert np.all(np.diff(step) >= 0)
+        pairs = sorted(zip(tile.tolist(), slab.tolist()))
+        assert pairs == sorted((t, e) for t in table[0].tolist() for e in range(slabs))
+        solved_at = {int(b): s for s, b in enumerate(steps[:, 0])}
+        off = prow >= 0
+        assert all(solved_at[b] < s for b, s in zip(row_blk[prow[off]], step[off]))
+        for s, (blk, p0, np_) in enumerate(steps):
+            mine = np.flatnonzero(step == s)
+            is_off = off[mine]
+            assert is_off.sum() == np_ * slabs and (~is_off).sum() == slabs
+            assert np.all(is_off[: np_ * slabs]) and not np.any(is_off[np_ * slabs :])
+            assert sorted(set(prow[mine[is_off]])) == list(range(p0, p0 + np_))
+            assert blk == st["step_blk"][s] and np.all(tile[mine[~is_off]] == st["diag_tile"][s])
+
+
+def _walk_items(tiles, rhs, table, transpose):
+    """The kernel's arithmetic in plain torch: the work items in table order,
+    each slab's product into its partial row or its 8 outputs."""
+    B = tiles.shape[-1]
+    items, steps, row_blk = tts._work_table(tts._steps(table, transpose), B)
+    out = torch.zeros_like(rhs)
+    partial = torch.zeros(max(len(row_blk), 1), B, dtype=rhs.dtype)
+    for tile, step, e, prow in items.tolist():
+        t = tiles[tile].mT if transpose else tiles[tile]
+        rows = slice(e * tts.SLAB, (e + 1) * tts.SLAB)
+        if prow >= 0:
+            rd = int(row_blk[prow])
+            partial[prow, rows] = t[rows] @ out[rd * B : (rd + 1) * B]
+        else:
+            blk, p0, np_ = steps[step].tolist()
+            acc = rhs[blk * B : (blk + 1) * B].clone()
+            for p in range(p0, p0 + np_):
+                acc -= partial[p]
+            out[blk * B + e * tts.SLAB : blk * B + (e + 1) * tts.SLAB] = t[rows] @ acc
+    return out
+
+
+@pytest.mark.parametrize("lay", WORK_LAYOUTS[:4], ids=WORK_IDS[:4])
+def test_work_table_walk_matches_plain(lay):
+    """Walking both sweeps' items in table order solves what the plain
+    versions solve (f64, rtol 1e-12)."""
+    tiles = _synthetic_factor(lay, 3, "cpu").double()
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(lay.n))
+    fwd, bwd = tts._sweep_tables(lay)
+    rp = torch.nn.functional.pad(r, (0, lay.n_pad - lay.n))
+    y = _walk_items(tiles, _walk_items(tiles, rp, fwd, False), bwd, True)[: lay.n]
+    ref = (tts.packed_solve_ref if isinstance(lay, tts.PackedLayout) else tts.band_solve_ref)(tiles, r, lay)
+    assert float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref)) < 1e-12
+
+
 @pytest.mark.parametrize(
     "tiles,r,err",
     [
@@ -325,3 +395,42 @@ def test_kernel_rejects_what_it_does_not_take_on_card():
     with pytest.raises(TypeError):
         tts.packed_solve(torch.zeros(lay.T + 1, 128, 128, device="cuda", dtype=torch.float64),
                          torch.zeros(256, device="cuda"), lay)
+
+
+@pytest.mark.cuda
+def test_kernel_grid_past_co_residency_raises_on_card(monkeypatch):
+    """A grid larger than the card can hold at once fails the cooperative
+    launch (it would hang a persistent sweep); the wrapper raises, and the
+    next solve, on a new epoch, is right again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay = tts.make_band_layout(512, 128, 128)
+    tiles = _synthetic_factor(lay, 7, "cuda")
+    r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(8))
+    y = tts.band_solve(tiles, r, lay)
+    key = (torch.cuda.current_device(), lay.block)
+    monkeypatch.setitem(tts._CTAS, key, 2 * tts._CTAS[key])
+    before = tts.LAUNCHES["band_solve"]
+    with pytest.raises(RuntimeError, match="launch"):
+        tts.band_solve(tiles, r, lay)
+    assert tts.LAUNCHES["band_solve"] == before
+    monkeypatch.undo()
+    assert torch.equal(tts.band_solve(tiles, r, lay), y)
+
+
+@pytest.mark.cuda
+def test_kernel_is_two_launches_per_solve_on_card():
+    """One persistent launch per sweep, counted by the profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay = tts.make_band_layout(5000, 1500, 1024)
+    tiles = _synthetic_factor(lay, 7, "cuda")
+    r = torch.randn(lay.n, device="cuda")
+    tts.band_solve(tiles, r, lay)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        tts.band_solve(tiles, r, lay)
+        torch.cuda.synchronize()
+    sweeps = [e for e in prof.key_averages() if "tri_sweep_kernel" in e.key]
+    assert sum(e.count for e in sweeps) == 2
