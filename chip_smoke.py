@@ -8,9 +8,10 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the CUDA kernels K1 (csrc/precond_apply.cu), K4
    (csrc/jacobi_eigh.cu) and K2/K3 (csrc/tri_stream.cu) into build/, one
    nvcc each, all at once;
-3. hold K1 against its plain PyTorch version at n_pad 128, 1024, 17152 and
-   32768 (relative error <= 1e-5), with both times from CUDA events and
-   one torch.linalg.multi_dot call (two cuBLAS matvecs) as library_ms;
+3. hold K1 against its plain PyTorch version at n_pad 128, 1024, 5120
+   (QUASAR-500's coupled prefix), 17152, 32512 and 32768 (relative error
+   <= 1e-5), with both times from CUDA events and one
+   torch.linalg.multi_dot call (two cuBLAS matvecs) as library_ms;
 4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
    8, 13, 16, 32, 45, 64, 80, 128 with the batch of the grid problem's
    bucket each n falls in (80, 598, 182, 49, 11; 56 at n = 128, the
@@ -48,7 +49,8 @@ Phases, in order; any failure raises and exits non-zero:
    nbw 2) and PushBox N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21,
    13.9 GB); relative error <= 1e-5, two solves of one r bitwise equal,
    exactly 2 sweep kernels launched per solve (torch.profiler), both times
-   from CUDA events;
+   from CUDA events, the bound counting every tile once per sweep (a solve
+   is two sweeps, and no factor here stays in the 50 MB L2 between them);
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -58,7 +60,25 @@ Phases, in order; any failure raises and exits non-zero:
    the two runs' last errRp agree to 1e-6; host syncs per iteration of
    each, a profile of the banded run (device ops per iteration, busy
    share);
-9. solve a certified random SDP to 1e-6 and match its known optimum.
+9. run QUASAR-500 at full size (one 2004x2004 block, 756,501 constraints,
+   1,515,004 A^T nonzeros, b = 501 e_0 as in the reference's b.txt, C a
+   seeded symmetric stand-in for the measurement data) plain ADMM with
+   projection "auto" and "eigh", normal_solver "auto": it must resolve to
+   split with the 5,001 coupled rows as the prefix (no permutation, K1 at
+   n_pad 5,120); 20 warm and 100 timed iterations, gated on the probe rhs
+   residual, finite and decreasing residuals and K1 on exactly every
+   refinement sweep; init breakdown, peak memory, host syncs per iteration
+   and a profile;
+10. run a plain max-cut SDP at the G-set's G22 size (2,000 nodes, edge
+   probability 0.01: ~19,990 edges) the same way with projection "auto":
+   split with no coupled row (an elementwise solve), and no K1 launch;
+11. run the stand-in with normal_solver "cg": FSAI built, the probe rhs
+   solved, 20 warm and 20 timed iterations with finite and decreasing
+   residuals; CG steps and host waits per solve, and a profile;
+12. solve a certified random SDP to 1e-6 and match its known optimum
+   through normal_solver "precond", "auto" (split), "dense", "cg" and
+   "host", and through "dense" with its factor zeroed, where divergence
+   recovery must end in the level-2 CG rebuild and still converge.
 
 The next-to-last line is the kernel table as JSON (each kernel's bound_ms
 is the least time for its work on the card: bytes at 3.35 TB/s or flops at
@@ -69,6 +89,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 
 import cuadmm_tpu_torch  # noqa: F401  (first: fails alone, without the repo)
 
+import dataclasses
 import json
 import time
 import warnings
@@ -82,13 +103,16 @@ import torch
 from cuadmm_tpu_torch import SDPSolver, SolverConfig, _build
 from cuadmm_tpu_torch.device import card_line
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
+from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
+from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops import jacobi, precond_apply, tri_stream
-from cuadmm_tpu_torch.ops.dispatch import bucket_method
+from cuadmm_tpu_torch.ops import chol, jacobi, precond_apply, tri_stream
+from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
+from cuadmm_tpu_torch.problem import Problem
 
-K1_SIZES = (128, 1024, 17152, 32512, 32768)  # 17152: stand-in, 32512: grid
+K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768)  # 5120: QUASAR-500, 17152: stand-in, 32512: grid
 K1_REL_TOL = 1e-5  # f32 sums taken in another order than cuBLAS's
 K1_REPS = 20
 STANDIN_N_PAD = 17152  # the stand-in's padded factor: the main path's K1 shape
@@ -123,6 +147,15 @@ TRI_REPS = 5
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
 ERRRP_AGREE = 1e-6  # banded and packed: same iteration, another f32 factor
+# QUASAR-500 (cuadmm_tpu_torch/models/quasar.py): constraints, A^T
+# nonzeros, block size, coupled rows and K1's padded prefix.
+QUASAR_POSES = 500
+QUASAR_SHAPE = (756501, 1515004, 2004)
+QUASAR_P, QUASAR_N_PAD = 5001, 5120
+BIG_BLOCK_WARM, BIG_BLOCK_ITERS = 20, 100  # QUASAR-500 and the G22-size max-cut
+G22_NODES, G22_EDGE_P = 2000, 0.01  # the G-set's G22: 2,000 nodes, 19,990 edges
+CG_ITERS = 20
+CERT_MODES = ("precond", "auto", "dense", "cg", "host")
 REPORT = Path("chiprun_out") / "chip_smoke.json"
 report: dict = {}  # everything printed, written to REPORT at the end
 
@@ -338,7 +371,8 @@ KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k4": ("jacobi_eigh_kernel",),
     "k2k3": ("tri_sweep_kernel",),
 }
-FACTOR_KERNEL = {"precond": "k1", "packed": "k2", "banded": "k3"}  # each normal-solver mode's kernel
+# Each normal-solver mode's kernel (split: K1 on the coupled prefix).
+FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
 
 
 def profile_window(solver, timed_ms_per_it: float) -> dict:
@@ -426,7 +460,7 @@ def _probe_normal_solve(solver, con_num: int) -> float:
     return resid
 
 
-def standin() -> int:
+def standin_problem() -> Problem:
     n = 1560
     t0 = time.perf_counter()
     W = sp.diags([np.ones(n - k) for k in (1, 2, 3, 4)], [1, 2, 3, 4], shape=(n, n))
@@ -435,6 +469,10 @@ def standin() -> int:
         f"stand-in: con_num={prob.con_num} vec_len={prob.vec_len} blocks={len(prob.blk)} "
         f"host_build_s={time.perf_counter() - t0:.2f}"
     )
+    return prob
+
+
+def standin(prob: Problem) -> int:
     launches = None
     for mode, switch, iters in (("admm", 0, 500), ("sgs", 10**9, 200)):
         cfg = SolverConfig(verbose=False, check_every=100, switch_admm=switch, stop_tol=0.0)
@@ -596,9 +634,12 @@ def compare_tri_stream() -> dict:
         k_ms, p_ms = (k_1 + k_2) / 2, (p1 + p2) / 2
         tiles_read = len(tri_stream._sweep_tables(lay)[0][0])  # the tiles a sweep visits
         sweep_gb = tiles_read * lay.block**2 * 4 / 1e9
-        # Bound: every tile read once, r in and y out, at the HBM rate (the
-        # 4 B^2 flops a tile takes over both sweeps are ~0.01 of that).
-        bound_ms = (sweep_gb * 1e9 + 8.0 * lay.n_pad) / HBM_BYTES_PER_S * 1e3
+        # Bound: every tile read once per sweep, so twice per solve (the
+        # forward and the backward sweep; a factor of these sizes does not
+        # stay in the 50 MB L2 between them), r in and y out, at the HBM
+        # rate (the 4 B^2 flops a tile takes over both sweeps are ~0.01 of
+        # that).
+        bound_ms = (2 * sweep_gb * 1e9 + 8.0 * lay.n_pad) / HBM_BYTES_PER_S * 1e3
         gbs = 2 * sweep_gb / (k_ms * 1e-3)  # both sweeps
         row = dict(layout=label, kind="packed" if packed else "band", n=lay.n, block=lay.block,
                    nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T, gb_per_sweep=sweep_gb,
@@ -667,28 +708,179 @@ def large_grid() -> dict:
     return launches
 
 
-def certified() -> None:
-    blk = [("s", 6), ("s", 4), ("s", 6)]
-    prob, _, _, _, opt = random_certified_sdp(blk, con_num=12, seed=3)
-    cfg = SolverConfig(verbose=False, check_every=25, normal_solver="precond", switch_admm=10**9)
-    res = SDPSolver(prob, cfg, device="cuda").solve(max_iter=6000, stop_tol=1e-6)
-    check(res.converged, f"certified SDP did not converge: {res.message}")
+def quasar_problem(n_poses: int, seed: int = 0) -> Problem:
+    """QUASAR with ``n_poses`` poses: the structural constraints, b = (N+1)
+    e_0 (the only nonzero of the reference's b.txt) and, for the
+    measurement data C.txt that is not in the repo, a seeded symmetric C
+    (the trace is fixed and X = I/4 is strictly feasible, so any C gives a
+    well-posed SDP)."""
+    rows, cols, vals, con_num, n = quasar_constraints(n_poses)
+    m = np.random.default_rng(seed).standard_normal((n, n))
+    r, c = np.tril_indices(n)
+    return Problem(
+        blk=[("s", n)], con_num=con_num, At_rows=rows, At_cols=cols, At_vals=vals,
+        b_indices=np.array([0]), b_vals=np.array([n_poses + 1.0]),
+        C_indices=np.arange(len(r)), C_vals=((m + m.T) / 2)[r, c] * np.where(r == c, 1.0, np.sqrt(2.0)),
+        name=f"quasar-{n_poses}",
+    )
+
+
+def big_block_run(prob: Problem, projection: str, split_p: int, what: str) -> dict:
+    """One big-block problem plain ADMM with normal_solver "auto", which must
+    resolve to split with ``split_p`` coupled rows as its prefix (no
+    permutation): BIG_BLOCK_WARM warm and BIG_BLOCK_ITERS timed iterations,
+    gated on the probe rhs, finite and decreasing residuals, and K1 on
+    exactly every refinement sweep (none when split_p is 0)."""
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=projection)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = SDPSolver(prob, cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    neq = solver.params.neq
+    check(neq.mode == "split" and neq.split_p == split_p and neq.split_perm is None,
+          f"{what}: resolved to {neq.mode!r} with p={neq.split_p}, permuted={neq.split_perm is not None}")
+    n_pad = None if neq.inv_l is None else neq.inv_l.shape[0]
+    check(n_pad == (-(-split_p // 128) * 128 if split_p else None), f"{what}: prefix n_pad {n_pad}")
+    resid = _probe_normal_solve(solver, prob.con_num)
+    res, elapsed, counts = timed_run(solver, BIG_BLOCK_ITERS, BIG_BLOCK_WARM)
+    _gates(res, prob.vec_len, what)
+    sweeps = BIG_BLOCK_ITERS * neq.applies if split_p else 0
+    check(counts["k1"] == sweeps, f"{what}: K1 launched {counts['k1']} times, not {sweeps}")
+    _gate_launches(solver, counts, BIG_BLOCK_ITERS, 1 if split_p else 0, what)
+    out = dict(
+        it_per_s=BIG_BLOCK_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
+        split_p=neq.split_p, n_pad=n_pad, methods=_methods(solver), applies=neq.applies,
+        eps_used=neq.eps_used, launches=counts, residual_norm=resid,
+        errRp_first=float(res.info["errRp"][0]), errRp_last=float(res.info["errRp"][-1]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        host_syncs=host_syncs_per_iteration(solver),
+        profile=profile_window(solver, elapsed * 1e3 / BIG_BLOCK_ITERS),
+    )
+    emit(what, out)
+    del solver, neq, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def quasar() -> None:
+    """QUASAR-500 at full size, projection "auto" and "eigh"."""
+    t0 = time.perf_counter()
+    prob = quasar_problem(QUASAR_POSES)
+    shape = (prob.con_num, len(prob.At_vals), prob.blk[0][1])
+    emit("quasar-500 problem", dict(con_num=shape[0], at_nnz=shape[1], block=shape[2], vec_len=prob.vec_len,
+                                    host_build_s=time.perf_counter() - t0))
+    check(shape == QUASAR_SHAPE and len(prob.blk) == 1, f"QUASAR-500 shape {shape}")
+    print("projection auto for a 2004x1 bucket:", choose_methods([(QUASAR_SHAPE[2], 1)], "cuda", "float64"))
+    for proj in ("auto", "eigh"):
+        big_block_run(prob, proj, QUASAR_P, f"quasar-500 projection={proj}")
+
+
+def g22_maxcut() -> None:
+    t0 = time.perf_counter()
+    W = random_graph(G22_NODES, p=G22_EDGE_P, seed=22)
+    prob = maxcut_sdp(W, name="maxcut-g22-size")
+    emit("maxcut G22-size problem", dict(nodes=G22_NODES, edges=int(np.count_nonzero(np.triu(W))),
+                                        con_num=prob.con_num, vec_len=prob.vec_len,
+                                        host_build_s=time.perf_counter() - t0))
+    big_block_run(prob, "auto", 0, "maxcut G22-size projection=auto")
+
+
+def standin_cg(prob: Problem) -> None:
+    """The stand-in through normal_solver "cg" (FSAI): the probe rhs, then
+    CG_ITERS plain-ADMM iterations with CG's steps and host waits counted."""
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, normal_solver="cg")
+    t0 = time.perf_counter()
+    solver = SDPSolver(prob, cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    neq = solver.params.neq
+    check(neq.mode == "cg" and neq.fsai_g is not None, f"stand-in cg: mode {neq.mode!r}, FSAI built: "
+                                                       f"{neq.fsai_g is not None}")
+    chol.CG_STATS.update(solves=0, steps=0, waits=0)
+    resid = _probe_normal_solve(solver, prob.con_num)
+    probe = dict(chol.CG_STATS)
+    solver.solve(max_iter=CG_ITERS, stop_tol=0.0)  # warm
+    torch.cuda.synchronize()
+    chol.CG_STATS.update(solves=0, steps=0, waits=0)
+    t0 = time.perf_counter()
+    res = solver.solve(max_iter=CG_ITERS, stop_tol=0.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    st = dict(chol.CG_STATS)
+    check(res.iterations == CG_ITERS, f"stand-in cg: ran {res.iterations} of {CG_ITERS} iterations")
+    _gates(res, prob.vec_len, "stand-in cg")
+    emit("stand-in normal_solver=cg", dict(
+        it_per_s=CG_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
+        cg_tol=neq.cg_tol, cg_max_iter=neq.cg_max_iter, residual_norm=resid, probe_cg=probe,
+        solves=st["solves"], cg_steps_per_solve=st["steps"] / st["solves"],
+        host_waits_per_solve=st["waits"] / st["solves"], steps_queued_per_wait=chol.CG_BLOCK,
+        errRp_first=float(res.info["errRp"][0]), errRp_last=float(res.info["errRp"][-1]),
+        profile=profile_window(solver, elapsed * 1e3 / CG_ITERS),
+    ))
+
+
+def _certified_gates(res, opt: float, what: str) -> dict:
+    check(res.converged and not res.diverged, f"{what}: did not converge: {res.message}")
     gap_p = abs(res.pobj - opt) / (1 + abs(opt))
     gap_d = abs(res.dobj - opt) / (1 + abs(opt))
-    check(gap_p < 1e-4 and gap_d < 1e-4, f"certified optimum off: {gap_p:.2e} {gap_d:.2e}")
-    print(f"certified: iterations={res.iterations} pobj={res.pobj:.10f} optimum={opt:.10f}")
+    check(gap_p < 1e-4 and gap_d < 1e-4, f"{what}: optimum off: {gap_p:.2e} {gap_d:.2e}")
+    return dict(iterations=res.iterations, pobj=res.pobj, optimum=opt, rel_gap_p=gap_p,
+                recoveries=res.recoveries)
+
+
+def certified() -> None:
+    """A certified random SDP to 1e-6 through each CERT_MODES normal solver,
+    then dense with its factor zeroed: the first chunk goes non-finite, and
+    divergence recovery must reach the level-2 CG rebuild and converge
+    (tests/test_solver.py:158)."""
+    blk = [("s", 6), ("s", 4), ("s", 6)]
+    prob, _, _, _, opt = random_certified_sdp(blk, con_num=12, seed=3)
+    base = SolverConfig(verbose=False, check_every=25, switch_admm=10**9)
+    out = {}
+    for mode in CERT_MODES:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            solver = SDPSolver(prob, base.replace(normal_solver=mode), device="cuda")
+        resolved = solver.params.neq.mode
+        check(resolved == ("split" if mode == "auto" else mode), f"certified {mode}: resolved to {resolved!r}")
+        if mode == "host":
+            check(any("host" in str(w.message) for w in caught), "certified host: no warning on CUDA")
+        res = solver.solve(max_iter=6000, stop_tol=1e-6)
+        out[mode] = dict(_certified_gates(res, opt, f"certified {mode}"), mode=resolved)
+    solver = SDPSolver(prob, base.replace(normal_solver="dense"), device="cuda")
+    neq = solver.params.neq
+    solver.params = dataclasses.replace(solver.params, neq=dataclasses.replace(
+        neq, chol_l=torch.zeros_like(neq.chol_l)))
+    res = solver.solve(max_iter=8000, stop_tol=1e-6)
+    check(res.recoveries >= 1 and solver.params.neq.mode == "cg",
+          f"certified recovery: {res.recoveries} recoveries, ended in {solver.params.neq.mode!r}")
+    out["dense, factor zeroed"] = dict(_certified_gates(res, opt, "certified recovery"),
+                                       mode=solver.params.neq.mode)
+    emit("certified", out)
+
+
+def timed_phase(fn, *args):
+    """Run one phase and record its wall seconds in the report."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    report.setdefault("phase_s", {})[fn.__name__] = time.perf_counter() - t0
+    return out
 
 
 def main() -> None:
     kind = card()
-    build_kernels()
-    k1 = compare_k1()
-    k4 = compare_k4()
-    k2k3 = compare_tri_stream()
-    k1_launches = standin()
-    k4_launches = grid()
-    tri_launches = large_grid()
-    certified()
+    timed_phase(build_kernels)
+    k1 = timed_phase(compare_k1)
+    k4 = timed_phase(compare_k4)
+    k2k3 = timed_phase(compare_tri_stream)
+    prob = standin_problem()
+    k1_launches = timed_phase(standin, prob)
+    k4_launches = timed_phase(grid)
+    tri_launches = timed_phase(large_grid)
+    timed_phase(quasar)
+    timed_phase(g22_maxcut)
+    timed_phase(standin_cg, prob)
+    timed_phase(certified)
+    emit("phase seconds", report["phase_s"])
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=k1_launches, **k1),

@@ -1,8 +1,8 @@
 """Carry the JAX package's solver objects over to the port.
 
 Each function takes one of ``cuadmm_tpu``'s objects (SolverState,
-SolveParams, SparseA/EllTable, the ``device_maps`` dict, a precond, packed or
-banded NormalEqSolver) whose array fields are numpy arrays or anything
+SolveParams, SparseA/EllTable, the ``device_maps`` dict, a NormalEqSolver of any
+mode but host and sharded) whose array fields are numpy arrays or anything
 ``np.asarray`` reads, and returns the port's counterpart on ``device``.
 So one step of each package can start from identical state. This module
 never imports jax: it only reads attributes and converts arrays.
@@ -73,13 +73,18 @@ def maps_from_numpy(maps: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
-    """A precond, packed or banded NormalEqSolver; factors become f32, the
-    port's factor dtype on every device.
+    """A precond, dense, split, packed, banded or cg NormalEqSolver. f32
+    factors stay f32 (the port's factor dtype), f64 ones f64.
 
     precond: the JAX package keeps the padded f32 inverse factor only on an
     accelerator; from a CPU build (f64 factor ``chol_l``) the port's inverse
-    factor is formed the port's way. packed and banded: the (T+1, B, B)
-    tiles one to one, the layout tuples, and the band's permutations."""
+    factor is formed the port's way. dense: ``chol_l``. split: the prefix
+    as ``inv_l`` (accelerator build) or ``chol_l`` (CPU build, applied by
+    an f64 cholesky_solve), the tail's inverse diagonal and the
+    permutations. packed and banded: the (T+1, B, B) tiles one to one, the
+    layout tuples, and the band's permutations. cg: the Jacobi and
+    block-Jacobi pieces, the AA^T and FSAI tables, the tolerance and step
+    cap."""
     common = dict(
         mode=neq.mode,
         sparse_a=sparse_a_from_numpy(neq.sparse_a, device),
@@ -87,9 +92,19 @@ def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
         eps_used=float(neq.eps_used),
     )
     f32 = lambda x: _tensor(x, device).to(torch.float32)
+    table = lambda t: None if t is None else ell_table_from_numpy(t, device)
     if neq.mode == "precond":
         inv_l = f32(neq.inv_l) if neq.inv_l is not None else pad_factor(_tri_inv(f32(neq.chol_l)))
         return NormalEqSolver(inv_l=inv_l, **common)
+    if neq.mode == "dense":
+        return NormalEqSolver(chol_l=_tensor(neq.chol_l, device), **common)
+    if neq.mode == "split":
+        return NormalEqSolver(
+            inv_l=_opt(neq.inv_l, device), chol_l=_opt(neq.chol_l, device), split_p=int(neq.split_p),
+            tail_inv_diag=_tensor(neq.tail_inv_diag, device).to(torch.float64),
+            split_perm=_opt(neq.split_perm, device), split_inv_perm=_opt(neq.split_inv_perm, device),
+            **common,
+        )
     if neq.mode == "packed":
         return NormalEqSolver(
             packed_tiles=f32(neq.packed_tiles), packed_layout=tuple(int(v) for v in neq.packed_layout),
@@ -101,7 +116,13 @@ def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
             band_perm=_opt(neq.band_perm, device), band_inv_perm=_opt(neq.band_inv_perm, device),
             **common,
         )
-    raise ValueError(f"only precond, packed and banded solvers carry over, got mode={neq.mode!r}")
+    if neq.mode == "cg":
+        return NormalEqSolver(
+            inv_diag=_tensor(neq.inv_diag, device), bj_inv=_opt(neq.bj_inv, device),
+            aat_tbl=table(neq.aat_tbl), fsai_g=table(neq.fsai_g), fsai_gt=table(neq.fsai_gt),
+            cg_tol=float(neq.cg_tol), cg_max_iter=int(neq.cg_max_iter), **common,
+        )
+    raise ValueError(f"a {neq.mode!r} solver does not carry over (precond, dense, split, packed, banded, cg do)")
 
 
 def state_from_numpy(state, device) -> SolverState:

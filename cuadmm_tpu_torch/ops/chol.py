@@ -1,63 +1,69 @@
-"""Normal-equation solver for (A A^T) y = rhs: precond, packed and banded.
+"""Normal-equation solver for (A A^T) y = rhs.
 
-Port of those three modes of cuadmm_tpu/ops/chol.py. At init, AA^T plus a
-relative diagonal regularization eps is factorized once in f32 on the
-device (eps escalates x10 until the factor is good). Each solve runs
-``applies`` refinement sweeps
+Port of cuadmm_tpu/ops/chol.py, every mode but ``sharded``. The factor
+modes factorize AA^T plus a relative diagonal regularization eps once at
+init (eps escalates x10 until the factor is good) and run ``applies``
+refinement sweeps per solve
 
     y <- y + P^{-1} (rhs - A (A^T y))
 
-with the residual accumulated in f64 through the exact sparse A and
-P^{-1} r applied from the f32 factor (``NormalEqSolver._apply_factor``):
+with the residual accumulated in f64 through the exact sparse A
+(``NormalEqSolver._sweep``):
 
-- ``precond`` (con_num <= dense_chol_max): the triangular factor inverted
-  explicitly and zero-padded, M = inv(L); M^T M r by the fused kernel K1
+- ``precond`` (con_num <= dense_chol_max): an f32 factor, its triangular
+  inverse zero-padded, M = inv(L); M^T M r by the fused kernel K1
   (ops/precond_apply.py).
+- ``dense``: an f64 factor and ``torch.cholesky_solve`` (the JAX
+  package's CPU parity path; the H100 has f64, so it runs on the card too).
+- ``split``: AA^T is block-diagonal under the permutation [S, S^c], S the
+  rows that share an svec column with another row; the coupled prefix
+  takes the precond route (K1 on an f32 inverse factor of A_S A_S^T), the
+  rest a diagonal inverse in f64. Exact but for the prefix's factor.
 - ``packed``: the factor's lower triangle as packed B x B tiles with
   inverted diagonal tiles (ops/tri_stream.py); a forward and a backward
   streaming sweep by K2.
 - ``banded``: the same over the block band of AA^T under a reverse
-  Cuthill-McKee permutation; the residual is gathered into that order, K3
-  sweeps the band, and the result is gathered back.
+  Cuthill-McKee permutation, swept by K3.
 
 The rhs of every ADMM solve lies in range(A), so each sweep contracts the
 residual by about eps even where AA^T is numerically singular.
 
-The JAX package takes these f32 routes only on an accelerator (on the CPU
-it keeps the factor in the state dtype); the port takes them on every
-device, so the CPU tests run the card's code except the kernels. ``auto``
-resolves as the JAX package does, on the CPU as there. The other modes are
-not ported yet and raise.
+Two modes have no factor: ``cg`` (preconditioned conjugate gradient in
+f64 over an explicit ELL table of AA^T, preconditioned by FSAI
+(ops/fsai.py), block-Jacobi or Jacobi) and ``host`` (a scipy sparse LU of
+AA^T + eps I; each solve copies rhs to the host and the answer back).
+
+The JAX package takes the f32 routes only on an accelerator (on the CPU it
+keeps precond's and split's factors in the state dtype); the port takes
+them on every device, so the CPU tests run the card's code except the
+kernels. ``auto`` resolves as the JAX package does, on the CPU as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
 from cuadmm_tpu_torch.device import synchronize
 from cuadmm_tpu_torch.ops import tri_stream
+from cuadmm_tpu_torch.ops.fsai import build_fsai, fsai_tables
 from cuadmm_tpu_torch.ops.precond_apply import fused_spd_apply, pad_factor
-from cuadmm_tpu_torch.ops.sparse import SparseA, aat_matvec
+from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA, _build_ell, _ell_matvec, aat_matvec
 
-_NOT_PORTED = {
-    "dense": "Normal solver: dense and split modes",
-    "split": "Normal solver: dense and split modes",
-    "sharded": "Several devices",
-    "cg": "CG, FSAI, block-Jacobi and host modes",
-    "host": "CG, FSAI, block-Jacobi and host modes",
-}
+_NOT_PORTED = {"sharded": "Several devices"}
 
 
 def _not_ported(mode: str) -> NotImplementedError:
     return NotImplementedError(
         f"normal_solver={mode!r} is not ported yet (ROADMAP.md queue 1: "
-        f"{_NOT_PORTED[mode]!r}); the port has normal_solver 'precond', 'packed' and 'banded'"
+        f"{_NOT_PORTED[mode]!r}); the port has every other normal_solver"
     )
 
 
@@ -65,6 +71,12 @@ def _not_ported(mode: str) -> NotImplementedError:
 # must beat, and the most sweeps tried.
 CALIBRATE_TARGET = 1e-10
 CALIBRATE_MAX_APPLIES = 6
+
+# CG steps queued between two reads of the convergence flag on the host.
+CG_BLOCK = 16
+# Totals over cg solves (steps taken, host waits), for reports; callers
+# reset them.
+CG_STATS = {"solves": 0, "steps": 0, "waits": 0}
 
 # The JAX package's thresholds past dense_chol_max (cuadmm_tpu/ops/chol.py:
 # 99-109), sized there for a 16 GB chip and kept so that ``auto`` picks what
@@ -113,14 +125,55 @@ def past_ceiling_mode(con_num: int, bw: Optional[int], on_accel: bool, n_devices
     return "sharded" if n_devices > 1 else "cg"
 
 
+def _pcg(op, rhs, apply_m, x0, tol: float, max_iter: int, block: int = CG_BLOCK):
+    """Preconditioned CG on AA^T (cuadmm_tpu/ops/chol.py:446), with
+    ``apply_m`` the preconditioner application. Returns (x, steps, waits).
+
+    The JAX loop tests r.r > tol^2 |rhs|^2 on the device before every
+    step. Here the steps are queued in blocks of ``block``: each step
+    computes its update and keeps it only where that test (and it <
+    max_iter) holds, a device select, so once the test fails nothing
+    changes and the result is the JAX loop's. The host reads one flag per
+    block: ``waits`` is the number of blocks, ``steps`` the steps kept.
+    """
+    thresh = tol * tol * torch.dot(rhs, rhs)
+    x = x0
+    r = rhs - op(x0)
+    p = apply_m(r)
+    rz = torch.dot(r, p)
+    it = torch.zeros((), dtype=torch.int64, device=rhs.device)
+    waits = 0
+    while True:
+        for _ in range(block):
+            active = (it < max_iter) & (torch.dot(r, r) > thresh)
+            ap = op(p)
+            alpha = rz / torch.dot(p, ap)
+            r_new = r - alpha * ap
+            z = apply_m(r_new)
+            rz_new = torch.dot(r_new, z)
+            x = torch.where(active, x + alpha * p, x)
+            p = torch.where(active, z + (rz_new / rz) * p, p)
+            r = torch.where(active, r_new, r)
+            rz = torch.where(active, rz_new, rz)
+            it = it + active
+        waits += 1
+        more = (it < max_iter) & (torch.dot(r, r) > thresh)
+        more, steps = torch.stack([more.to(it.dtype), it]).tolist()
+        if not more:
+            return x, steps, waits
+
+
 @dataclasses.dataclass
 class NormalEqSolver:
-    """A factorized AA^T (one of the three factor forms) and the f64 A."""
+    """A prepared AA^T solve (one of the modes above) and the f64 A."""
 
     mode: str
     sparse_a: SparseA  # f64, for the refinement residuals
-    # precond: (n_pad, n_pad) f32, zero-padded inv(L).
+    # precond, and split's prefix: (n_pad, n_pad) f32, zero-padded inv(L).
     inv_l: Optional[torch.Tensor] = None
+    # dense, and split's prefix carried over from an f64 JAX build: the f64
+    # lower Cholesky factor.
+    chol_l: Optional[torch.Tensor] = None
     # packed: (T+1, B, B) f32 tiles with inverted diagonal tiles, and the
     # PackedLayout as a tuple.
     packed_tiles: Optional[torch.Tensor] = None
@@ -132,17 +185,39 @@ class NormalEqSolver:
     band_layout: Optional[tuple] = None
     band_perm: Optional[torch.Tensor] = None
     band_inv_perm: Optional[torch.Tensor] = None
+    # split: the coupled rows' count p, the f64 inverse diagonal of the
+    # con_num - p others, and the permutation [S, S^c] with its inverse;
+    # None when S is already the prefix (QUASAR).
+    split_p: int = 0
+    tail_inv_diag: Optional[torch.Tensor] = None
+    split_perm: Optional[torch.Tensor] = None
+    split_inv_perm: Optional[torch.Tensor] = None
+    # cg: the Jacobi inverse diagonal (f64), the f32 block-Jacobi inverses
+    # (nb, bs, bs) of a prefix of diagonal blocks, AA^T as an f64 ELL table,
+    # and FSAI's G and G^T (when present they replace the Jacobi pieces).
+    inv_diag: Optional[torch.Tensor] = None
+    bj_inv: Optional[torch.Tensor] = None
+    aat_tbl: Optional[EllTable] = None
+    fsai_g: Optional[EllTable] = None
+    fsai_gt: Optional[EllTable] = None
+    cg_tol: float = 0.0
+    cg_max_iter: int = 400
+    # host: rhs (numpy) -> y (numpy).
+    host_solve: Optional[Callable] = None
     applies: int = 2  # refinement sweeps per solve
     eps_used: float = 0.0
 
-    def _residual_buffer(self) -> torch.Tensor:
-        """A zeroed f32 buffer of the factor's padded length n_pad, which
-        ``_apply_factor`` reads as it is; the sweeps write only its head."""
+    def _residual_buffer(self) -> Optional[torch.Tensor]:
+        """A zeroed f32 buffer of the f32 factor's padded length n_pad, which
+        ``_apply_factor`` reads as it is; the sweeps write only its head.
+        None for the f64 factors, which read the f64 residual."""
         if self.inv_l is not None:
             return self.inv_l.new_zeros(self.inv_l.shape[0])
         if self.packed_tiles is not None:
             return self.packed_tiles.new_zeros(tri_stream.PackedLayout(*self.packed_layout).n_pad)
-        return self.band_tiles.new_zeros(tri_stream.BandLayout(*self.band_layout).n_pad)
+        if self.band_tiles is not None:
+            return self.band_tiles.new_zeros(tri_stream.BandLayout(*self.band_layout).n_pad)
+        return None
 
     def _apply_factor(self, r: torch.Tensor) -> torch.Tensor:
         """Approximate P^{-1} r for the f32 residual buffer ``r``; the first
@@ -162,30 +237,90 @@ class NormalEqSolver:
         n = self.band_perm.shape[0]
         return tri_stream.band_solve(self.band_tiles, r[:n][self.band_perm], lay)[self.band_inv_perm]
 
-    def _sweep(self, rhs: torch.Tensor, y: torch.Tensor, r_pad: torch.Tensor) -> torch.Tensor:
-        """One refinement sweep: y + P^{-1} (rhs - AA^T y), in f64 but for
-        the factor.
+    def _apply_prefix(self, r: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
+        """The dense factor applied to the f64 vector ``r`` (all of it in
+        dense mode, the coupled prefix in split mode): through ``r_pad`` and
+        K1 for an f32 inverse factor, else an f64 cholesky_solve."""
+        if self.inv_l is not None:
+            p = r.shape[0]
+            r_pad[:p] = r
+            return self._apply_factor(r_pad)[:p]
+        return torch.cholesky_solve(r.unsqueeze(1), self.chol_l).squeeze(1)
 
-        ``r_pad`` is the ``_residual_buffer``: the f64 residual is rounded
-        into its head in one kernel, the factor reads the buffer as it is,
-        and its f32 result is added to the f64 y in one more. P^{-1}
-        approximates (AA^T + eps I)^{-1} with error ~ cond(L) * eps32,
-        which the sweeps contract against the exact AA^T.
+    def _sweep(self, rhs: torch.Tensor, y: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
+        """One refinement sweep: y + P^{-1} (rhs - AA^T y), in f64 but for
+        an f32 factor.
+
+        ``r_pad`` is the ``_residual_buffer``. With an f32 factor over every
+        row, the f64 residual is rounded into its head in one kernel, the
+        factor reads the buffer as it is, and its f32 result is added to the
+        f64 y in one more. P^{-1} approximates (AA^T + eps I)^{-1} with
+        error ~ cond(L) * eps32, which the sweeps contract against the
+        exact AA^T. In split mode the update is formed in the residual's own
+        storage: the tail scaled in place, the prefix's answer written over
+        its head; only a permutation that is not the identity copies the
+        vector (two gathers).
         """
         n = y.shape[0]
-        torch.sub(rhs, aat_matvec(self.sparse_a, y), out=r_pad[:n])
-        return y + self._apply_factor(r_pad)[:n]
+        if self.tail_inv_diag is None and self.chol_l is None:
+            torch.sub(rhs, aat_matvec(self.sparse_a, y), out=r_pad[:n])
+            return y + self._apply_factor(r_pad)[:n]
+        r = rhs - aat_matvec(self.sparse_a, y)
+        if self.tail_inv_diag is None:  # dense
+            return y + self._apply_prefix(r, r_pad)
+        p = self.split_p
+        if self.split_perm is not None:
+            r = r[self.split_perm]
+        r[p:] *= self.tail_inv_diag
+        if p:
+            r[:p] = self._apply_prefix(r[:p], r_pad)
+        if self.split_inv_perm is not None:
+            r = r[self.split_inv_perm]
+        return y + r
 
     def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor] = None) -> torch.Tensor:
-        # Refinement through the composed A (A^T y): its rounding stays in
-        # range(A), which the regularized factor does not amplify.
         hp = torch.float64
+        if self.mode == "host":
+            y = self.host_solve(rhs.detach().to("cpu", hp).numpy())
+            return torch.as_tensor(y, device=rhs.device).to(rhs.dtype)
         rhs_hp = rhs.to(hp)
         y = torch.zeros_like(rhs_hp) if warm is None else warm.to(hp)
+        if self.mode == "cg":
+            y, steps, waits = _pcg(
+                lambda v: _ell_matvec(self.aat_tbl, v), rhs_hp, self._precond(), y,
+                self.cg_tol, self.cg_max_iter,
+            )
+            CG_STATS["solves"] += 1
+            CG_STATS["steps"] += steps
+            CG_STATS["waits"] += waits
+            return y.to(rhs.dtype)
+        # Refinement through the composed A (A^T y): its rounding stays in
+        # range(A), which the regularized factor does not amplify.
         r_pad = self._residual_buffer()
         for _ in range(self.applies):
             y = self._sweep(rhs_hp, y, r_pad)
         return y.to(rhs.dtype)
+
+    def _precond(self) -> Callable:
+        """CG's preconditioner z = M^{-1} r (cuadmm_tpu/ops/chol.py:358):
+        FSAI's G^T (G r) when built, else the Jacobi diagonal with the dense
+        block-Jacobi prefix (in its own f32) over the leading rows."""
+        if self.fsai_g is not None:
+            g, gt = self.fsai_g, self.fsai_gt
+            return lambda r: _ell_matvec(gt, _ell_matvec(g, r))
+        inv_diag, bj = self.inv_diag, self.bj_inv
+
+        def apply_m(r: torch.Tensor) -> torch.Tensor:
+            z = r * inv_diag
+            if bj is not None:
+                nd, bs = bj.shape[0], bj.shape[-1]
+                head = torch.nn.functional.pad(r, (0, max(0, nd * bs - r.shape[0])))[: nd * bs]
+                zh = torch.bmm(bj, head.to(bj.dtype).reshape(nd, bs, 1)).reshape(-1)
+                k = min(nd * bs, r.shape[0])
+                z[:k] = zh[:k]
+            return z
+
+        return apply_m
 
     def residual_norm(self, rhs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """|| rhs - AA^T y || / || rhs ||, in f64."""
@@ -200,38 +335,10 @@ def build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len) -> sp.csr_ma
     return (a @ a.T).tocsr()
 
 
-def _device_factorize(
-    at_svec_idx,
-    at_con_idx,
-    vals,
-    con_num: int,
-    vec_len: int,
-    eps: float,
-    device: torch.device,
-    dense_a_build_limit: int = 6 * 1024**3,
-):
-    """f32 Cholesky factor of AA^T + eps*scale*I on ``device``.
-
-    Scatters A dense on the device (duplicate COO entries add) and forms
-    AA^T with one f32 matmul; past ``dense_a_build_limit`` bytes of dense A
-    the sparse product is formed on the host and shipped dense instead.
-    ``eps`` escalates x10 until the factor is finite: plain Cholesky needs
-    the diagonal safely positive on a semidefinite AA^T. Returns (L, eps).
-    """
-    f32 = torch.float32
-    if con_num * vec_len * 4 <= dense_a_build_limit:
-        rows = torch.as_tensor(np.asarray(at_con_idx, np.int64), device=device)
-        cols = torch.as_tensor(np.asarray(at_svec_idx, np.int64), device=device)
-        v = torch.as_tensor(np.asarray(vals, np.float32), device=device)
-        a = torch.zeros((con_num, vec_len), dtype=f32, device=device)
-        a.index_put_((rows, cols), v, accumulate=True)
-        aat = a @ a.T
-        del a
-        scale = torch.clamp(torch.trace(aat) / con_num, min=1.0)
-    else:
-        aat_host = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
-        aat = torch.as_tensor(np.asarray(aat_host.todense(), np.float32), device=device)
-        scale = float(max(aat_host.diagonal().sum() / con_num, 1.0))
+def _jitter_cholesky(aat: torch.Tensor, scale, eps: float, what: str):
+    """Cholesky factor of ``aat`` + eps*scale*I, eps x10 until it factors
+    and its last diagonal entry is finite: plain Cholesky needs the
+    diagonal safely positive on a semidefinite AA^T. Returns (L, eps)."""
     cur = float(eps)
     while True:
         reg = aat.clone()
@@ -243,7 +350,42 @@ def _device_factorize(
             return l, cur
         cur *= 10.0
         if cur > 1e-1:
-            raise RuntimeError("AA^T Cholesky failed even with jitter 1e-1")
+            raise RuntimeError(f"{what}Cholesky failed even with jitter 1e-1")
+
+
+def _device_factorize(
+    at_svec_idx,
+    at_con_idx,
+    vals,
+    con_num: int,
+    vec_len: int,
+    eps: float,
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+    dense_a_build_limit: int = 6 * 1024**3,
+):
+    """Cholesky factor of AA^T + eps*scale*I on ``device`` in ``dtype``.
+
+    Scatters A dense on the device (duplicate COO entries add) and forms
+    AA^T with one matmul; past ``dense_a_build_limit`` bytes of dense A the
+    sparse product is formed on the host and shipped dense instead. Returns
+    (L, eps), eps as the jitter ladder left it (``_jitter_cholesky``).
+    """
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    if con_num * vec_len * np.dtype(np_dtype).itemsize <= dense_a_build_limit:
+        rows = torch.as_tensor(np.asarray(at_con_idx, np.int64), device=device)
+        cols = torch.as_tensor(np.asarray(at_svec_idx, np.int64), device=device)
+        v = torch.as_tensor(np.asarray(vals, np_dtype), device=device)
+        a = torch.zeros((con_num, vec_len), dtype=dtype, device=device)
+        a.index_put_((rows, cols), v, accumulate=True)
+        aat = a @ a.T
+        del a
+        scale = torch.clamp(torch.trace(aat) / con_num, min=1.0)
+    else:
+        aat_host = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
+        aat = torch.as_tensor(np.asarray(aat_host.todense(), np_dtype), device=device)
+        scale = float(max(aat_host.diagonal().sum() / con_num, 1.0))
+    return _jitter_cholesky(aat, scale, eps, "AA^T ")
 
 
 def _tile_factorize(scatter: Callable, factor: Callable, last_tile: int, eps: float, what: str):
@@ -275,7 +417,7 @@ def _tri_inv(l: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, eye, upper=False)
 
 
-def _calibrate_applies(neq: NormalEqSolver, con_num: int) -> NormalEqSolver:
+def _calibrate_applies(neq: NormalEqSolver, con_num: int, device: torch.device) -> NormalEqSolver:
     """Pick the refinement sweep count on the device that will run it.
 
     Runs the real solve path on a consistent probe rhs = (AA^T) v and takes
@@ -286,7 +428,7 @@ def _calibrate_applies(neq: NormalEqSolver, con_num: int) -> NormalEqSolver:
     sa = neq.sparse_a
     r_pad = neq._residual_buffer()
     rng = np.random.default_rng(0)
-    v = torch.as_tensor(rng.standard_normal(con_num), dtype=torch.float64, device=r_pad.device)
+    v = torch.as_tensor(rng.standard_normal(con_num), dtype=torch.float64, device=device)
     rhs = aat_matvec(sa, v)
     y = torch.zeros_like(rhs)
     resids = []
@@ -302,9 +444,47 @@ def _calibrate_applies(neq: NormalEqSolver, con_num: int) -> NormalEqSolver:
         raise RuntimeError(
             f"normal-equation factor failed the on-device probe: relative "
             f"residual curve {curve} (eps_used={neq.eps_used:g}). The "
-            "factorization is unusable; try a larger precond_eps."
+            "factorization is unusable; try normal_solver='cg' or a larger precond_eps."
         )
     return dataclasses.replace(neq, applies=best + 1)
+
+
+def _block_jacobi_inv(aat: sp.csr_matrix, con_num: int, block: int, eps: float, dtype, device):
+    """Inverses of the dense diagonal blocks of AA^T (host, f64), stacked
+    (nd, block, block) in ``dtype`` on ``device``; None when no block has
+    off-diagonal entries. Copy of cuadmm_tpu/ops/chol.py::_block_jacobi_inv:
+    only the prefix of blocks up to the last one with off-diagonal
+    structure is kept (the Jacobi diagonal is exact past it), with the
+    identity on the last block's padding."""
+    nb = (con_num + block - 1) // block
+    aat_csc = aat.tocsc()
+    nd = 0
+    subs = []
+    for i in range(nb):
+        s, e = i * block, min((i + 1) * block, con_num)
+        sub = aat_csc[s:e, s:e]
+        subs.append(sub)
+        # Structural test: nnz against the nonzero diagonal, not the row
+        # count (all-zero rows would offset off-diagonal entries).
+        if sub.nnz > np.count_nonzero(sub.diagonal()):
+            nd = i + 1
+    if nd == 0:
+        return None
+    out = np.zeros((nd, block, block), dtype=np.float64)
+    for i in range(nd):
+        s, e = i * block, min((i + 1) * block, con_num)
+        d = np.asarray(subs[i].todense())
+        scale = max(np.trace(d) / max(e - s, 1), 1.0)
+        d[np.diag_indices(e - s)] += eps * scale
+        try:
+            inv = np.linalg.inv(np.linalg.cholesky(d) @ np.linalg.cholesky(d).T)
+        except np.linalg.LinAlgError:
+            d[np.diag_indices(e - s)] += 1e-6 * scale
+            inv = np.linalg.inv(d)
+        out[i, : e - s, : e - s] = inv
+        for j in range(e - s, block):
+            out[i, j, j] = 1.0
+    return torch.as_tensor(out, device=device).to(dtype)
 
 
 def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max):
@@ -335,6 +515,82 @@ def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_acc
     return mode, aat, band_probe
 
 
+def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, dense_chol_max,
+                  precond_eps, applies, device) -> NormalEqSolver:
+    """split (cuadmm_tpu/ops/chol.py:922-1031): the coupled set S from the
+    shared-column probe, the p x p prefix A_S A_S^T formed on the host and
+    factored in f32 with the jitter ladder from max(precond_eps, 1e-5)
+    (relative to the mean diagonal of AA^T), inverted for K1; the other rows'
+    diagonal inverse in f64 with the JAX package's floor. p = 0 (a diagonal
+    AA^T) builds no factor."""
+    col_mult = np.bincount(at_svec_idx, minlength=vec_len)
+    S = np.unique(at_con_idx[col_mult[at_svec_idx] >= 2])
+    p = len(S)
+    if p > dense_chol_max:
+        raise ValueError(
+            f"normal_solver='split': coupled set is {p} rows, past dense_chol_max={dense_chol_max}"
+        )
+    diag = np.bincount(at_con_idx, weights=np.asarray(vals) ** 2, minlength=con_num)
+    scale = max(float(diag.mean()), 1e-30)
+    perm = np.concatenate([S, np.setdiff1d(np.arange(con_num), S)])
+    identity = bool(np.array_equal(perm, np.arange(con_num)))
+    eps_used = max(precond_eps, 1e-5)
+    inv_l = None
+    if p:
+        a_s = sp.csr_matrix((vals, (at_con_idx, at_svec_idx)), shape=(con_num, vec_len))[S]
+        sub = torch.as_tensor((a_s @ a_s.T).toarray(), dtype=torch.float32, device=device)
+        l, eps_used = _jitter_cholesky(sub, scale, eps_used, "split-prefix ")
+        del sub
+        inv_l = pad_factor(_tri_inv(l))
+    td = diag[perm[p:]]
+    td = np.where(td > 1e-12 * scale, td, scale)
+    as_idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return NormalEqSolver(
+        mode="split", sparse_a=sparse_a, inv_l=inv_l, split_p=p,
+        tail_inv_diag=torch.as_tensor(1.0 / td, dtype=torch.float64, device=device),
+        split_perm=None if identity else as_idx(perm),
+        split_inv_perm=None if identity else as_idx(np.argsort(perm)),
+        applies=applies, eps_used=eps_used,
+    )
+
+
+def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,
+               fsai_cap, fsai_pattern_power, device, mark, timings) -> NormalEqSolver:
+    """cg (cuadmm_tpu/ops/chol.py:1260-1356), f64 throughout but for the
+    f32 block-Jacobi inverses. ``cg_precond`` "auto" builds FSAI and drops
+    to block-Jacobi if the build fails; "fsai" raises then; "block_jacobi"
+    takes the prefix of dense diagonal blocks (when con_num >
+    cg_block_jacobi > 0); "jacobi" only the diagonal."""
+    f64 = torch.float64
+    fsai_g = fsai_gt = bj = None
+    if cg_precond in ("auto", "fsai"):
+        try:
+            G = build_fsai(aat, eps_rel=max(eps, 1e-10), pattern_power=fsai_pattern_power, cap=fsai_cap)
+            mark("fsai_build")
+            if timings is not None:
+                timings["fsai_nnz"] = int(G.nnz)
+            fsai_g, fsai_gt = fsai_tables(G, f64, device)
+        except (np.linalg.LinAlgError, ValueError, MemoryError, torch.OutOfMemoryError):
+            if cg_precond == "fsai":
+                raise
+    if fsai_g is None and cg_precond != "jacobi" and cg_block_jacobi and con_num > cg_block_jacobi:
+        bj = _block_jacobi_inv(aat, con_num, cg_block_jacobi, max(eps, 1e-10), torch.float32, device)
+    # The Jacobi diagonal serves every row past the block-Jacobi prefix; an
+    # all-zero AA^T row gets the mean diagonal, not a 1e30 spike.
+    diag = aat.diagonal()
+    scale = max(float(diag.mean()), 1e-30)
+    d = np.where(diag > 1e-12 * scale, diag, scale)
+    coo = aat.tocoo()
+    return NormalEqSolver(
+        mode="cg", sparse_a=sparse_a,
+        inv_diag=torch.as_tensor(1.0 / d, dtype=f64, device=device), bj_inv=bj,
+        aat_tbl=_build_ell(
+            coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data, con_num, con_num, f64, device
+        ),
+        fsai_g=fsai_g, fsai_gt=fsai_gt, cg_tol=cg_tol, cg_max_iter=cg_max_iter,
+    )
+
+
 def build_normal_solver(
     at_svec_idx: np.ndarray,
     at_con_idx: np.ndarray,
@@ -349,14 +605,23 @@ def build_normal_solver(
     precond_eps: float = 1e-4,
     applies: int = 2,
     timings: Optional[Dict[str, object]] = None,
+    eps: float = 1e-15,
+    cg_tol: float = 0.0,
+    cg_max_iter: int = 400,
+    cg_block_jacobi: int = 2048,
+    cg_precond: str = "auto",
+    fsai_cap: int = 64,
+    fsai_pattern_power: int = 2,
 ) -> NormalEqSolver:
-    """Factorize once at init and return a device-resident solver.
+    """Prepare the solve once at init and return a device-resident solver.
 
     ``mode="auto"`` resolves as the JAX package does on the device's kind
-    (``_resolve_auto``); ``precond``, ``packed`` and ``banded`` build, every
-    other mode raises ``NotImplementedError``. ``sparse_a`` is the f64 A of
-    the refinement. ``timings``, when given, receives the wall seconds of
-    each stage (and, for banded, the bandwidth and layout).
+    (``_resolve_auto``); ``sharded`` raises ``NotImplementedError``.
+    ``sparse_a`` is the f64 A of the refinement. ``eps`` (SolverConfig's
+    aat_eps) regularizes the f64 factors, FSAI, block-Jacobi and host's LU;
+    ``cg_tol`` <= 0 takes the default of the state dtype (64 eps in f64).
+    ``timings``, when given, receives the wall seconds of each stage (and
+    the band's bandwidth and layout, FSAI's nonzeros).
     """
     on_accel = device.type == "cuda"
     if mode == "inv":  # legacy alias
@@ -368,13 +633,15 @@ def build_normal_solver(
         )
     if mode in _NOT_PORTED:
         raise _not_ported(mode)
-    if mode not in ("precond", "packed", "banded"):
+    if mode not in ("precond", "dense", "split", "packed", "banded", "cg", "host"):
         raise ValueError(f"unknown normal_solver {mode!r}")
     if mode == "precond" and con_num > dense_chol_max:
         raise ValueError(
             f"normal_solver='precond' needs con_num <= dense_chol_max={dense_chol_max}, "
             f"got {con_num}"
         )
+    if cg_tol is None or cg_tol <= 0.0:
+        cg_tol = 2e-7 if dtype == torch.float32 else 64.0 * torch.finfo(torch.float64).eps
 
     t = [time.perf_counter()]
 
@@ -385,19 +652,44 @@ def build_normal_solver(
             timings[name] = round(now - t[0], 3)
         t[0] = now
 
+    if mode in ("cg", "host") and aat is None:
+        aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
+    if mode == "cg":
+        return _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi,
+                          cg_precond, fsai_cap, fsai_pattern_power, device, mark, timings)
+    if mode == "host":
+        if on_accel:
+            warnings.warn(
+                "normal_solver='host' factorizes on the host: every solve copies "
+                "rhs to the host and the answer back; prefer 'auto' on CUDA."
+            )
+        lu = spla.factorized((aat + max(eps, 1e-14) * sp.eye(con_num, format="csr")).tocsc())
+        return NormalEqSolver(mode="host", sparse_a=sparse_a, host_solve=lu)
+
     f32 = torch.float32
     applies_0 = max(applies, 1)
-    if mode == "precond":
-        l, eps_used = _device_factorize(
-            at_svec_idx, at_con_idx, vals, con_num, vec_len, max(precond_eps, 1e-5), device
-        )
+    if mode in ("precond", "dense"):
+        if mode == "precond":
+            args = (max(precond_eps, 1e-5), device)
+        else:
+            args = (max(eps, 1e-14), device, torch.float64)
+        l, eps_used = _device_factorize(at_svec_idx, at_con_idx, vals, con_num, vec_len, *args)
         mark("factorize")
-        inv_l = pad_factor(_tri_inv(l))
-        del l  # only the inverse is kept: frees n^2 of device memory
-        mark("tri_inv")
-        neq = NormalEqSolver(
-            mode="precond", sparse_a=sparse_a, inv_l=inv_l, applies=applies_0, eps_used=eps_used
-        )
+        if mode == "precond":
+            inv_l = pad_factor(_tri_inv(l))
+            del l  # only the inverse is kept: frees n^2 of device memory
+            mark("tri_inv")
+            neq = NormalEqSolver(
+                mode="precond", sparse_a=sparse_a, inv_l=inv_l, applies=applies_0, eps_used=eps_used
+            )
+        else:
+            neq = NormalEqSolver(
+                mode="dense", sparse_a=sparse_a, chol_l=l, applies=applies_0, eps_used=eps_used
+            )
+    elif mode == "split":
+        neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
+                            dense_chol_max, precond_eps, applies_0, device)
+        mark("split_factorize")
     else:
         if aat is None:
             aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
@@ -448,6 +740,6 @@ def build_normal_solver(
                 applies=applies_0, eps_used=eps_used,
             )
     if applies <= 0:
-        neq = _calibrate_applies(neq, con_num)
+        neq = _calibrate_applies(neq, con_num, device)
     mark("calibrate")
     return neq

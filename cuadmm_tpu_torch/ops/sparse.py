@@ -153,6 +153,39 @@ def _ell_upload(h: dict, dtype: torch.dtype, device) -> EllTable:
     )
 
 
+def _build_ell(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    out_len: int,
+    in_len: int,
+    dtype: torch.dtype,
+    device,
+    min_bucket_rows: int = 256,
+) -> EllTable:
+    """Bucketed ELL from COO (rows -> output axis, cols -> input axis)."""
+    return _ell_upload(_build_ell_host(rows, cols, vals, out_len, in_len, min_bucket_rows), dtype, device)
+
+
+def build_sparse_a(
+    at_svec_idx: np.ndarray,
+    at_con_idx: np.ndarray,
+    vals: np.ndarray,
+    con_num: int,
+    vec_len: int,
+    dtype: torch.dtype,
+    device,
+) -> SparseA:
+    """Both matvec directions from A^T COO triplets (svec_idx, con_idx,
+    val), the vec side in svec coordinates."""
+    return SparseA(
+        a=_build_ell(at_con_idx, at_svec_idx, vals, con_num, vec_len, dtype, device),
+        at=_build_ell(at_svec_idx, at_con_idx, vals, vec_len, con_num, dtype, device),
+        con_num=int(con_num),
+        vec_len=int(vec_len),
+    )
+
+
 def build_sparse_a_pool(
     at_svec_idx: np.ndarray,
     at_con_idx: np.ndarray,

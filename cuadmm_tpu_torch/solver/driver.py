@@ -1,7 +1,7 @@
 """SDPSolver: the user-facing solve driver.
 
-Port of cuadmm_tpu/solver/driver.py for float64 state and the precond,
-packed and banded normal solvers. The iteration runs in chunks of ``config.check_every``
+Port of cuadmm_tpu/solver/driver.py for float64 state and every normal
+solver but ``sharded``. The iteration runs in chunks of ``config.check_every``
 steps between host-side convergence checks; a chunk queues its work on
 the device and its info rows come back in one copy at the chunk's end.
 """
@@ -137,22 +137,9 @@ class SDPSolver:
             prob.At_rows, prob.At_cols, at_vals, con_num, self.structure, self.dtype, self.device
         )
         mark("ell_tables")
+        self._at_triplets = (prob.At_rows, prob.At_cols, at_vals)
         neq_timings: Dict[str, object] = {}
-        neq = chol_ops.build_normal_solver(
-            prob.At_rows,
-            prob.At_cols,
-            at_vals,
-            con_num,
-            vec_len,
-            sa,
-            cfg.normal_solver,
-            self.dtype,
-            self.device,
-            dense_chol_max=cfg.dense_chol_max,
-            precond_eps=cfg.precond_eps,
-            applies=cfg.precond_applies,
-            timings=neq_timings,
-        )
+        neq = self._normal_solver(sa, cfg.normal_solver, cfg.cg_max_iter, neq_timings)
         mark("normal_solver")
         self.init_breakdown.update({f"neq.{k}": v for k, v in neq_timings.items()})
         self._maps = device_maps(self.structure, self.dtype, self.device)
@@ -174,6 +161,29 @@ class SDPSolver:
         self.init_time = time.perf_counter() - t0
         if cfg.verbose:
             print(f"init {self.init_time:.1f}s: {self.init_breakdown}")
+
+    def _normal_solver(self, sa, mode: str, cg_max_iter: int, timings=None):
+        cfg, prob = self.config, self.problem
+        return chol_ops.build_normal_solver(
+            *self._at_triplets,
+            prob.con_num,
+            prob.vec_len,
+            sa,
+            mode,
+            self.dtype,
+            self.device,
+            dense_chol_max=cfg.dense_chol_max,
+            precond_eps=cfg.precond_eps,
+            applies=cfg.precond_applies,
+            timings=timings,
+            eps=cfg.aat_eps,
+            cg_tol=cfg.cg_tol,
+            cg_max_iter=cg_max_iter,
+            cg_block_jacobi=cfg.cg_block_jacobi,
+            cg_precond=cfg.cg_precond,
+            fsai_cap=cfg.fsai_cap,
+            fsai_pattern_power=cfg.fsai_pattern_power,
+        )
 
     # ------------------------------------------------------------------
     def _initial_state(self, X_s, y_s, S_s, sig: float) -> SolverState:
@@ -220,25 +230,23 @@ class SDPSolver:
     def _recovery_restart(self, state: SolverState, level: int) -> SolverState:
         """Escalated numerics + restart iterate after a non-finite chunk.
 
-        Level 1 adds two refinement sweeps to the normal solver, whatever
-        its mode (the JAX package skips banded, cuadmm_tpu/solver/driver.py:
-        356, a defect not copied); ``solve`` also runs the eigh projection
-        for a probation window. Level 2 swaps
-        in the factor-free CG solver, which is not ported yet, so it raises.
-        The iterate restarts from the best finite iterate seen so far, else
-        from the initial point.
+        Level 1 adds two refinement sweeps to the normal solver in every mode
+        that has sweeps (the JAX package skips banded, cuadmm_tpu/solver/
+        driver.py:356, a defect not copied); ``solve`` also runs the eigh
+        projection for a probation window. Level 2 rebuilds the normal
+        solver as the factor-free CG with at least 800 steps a solve
+        (driver.py:358-377), which bypasses a corrupted factor. The iterate
+        restarts from the best finite iterate seen so far, else from the
+        initial point.
         """
-        if level != 1:
-            raise NotImplementedError(
-                "divergence recovery level 2 rebuilds the normal solver as CG, "
-                "which is not ported yet (ROADMAP.md queue 1: 'CG, FSAI, "
-                "block-Jacobi and host modes')"
-            )
         cfg, prob = self.config, self.problem
         neq = self.params.neq
-        self.params = dataclasses.replace(
-            self.params, neq=dataclasses.replace(neq, applies=neq.applies + 2)
-        )
+        if level == 1:
+            if neq.mode not in ("cg", "host"):
+                neq = dataclasses.replace(neq, applies=neq.applies + 2)
+        else:
+            neq = self._normal_solver(self.params.sparse_a, "cg", max(cfg.cg_max_iter, 800))
+        self.params = dataclasses.replace(self.params, neq=neq)
         X_s = y_s = S_s = None
         if np.isfinite(float(state.best_kkt)):
             X_s = svec_from_pool(state.X_best, self._maps).cpu().numpy()
@@ -357,7 +365,8 @@ class SDPSolver:
                         print(
                             f"  [recovery {recoveries}] non-finite residuals at "
                             f"iteration {it_done}; restarting from best iterate "
-                            "with escalated numerics (eigh projection, +2 refinement sweeps)"
+                            "with escalated numerics (eigh projection, "
+                            + ("+2 refinement sweeps)" if recoveries == 1 else "CG normal solver)")
                         )
                     state = self._recovery_restart(state, recoveries)
                     it_host = 0

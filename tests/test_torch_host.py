@@ -17,12 +17,16 @@ import torch
 pytest.importorskip("jax")
 
 from cuadmm_tpu.models import chordal as jchordal
+from cuadmm_tpu.models import maxcut as jmaxcut
+from cuadmm_tpu.models import quasar as jquasar
 from cuadmm_tpu.models import random_sdp as jrandom
 from cuadmm_tpu.ops import sparse as jsparse
 from cuadmm_tpu.solver import scaling as jscaling
 from cuadmm_tpu.structure import BlockStructure as JBlockStructure
 
 from cuadmm_tpu_torch.models import chordal as tchordal
+from cuadmm_tpu_torch.models import maxcut as tmaxcut
+from cuadmm_tpu_torch.models import quasar as tquasar
 from cuadmm_tpu_torch.models import random_sdp as trandom
 from cuadmm_tpu_torch.ops import sparse as tsparse
 from cuadmm_tpu_torch.problem import Problem as TProblem
@@ -57,6 +61,43 @@ def test_maxcut_chordal_identical():
     _assert_problems_equal(pj, pt)
     x = np.random.default_rng(0).standard_normal(pj.vec_len)
     assert (jchordal.extract_entries(info_j, x) != tchordal.extract_entries(info_t, x)).nnz == 0
+
+
+@pytest.mark.parametrize("n_poses", [1, 3, 20])
+def test_quasar_constraints_identical(n_poses):
+    out_j = jquasar.quasar_constraints(n_poses)
+    out_t = tquasar.quasar_constraints(n_poses)
+    for a, b in zip(out_j[:3], out_t[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert out_j[3:] == out_t[3:] == (1 + 10 * n_poses + 3 * n_poses * (n_poses + 1), 4 * (n_poses + 1))
+
+
+def test_load_quasar_txt_identical(tmp_path):
+    """blk, b and C from a TXT directory without At.txt; the constraints are
+    regenerated (cuadmm_tpu/models/quasar.py:133)."""
+    from cuadmm_tpu_torch.io import txt
+
+    n = 16
+    txt.write_blk(str(tmp_path / "blk.txt"), [("s", n)])
+    txt.write_sparse_vector(str(tmp_path / "b.txt"), np.array([0]), np.array([4.0]))
+    rng = np.random.default_rng(5)
+    idx = np.sort(rng.choice(n * (n + 1) // 2, 40, replace=False))
+    txt.write_sparse_vector(str(tmp_path / "C.txt"), idx, rng.standard_normal(40))
+    _assert_problems_equal(jquasar.load_quasar_txt(str(tmp_path)), tquasar.load_quasar_txt(str(tmp_path)))
+
+
+def test_maxcut_identical():
+    W_j = jmaxcut.random_graph(40, p=0.1, seed=3)
+    W_t = tmaxcut.random_graph(40, p=0.1, seed=3)
+    np.testing.assert_array_equal(W_j, W_t)
+    np.testing.assert_array_equal(
+        jmaxcut.random_graph(12, p=0.5, weighted=True, seed=1), tmaxcut.random_graph(12, p=0.5, weighted=True, seed=1)
+    )
+    _assert_problems_equal(jmaxcut.maxcut_sdp(W_j), tmaxcut.maxcut_sdp(W_t))
+    x = np.random.default_rng(2).standard_normal(40 * 41 // 2)
+    signs = np.sign(np.random.default_rng(4).standard_normal(40))
+    assert jmaxcut.cut_value(W_j, signs) == tmaxcut.cut_value(W_t, signs)
+    assert jmaxcut.round_solution(W_j, x, trials=4) == tmaxcut.round_solution(W_t, x, trials=4)
 
 
 def test_random_certified_identical():
@@ -134,7 +175,8 @@ def test_txt_round_trip(tmp_path):
 
 def test_import_leaves_no_jax():
     code = (
-        "import sys, cuadmm_tpu_torch, cuadmm_tpu_torch.convert, cuadmm_tpu_torch.models.chordal; "
+        "import sys, cuadmm_tpu_torch, cuadmm_tpu_torch.convert, cuadmm_tpu_torch.models.chordal, "
+        "cuadmm_tpu_torch.models.quasar, cuadmm_tpu_torch.models.maxcut, cuadmm_tpu_torch.ops.fsai; "
         "bad = [k for k in sys.modules if k in ('jax', 'cuadmm_tpu') "
         "or k.startswith(('jax.', 'cuadmm_tpu.'))]; "
         "assert not bad, bad"

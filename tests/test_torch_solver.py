@@ -232,10 +232,29 @@ def test_profile_trace_capture(tmp_path):
     assert (tmp_path / "chunk1.trace.json").stat().st_size > 0
 
 
-def test_divergence_guard_and_recovery_levels():
+def _record_restarts(monkeypatch) -> list:
+    """Wrap the recovery restart: each call appends (level, mode, applies,
+    cg_max_iter) of the normal solver it leaves behind."""
+    from cuadmm_tpu_torch.solver import driver
+
+    seen = []
+    restart = driver.SDPSolver._recovery_restart
+
+    def recording(self, state, level):
+        out = restart(self, state, level)
+        neq = self.params.neq
+        seen.append((level, neq.mode, neq.applies, neq.cg_max_iter))
+        return out
+
+    monkeypatch.setattr(driver.SDPSolver, "_recovery_restart", recording)
+    return seen
+
+
+def test_divergence_guard_and_recovery_levels(monkeypatch):
     """A poisoned factor makes the first chunk non-finite. Without recovery
     the solve aborts; with it, level 1 (+2 refinement sweeps) cannot help
-    and level 2 (the CG rebuild, not ported yet) raises plainly."""
+    and level 2 rebuilds the normal solver as CG with at least 800 steps a
+    solve, which runs on from the restart."""
     cfg = cuadmm_tpu_torch.SolverConfig(
         verbose=False, check_every=10, normal_solver="precond", switch_admm=10**9
     )
@@ -249,11 +268,37 @@ def test_divergence_guard_and_recovery_levels():
 
     res = poisoned(cfg.replace(divergence_recovery=False)).solve(max_iter=50, stop_tol=1e-6)
     assert res.diverged and res.recoveries == 0 and res.iterations == 1
+    seen = _record_restarts(monkeypatch)
     s = poisoned(cfg)
     applies = s.params.neq.applies
-    with pytest.raises(NotImplementedError, match="level 2"):
-        s.solve(max_iter=50, stop_tol=1e-6)
-    assert s.params.neq.applies == applies + 2  # level 1 ran first
+    res = s.solve(max_iter=50, stop_tol=1e-6)
+    assert seen == [(1, "precond", applies + 2, 400), (2, "cg", 2, 800)]
+    assert res.recoveries == 2 and not res.diverged and res.iterations == 50
+    assert np.all(np.isfinite(res.info["errRp"][2:]))
+
+
+def test_level2_recovery_converges_like_jax():
+    """tests/test_solver.py::test_divergence_auto_recovery_broken_factor on
+    the port: dense mode with an all-zero factor goes non-finite at once;
+    the restarts end in the CG solver, which converges to the optimum.
+    With recovery off the same factor aborts."""
+    prob, *_, opt = random_certified_sdp([("s", 6), ("s", 4), ("s", 6)], con_num=12, seed=3)
+    cfg = cuadmm_tpu_torch.SolverConfig(
+        verbose=False, check_every=25, normal_solver="dense", switch_admm=10**9
+    )
+    s = cuadmm_tpu_torch.SDPSolver(prob, cfg, device="cpu")
+    neq = s.params.neq
+    assert neq.mode == "dense" and neq.chol_l.dtype == torch.float64
+    zero = dataclasses.replace(neq, chol_l=torch.zeros_like(neq.chol_l))
+    s.params = dataclasses.replace(s.params, neq=zero)
+    res = s.solve(max_iter=8000, stop_tol=1e-6)
+    assert res.recoveries >= 1 and s.params.neq.mode == "cg"
+    assert res.converged and not res.diverged
+    assert abs(res.pobj - opt) / (1 + abs(opt)) < 1e-4
+    s2 = cuadmm_tpu_torch.SDPSolver(prob, cfg.replace(divergence_recovery=False), device="cpu")
+    s2.params = dataclasses.replace(s2.params, neq=dataclasses.replace(s2.params.neq, chol_l=zero.chol_l))
+    res2 = s2.solve(max_iter=200, stop_tol=1e-6)
+    assert res2.diverged and res2.recoveries == 0
 
 
 @pytest.mark.parametrize("mode", ["packed", "banded"])
@@ -280,16 +325,23 @@ def test_grid_packed_and_banded_match_jax(mode):
 
 def test_auto_past_the_ceiling_raises_cg_on_the_cpu():
     """auto past dense_chol_max resolves to cg on the CPU, as the JAX
-    package does there; cg is not ported yet."""
-    cfg = cuadmm_tpu_torch.SolverConfig(verbose=False, dense_chol_max=1000)
-    with pytest.raises(NotImplementedError, match="CG, FSAI"):
-        cuadmm_tpu_torch.SDPSolver(_grid(8, 12), cfg, device="cpu")
+    package does there; both run 20 iterations of the 8x12 grid (1,342
+    constraints) to the same info rows (rtol 1e-6: both CGs stop at
+    64 eps64, the port's FSAI tables are the JAX package's)."""
+    j, t = _both(_grid(8, 12), normal_solver="auto", dense_chol_max=1000, switch_admm=10, check_every=10)
+    neq = t.params.neq
+    assert neq.mode == j.params.neq.mode == "cg" and neq.fsai_g is not None
+    assert t.init_breakdown["neq.fsai_nnz"] > 1342
+    rj = j.solve(max_iter=20, stop_tol=0.0)
+    rt = t.solve(max_iter=20, stop_tol=0.0)
+    for f in FIELDS:
+        np.testing.assert_allclose(rt.info[f], rj.info[f], rtol=1e-6, atol=0, err_msg=f)
 
 
 def test_banded_level1_recovery_adds_two_sweeps():
     """Level-1 recovery adds two refinement sweeps in banded mode too (the
     JAX package's driver.py:356 skips banded; that defect is not copied).
-    Poisoned band tiles: level 1 cannot help and level 2 raises."""
+    Poisoned band tiles; one iteration, so only level 1 runs."""
     cfg = cuadmm_tpu_torch.SolverConfig(
         verbose=False, check_every=10, normal_solver="banded", switch_admm=10**9
     )
@@ -298,6 +350,57 @@ def test_banded_level1_recovery_adds_two_sweeps():
     assert neq.mode == "banded"
     bad = dataclasses.replace(neq, band_tiles=torch.full_like(neq.band_tiles, float("nan")))
     s.params = dataclasses.replace(s.params, neq=bad)
-    with pytest.raises(NotImplementedError, match="level 2"):
-        s.solve(max_iter=50, stop_tol=1e-6)
+    res = s.solve(max_iter=1, stop_tol=1e-6)
+    assert res.recoveries == 1
     assert s.params.neq.mode == "banded" and s.params.neq.applies == neq.applies + 2
+
+
+def _quasar(n_poses: int = 3, seed: int = 0):
+    """QUASAR (tests/test_torch_chol.py::_quasar): b = (N+1) e_0, a seeded
+    symmetric C."""
+    from cuadmm_tpu.models.quasar import quasar_constraints
+
+    rows, cols, vals, con_num, n = quasar_constraints(n_poses)
+    m = np.random.default_rng(seed).standard_normal((n, n))
+    r, c = np.tril_indices(n)
+    return cuadmm_tpu.Problem(
+        blk=[("s", n)], con_num=con_num, At_rows=rows, At_cols=cols, At_vals=vals,
+        b_indices=np.array([0]), b_vals=np.array([n_poses + 1.0]),
+        C_indices=np.arange(len(r)), C_vals=((m + m.T) / 2)[r, c] * np.where(r == c, 1.0, np.sqrt(2.0)),
+    )
+
+
+def _maxcut():
+    from cuadmm_tpu.models.maxcut import maxcut_sdp, random_graph
+
+    return maxcut_sdp(random_graph(40, p=0.15, seed=2))
+
+
+@pytest.mark.parametrize("make,p", [(_certified, 12), (_quasar, 31), (_maxcut, 0)], ids=["certified", "quasar", "maxcut"])
+def test_split_slice_matches_jax(make, p):
+    """The slice through split: normal_solver "auto" resolves to split in
+    both packages (the JAX package's prefix is an f64 factor on the CPU, the
+    port's an f32 inverse through K1's plain version, 4 sweeps each); 200
+    iterations, the switch to ADMM at 100, info rows within rtol 1e-6."""
+    j, t = _both(make(), normal_solver="auto", switch_admm=100, check_every=50)
+    neq = t.params.neq
+    assert neq.mode == j.params.neq.mode == "split" and neq.split_p == p and neq.split_perm is None
+    assert (neq.inv_l is None) == (p == 0)
+    rj = j.solve(max_iter=200, stop_tol=0.0)
+    rt = t.solve(max_iter=200, stop_tol=0.0)
+    assert rj.iterations == rt.iterations == 200
+    for f in FIELDS:
+        np.testing.assert_allclose(rt.info[f], rj.info[f], rtol=1e-6, atol=0, err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["auto", "dense", "cg", "host"])
+def test_certified_converges_through_each_normal_solver(mode):
+    """The certified SDP to 1e-6 through each mode (auto is split): the
+    same iteration count as the JAX package and its known optimum."""
+    prob, _, _, _, opt = random_certified_sdp([("s", 6), ("s", 4), ("s", 6)], con_num=12, seed=3)
+    j, t = _both(prob, normal_solver=mode, check_every=25, switch_admm=10**9)
+    assert t.params.neq.mode == j.params.neq.mode == ("split" if mode == "auto" else mode)
+    rj = j.solve(max_iter=6000, stop_tol=1e-6)
+    rt = t.solve(max_iter=6000, stop_tol=1e-6)
+    assert rt.converged and rj.converged and rt.iterations == rj.iterations
+    assert abs(rt.pobj - opt) / (1 + abs(opt)) < 1e-4

@@ -80,6 +80,31 @@ def test_spmv_and_aat_match_jax(case):
     np.testing.assert_allclose(aaty, A @ (A.T @ y), rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("case", [_skewed_case, _dense_pattern_case])
+def test_build_sparse_a_matches_jax(case):
+    """build_sparse_a (svec coordinates, no pool): identical tables and the
+    same products."""
+    rng = np.random.default_rng(8)
+    st, con, rows, cols = case(rng)
+    vals = rng.standard_normal(len(rows))
+    sj = jsparse.build_sparse_a(rows, cols, vals, con, st.vec_len, jnp.float64)
+    stt = tsparse.build_sparse_a(rows, cols, vals, con, st.vec_len, torch.float64, CPU)
+    assert stt.a_idx_compact is None and (stt.con_num, stt.vec_len) == (con, st.vec_len)
+    for mine, theirs in ((stt.a, sj.a), (stt.at, sj.at)):
+        for a, b in zip(mine.idx + mine.vals, theirs.idx + theirs.vals):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        for f in ("out_perm", "out_pos", "out_src"):
+            a, b = getattr(mine, f), getattr(theirs, f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    y = rng.standard_normal(con)
+    np.testing.assert_allclose(
+        tsparse.aat_matvec(stt, torch.as_tensor(y)).numpy(),
+        np.asarray(jsparse.aat_matvec(sj, jnp.asarray(y))), rtol=0, atol=ATOL,
+    )
+
+
 def test_normalize_rows_identical():
     rng = np.random.default_rng(2)
     rows = rng.integers(0, 50, 300)
