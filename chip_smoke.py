@@ -9,9 +9,13 @@ Phases, in order; any failure raises and exits non-zero:
    (csrc/jacobi_eigh.cu) and K2/K3 (csrc/tri_stream.cu) into build/, one
    nvcc each, all at once;
 3. hold K1 against its plain PyTorch version at n_pad 128, 1024, 5120
-   (QUASAR-500's coupled prefix), 17152, 32512 and 32768 (relative error
-   <= 1e-5), with both times from CUDA events and one
-   torch.linalg.multi_dot call (two cuBLAS matvecs) as library_ms;
+   (QUASAR-500's coupled prefix), 17152, 32512, 32768, 44416 (the 20x80
+   grid) and 65536, on M = inv(L) up to 32768 and a unit-diagonal random
+   lower triangle past it, with NaN written above the diagonal before the
+   kernel runs: finite, bitwise equal over two calls, and within 1e-5
+   (relative) of the plain version on the lower triangle; both times from
+   CUDA events, one torch.linalg.multi_dot call (two cuBLAS matvecs) as
+   library_ms, the bound over the triangle;
 4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
    8, 13, 16, 32, 45, 64, 80, 128 with the batch of the grid problem's
    bucket each n falls in (80, 598, 182, 49, 11; 56 at n = 128, the
@@ -20,8 +24,8 @@ Phases, in order; any failure raises and exits non-zero:
    relative to the largest |entry|, within 1e-10 (f64) / 5e-5 (f32; 5e-5
    n/32 past n = 64, see k4_tol); at n = 128 in f64 also against
    torch.linalg.eigh; K4, the plain version, K4 + reconstruction, eigh +
-   reconstruction and eigh alone (library_ms) timed with CUDA events, and
-   us per rotation;
+   reconstruction and eigh alone (library_ms) timed with CUDA events (the
+   plain version once a shape), and us per rotation;
 5. run the stand-in problem (max-cut, chordally decomposed, banded graph
    n=1560 with off-diagonals 1..4: 17,110 constraints, 1,556 5x5 blocks)
    through SDPSolver in float64 with normal_solver and projection "auto":
@@ -69,13 +73,21 @@ Phases, in order; any failure raises and exits non-zero:
    residual, finite and decreasing residuals and K1 on exactly every
    refinement sweep; init breakdown, peak memory, host syncs per iteration
    and a profile;
-10. run a plain max-cut SDP at the G-set's G22 size (2,000 nodes, edge
+10. run the 20x80 grid (max-cut, chordally decomposed, 44,312
+   constraints) with dense_chol_max=45_056 and normal_solver "auto", which
+   must resolve to precond at n_pad 44,416 (K1 past the first design's
+   32,768 cap), and with "banded": projection "auto", 20 warm and 100
+   timed plain-ADMM iterations, gated on the probe rhs residual, finite and
+   decreasing residuals and (precond) K1 on exactly every refinement
+   sweep; the two runs' last errRp agree to 1e-6; init breakdown, peak
+   memory after init and after the run, and a profile of the precond run;
+11. run a plain max-cut SDP at the G-set's G22 size (2,000 nodes, edge
    probability 0.01: ~19,990 edges) the same way with projection "auto":
    split with no coupled row (an elementwise solve), and no K1 launch;
-11. run the stand-in with normal_solver "cg": FSAI built, the probe rhs
+12. run the stand-in with normal_solver "cg": FSAI built, the probe rhs
    solved, 20 warm and 20 timed iterations with finite and decreasing
    residuals; CG steps and host waits per solve, and a profile;
-12. solve a certified random SDP to 1e-6 and match its known optimum
+13. solve a certified random SDP to 1e-6 and match its known optimum
    through normal_solver "precond", "auto" (split), "dense", "cg" and
    "host", and through "dense" with its factor zeroed, where divergence
    recovery must end in the level-2 CG rebuild and still converge.
@@ -102,6 +114,7 @@ import torch
 
 from cuadmm_tpu_torch import SDPSolver, SolverConfig, _build
 from cuadmm_tpu_torch.device import card_line
+from cuadmm_tpu_torch.k1_ab import unit_lower
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
@@ -112,7 +125,9 @@ from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.problem import Problem
 
-K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768)  # 5120: QUASAR-500, 17152: stand-in, 32512: grid
+# 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
+K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768, 44416, 65536)
+K1_SOLVE_MAX = 32768  # past it the test M is made directly, not as inv(L)
 K1_REL_TOL = 1e-5  # f32 sums taken in another order than cuBLAS's
 K1_REPS = 20
 STANDIN_N_PAD = 17152  # the stand-in's padded factor: the main path's K1 shape
@@ -146,13 +161,15 @@ TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain versio
 TRI_REPS = 5
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
-ERRRP_AGREE = 1e-6  # banded and packed: same iteration, another f32 factor
+ERRRP_AGREE = 1e-6  # two normal solvers: same iteration, another f32 factor
 # QUASAR-500 (cuadmm_tpu_torch/models/quasar.py): constraints, A^T
 # nonzeros, block size, coupled rows and K1's padded prefix.
 QUASAR_POSES = 500
 QUASAR_SHAPE = (756501, 1515004, 2004)
 QUASAR_P, QUASAR_N_PAD = 5001, 5120
-BIG_BLOCK_WARM, BIG_BLOCK_ITERS = 20, 100  # QUASAR-500 and the G22-size max-cut
+BIG_BLOCK_WARM, BIG_BLOCK_ITERS = 20, 100  # QUASAR-500, the G22-size max-cut, the 20x80 grid
+PAST_CAP_GRID = (20, 80)  # precond past the first K1's 32,768 cap
+PAST_CAP_CON, PAST_CAP_N_PAD, PAST_CAP_DENSE_CHOL_MAX = 44312, 44416, 45_056
 G22_NODES, G22_EDGE_P = 2000, 0.01  # the G-set's G22: 2,000 nodes, 19,990 edges
 CG_ITERS = 20
 CERT_MODES = ("precond", "auto", "dense", "cg", "host")
@@ -203,26 +220,47 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare_k1() -> dict:
-    """K1 against the plain version on M = inv(L), L well-conditioned lower
-    triangular, at each size; times taken in turns (plain, K1, K1, plain)."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    at_main_shape = None
-    for i, n in enumerate(K1_SIZES):
-        gen.manual_seed(i)
-        L = torch.eye(n, device=dev) + torch.tril(
-            torch.randn(n, n, device=dev, generator=gen), -1
-        ) * (0.1 / n**0.5)
+def _k1_operands(n: int, seed: int) -> tuple:
+    """M lower triangular with NaN above the diagonal, and r. Up to
+    K1_SOLVE_MAX M = inv(L), L well-conditioned lower triangular; past it
+    k1_ab.py's unit-diagonal random lower triangle, made in place (no n^2
+    solve)."""
+    if n <= K1_SOLVE_MAX:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        L = torch.eye(n, device=dev) + torch.tril(torch.randn(n, n, device=dev, generator=gen), -1) * (0.1 / n**0.5)
         m = torch.linalg.solve_triangular(L, torch.eye(n, device=dev), upper=False).contiguous()
         del L
+        m.tril_()
         r = torch.randn(n, device=dev, generator=gen)
+    else:
+        m, r = unit_lower(n, seed)
+    for r0 in range(0, n, 8192):  # NaN above the diagonal, a row block at a time
+        blk = m[r0:r0 + 8192]
+        blk.add_(torch.full_like(blk, float("nan")).triu_(r0 + 1))
+    return m, r
+
+
+def compare_k1() -> dict:
+    """K1 against the plain version at each size: on M with NaN above the
+    diagonal it must give a finite y, the same bits twice, and (M then made
+    lower triangular in place) the plain version's y within K1_REL_TOL;
+    times taken in turns (plain, K1, K1, plain)."""
+    at_main_shape = None
+    for i, n in enumerate(K1_SIZES):
+        m, r = _k1_operands(n, seed=i)
         y = precond_apply.fused_spd_apply(m, r)
+        again = precond_apply.fused_spd_apply(m, r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"K1 n_pad={n}: non-finite output with NaN above the diagonal")
+        check(torch.equal(y, again), f"K1 n_pad={n}: two calls differ")
+        del again
+        m.tril_()
         ref = precond_apply.fused_spd_apply_ref(m, r)
         torch.cuda.synchronize()
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
         max_abs = float((y - ref).abs().max())
-        check(bool(torch.isfinite(y).all()) and rel <= K1_REL_TOL, f"K1 n_pad={n} rel err {rel:.3e}")
+        check(rel <= K1_REL_TOL, f"K1 n_pad={n} rel err {rel:.3e}")
         k1 = lambda: precond_apply.fused_spd_apply(m, r)
         plain = lambda: precond_apply.fused_spd_apply_ref(m, r)
         for _ in range(3):
@@ -235,17 +273,19 @@ def compare_k1() -> dict:
         library = lambda: torch.linalg.multi_dot([m.T, m, r])  # one call, two cuBLAS matvecs
         library()
         l_ms = _time_ms(library, K1_REPS)
-        gbs = 4.0 * n * n / (k_ms * 1e-3) / 1e9
-        # Bound: M (f32) read once, r in, y out, at the HBM rate; the 4 n^2
-        # flops take a tenth of that at the f32 peak.
-        bound_ms = (4.0 * n * n + 8.0 * n) / HBM_BYTES_PER_S * 1e3
+        tri_bytes = 4.0 * n * (n + 1) / 2
+        # Bound: M's lower triangle (f32) read once, r in, y out, at the HBM
+        # rate; the 4 flops an entry take a tenth of that at the f32 peak.
+        bound_ms = (tri_bytes + 8.0 * n) / HBM_BYTES_PER_S * 1e3
+        gbs = tri_bytes / (k_ms * 1e-3) / 1e9
         print(
             f"K1 n_pad={n}: rel_err={rel:.3e} max_abs_err={max_abs:.3e} "
             f"k1_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound_ms:.4f} "
-            f"k1_GB/s={gbs:.1f}"
+            f"share={bound_ms / k_ms:.3f} k1_triangle_GB/s={gbs:.1f}"
         )
-        report.setdefault("k1", []).append(dict(n_pad=n, rel_err=rel, k1_ms=k_ms, plain_ms=p_ms,
-                                                library_ms=l_ms, bound_ms=bound_ms))
+        report.setdefault("k1", []).append(dict(n_pad=n, rel_err=rel, max_abs_err=max_abs, k1_ms=k_ms,
+                                                plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
+                                                share=bound_ms / k_ms, deterministic=True))
         if n == STANDIN_N_PAD:
             at_main_shape = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                                  bound_by="bytes", library_ms=l_ms)
@@ -300,9 +340,9 @@ def compare_k4() -> dict:
     full sweeps (after two sweeps the iteration is far from converged and
     amplifies rounding: 1e-7 of input noise moves the plain version's sorted
     f32 w by 4e-4 of the largest entry at n = 80, tests/test_torch_jacobi.py::
-    test_unconverged_sweeps_amplify_rounding); times taken in turns
-    (plain, K4, K4, plain; past n = 64 the plain version runs once, ~17 s at
-    n = 128), beside eigh + reconstruction and eigh alone (library_ms). At
+    test_unconverged_sweeps_amplify_rounding); the plain version (a
+    Python loop of rotations: 4-94 s a shape past n = 32) runs once, then
+    K4 twice, beside eigh + reconstruction and eigh alone (library_ms). At
     n = 128 in f64 the kernel is also held against torch.linalg.eigh.
     Returns the f64 sums over the grid's bucket shapes for the kernel table."""
     at_grid = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -322,7 +362,6 @@ def compare_k4() -> dict:
             p1 = _time_ms(lambda: ref.append(plain()), 1)
             k_1 = _time_ms(k4, K4_REPS)
             k_2 = _time_ms(k4, K4_REPS)
-            p2 = _time_ms(plain, 1) if n <= 64 else p1
             eigh()
             e_ms = _time_ms(eigh, K4_REPS)
             kp_ms = _time_ms(k4_proj, K4_REPS)
@@ -336,7 +375,7 @@ def compare_k4() -> dict:
             bound_ms, bound_by = k4_bound_ms(n, batch, dtype)
             row = dict(n=n, batch=batch, dtype=str(dtype).split(".")[-1], tol=tol, rel_err_w=rel_w,
                        rel_err_proj=rel_p, orth_err=orth, k4_ms=k_ms, us_per_rotation=k_ms * 1e3 / rotations,
-                       plain_ms=(p1 + p2) / 2, k4_proj_ms=kp_ms, eigh_ms=e_ms, library_ms=l_ms,
+                       plain_ms=p1, k4_proj_ms=kp_ms, eigh_ms=e_ms, library_ms=l_ms,
                        bound_ms=bound_ms,
                        bound_by=bound_by)
             if n == 128 and dtype == torch.float64:  # converged: the kernel against eigh itself
@@ -594,15 +633,23 @@ def _synthetic_factor(lay, seed: int) -> torch.Tensor:
     return tiles
 
 
-def _launches_per_solve(kernel, tiles, r, lay) -> int:
-    """CUDA kernel launches of one solve, counted by torch.profiler."""
+def _launches_per_solve(kernel, tiles, r, lay, tries: int = 3) -> int:
+    """CUDA kernel launches of one solve, counted by torch.profiler. The
+    wrapper launches or raises, so a trace with no sweep kernel at all
+    after a solve whose result was checked is a trace that dropped its
+    events (it happens on the card, rarely); it is taken again, up to
+    ``tries`` times."""
     act = torch.profiler.ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        kernel(tiles, r, lay)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and any(m in e.key for m in KERNEL_OPS["k2k3"]))
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            kernel(tiles, r, lay)
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(m in e.key for m in KERNEL_OPS["k2k3"]))
+        if launches:
+            return launches
+    return 0
 
 
 def compare_tri_stream() -> dict:
@@ -775,6 +822,55 @@ def quasar() -> None:
         big_block_run(prob, proj, QUASAR_P, f"quasar-500 projection={proj}")
 
 
+def grid_past_cap() -> None:
+    """The 20x80 grid with dense_chol_max raised past 32,768: "auto" must
+    resolve to precond with K1 at n_pad 44,416 on exactly every refinement
+    sweep; "banded" on the same problem is the yardstick for errRp."""
+    t0 = time.perf_counter()
+    prob = grid_problem(PAST_CAP_GRID)
+    emit("20x80 grid problem", dict(
+        graph=f"{PAST_CAP_GRID[0]}x{PAST_CAP_GRID[1]} grid", con_num=prob.con_num, vec_len=prob.vec_len,
+        blocks=len(prob.blk), host_build_s=time.perf_counter() - t0))
+    check(prob.con_num == PAST_CAP_CON, f"20x80 grid con_num {prob.con_num}")
+    last = {}
+    for ns, mode in (("auto", "precond"), ("banded", "banded")):
+        what = f"20x80 grid normal_solver={ns}"
+        cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection="auto",
+                           normal_solver=ns, dense_chol_max=PAST_CAP_DENSE_CHOL_MAX)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver = SDPSolver(prob, cfg, device="cuda")
+        init_s = time.perf_counter() - t0
+        peak_init = torch.cuda.max_memory_allocated() / 1e9
+        neq = solver.params.neq
+        check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
+        if mode == "precond":
+            check(neq.inv_l.shape[0] == PAST_CAP_N_PAD, f"{what}: factor n_pad {neq.inv_l.shape[0]}")
+        resid = _probe_normal_solve(solver, prob.con_num)
+        res, elapsed, counts = timed_run(solver, BIG_BLOCK_ITERS, BIG_BLOCK_WARM)
+        _gates(res, prob.vec_len, what)
+        _gate_launches(solver, counts, BIG_BLOCK_ITERS, 1, what)
+        if mode == "precond":
+            sweeps = BIG_BLOCK_ITERS * neq.applies
+            check(counts["k1"] == sweeps, f"{what}: K1 launched {counts['k1']} times, not {sweeps}")
+        last[ns] = float(res.info["errRp"][-1])
+        out = dict(
+            it_per_s=BIG_BLOCK_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
+            mode=neq.mode, n_pad=None if neq.inv_l is None else neq.inv_l.shape[0], methods=_methods(solver),
+            applies=neq.applies, eps_used=neq.eps_used, launches=counts, residual_norm=resid,
+            errRp_first=float(res.info["errRp"][0]), errRp_last=last[ns],
+            peak_mem_gb_init=peak_init, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        )
+        if mode == "precond":
+            out["profile"] = profile_window(solver, elapsed * 1e3 / BIG_BLOCK_ITERS)
+        emit(what, out)
+        del solver, neq, res
+        torch.cuda.empty_cache()
+    agree = abs(last["auto"] - last["banded"]) / abs(last["banded"])
+    emit("20x80 grid errRp agreement", dict(precond=last["auto"], banded=last["banded"], rel=agree))
+    check(agree <= ERRRP_AGREE, f"20x80 grid: precond and banded errRp differ by {agree:.3e}")
+
+
 def g22_maxcut() -> None:
     t0 = time.perf_counter()
     W = random_graph(G22_NODES, p=G22_EDGE_P, seed=22)
@@ -877,6 +973,7 @@ def main() -> None:
     k4_launches = timed_phase(grid)
     tri_launches = timed_phase(large_grid)
     timed_phase(quasar)
+    timed_phase(grid_past_cap)
     timed_phase(g22_maxcut)
     timed_phase(standin_cg, prob)
     timed_phase(certified)

@@ -2,12 +2,14 @@
 
 The port of ``cuadmm_tpu`` (JAX) to PyTorch for NVIDIA Hopper. It imports
 torch and never jax; ``cuadmm_tpu`` stays the reference its tests compare
-against. Ported so far: float64 state with the ``precond``, ``packed`` and
-``banded`` normal solvers, whose factor applications run the hand-written
-CUDA kernels K1 (ops/precond_apply.py) and K2/K3 (ops/tri_stream.py), and
-the PSD projection with its "eigh", "poly",
-"jacobi" and calibrated "auto" methods; "jacobi" runs the hand-written
-CUDA kernel K4 (ops/jacobi.py).
+against. Ported so far: float64 state with every normal solver but
+``sharded``: ``precond`` and ``split`` (whose inverse factor, or coupled
+prefix's, runs the hand-written CUDA kernel K1, ops/precond_apply.py),
+``packed`` and ``banded`` (K2/K3, ops/tri_stream.py), ``dense``, ``cg``
+and ``host``, with ``auto`` resolving among them; divergence recovery at
+both levels; and the PSD projection with its "eigh", "poly", "jacobi" and
+calibrated "auto" methods; "jacobi" runs the hand-written CUDA kernel K4
+(ops/jacobi.py).
 
 Public API:
     Problem        -- problem container + TXT loader

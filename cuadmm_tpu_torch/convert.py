@@ -78,7 +78,9 @@ def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
 
     precond: the JAX package keeps the padded f32 inverse factor only on an
     accelerator; from a CPU build (f64 factor ``chol_l``) the port's inverse
-    factor is formed the port's way. dense: ``chol_l``. split: the prefix
+    factor is formed the port's way. Either way, and for split's prefix, the
+    inverse factor goes through ``pad_factor``, so it is exactly zero above
+    the diagonal, as K1 requires. dense: ``chol_l``. split: the prefix
     as ``inv_l`` (accelerator build) or ``chol_l`` (CPU build, applied by
     an f64 cholesky_solve), the tail's inverse diagonal and the
     permutations. packed and banded: the (T+1, B, B) tiles one to one, the
@@ -94,13 +96,14 @@ def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
     f32 = lambda x: _tensor(x, device).to(torch.float32)
     table = lambda t: None if t is None else ell_table_from_numpy(t, device)
     if neq.mode == "precond":
-        inv_l = f32(neq.inv_l) if neq.inv_l is not None else pad_factor(_tri_inv(f32(neq.chol_l)))
-        return NormalEqSolver(inv_l=inv_l, **common)
+        inv_l = f32(neq.inv_l) if neq.inv_l is not None else _tri_inv(f32(neq.chol_l))
+        return NormalEqSolver(inv_l=pad_factor(inv_l), **common)
     if neq.mode == "dense":
         return NormalEqSolver(chol_l=_tensor(neq.chol_l, device), **common)
     if neq.mode == "split":
         return NormalEqSolver(
-            inv_l=_opt(neq.inv_l, device), chol_l=_opt(neq.chol_l, device), split_p=int(neq.split_p),
+            inv_l=None if neq.inv_l is None else pad_factor(f32(neq.inv_l)),
+            chol_l=_opt(neq.chol_l, device), split_p=int(neq.split_p),
             tail_inv_diag=_tensor(neq.tail_inv_diag, device).to(torch.float64),
             split_perm=_opt(neq.split_perm, device), split_inv_perm=_opt(neq.split_inv_perm, device),
             **common,

@@ -1,164 +1,455 @@
-// Fused preconditioner application y = M^T (M r) in one pass over M (K1).
+// Fused preconditioner application y = M^T (M r) in one pass over the lower
+// triangle of M (K1).
 //
 // Replaces the Pallas kernel cuadmm_tpu/ops/precond_apply.py::_kernel.
 // M = inv(L) is the zero-padded f32 inverse of the Cholesky factor of the
-// regularized AA^T, square n_pad x n_pad with n_pad a multiple of 128 and
-// at most 32768. Every refinement sweep of the precond normal solver
-// applies it once.
+// regularized AA^T: lower triangular, stored as a row-major square
+// n_pad x n_pad, n_pad a multiple of 128. Every refinement sweep of the
+// precond normal solver (and of split's coupled prefix) applies it once.
 //
-// Bound: HBM bytes. The kernel does 4 flops per element of M and must read
-// all 4 * n_pad^2 bytes of it (1.18 GB at n_pad = 17152) against 3.35 TB/s;
-// r and y are 1/n_pad of that. So the only thing that matters is reading M
-// from device memory once, at full width, with enough bytes in flight.
+// Bound: HBM bytes. Row i of M holds i + 1 entries that count, so the least
+// work is the triangle, 4 n_pad (n_pad + 1) / 2 bytes (3.95 GB at n_pad =
+// 44,416: 1.18 ms at 3.35 TB/s), at 4 flops an entry. The strict upper
+// triangle is never read: half of the square is zeros, and a caller may
+// leave anything there. What matters is reading the triangle once, at full
+// width, with enough bytes in flight at every n_pad.
 //
-// Design:
-// - One persistent CTA per SM walks rows b, b + grid, b + 2*grid, ...
-// - r lives in shared memory (4 * n_pad bytes, 128 KB at n_pad = 32768).
-// - Each thread owns the float4 columns q = tid + k * 1024, k < 8, and
-//   keeps its slice of the CTA's y-partial in registers (32 floats).
-// - For each row: coalesced float4 loads from HBM give the thread's share of
-//   t_i = M[i,:] . r, a block reduction gives t_i, then the same row is read
-//   again and t_i * M[i,:] is added to the partial. The second read hits L2:
-//   the CTAs together hold at most grid * 128 KB (17 MB) of rows between the
-//   two reads, well inside the 50 MB L2, so M still leaves HBM once. Keeping
-//   the row in registers instead would need 64 more registers a thread at
-//   n_pad = 32768, past the 64 that 1024 threads may have.
-// - Each CTA writes its partial to scratch (grid, n_pad); a second kernel
-//   sums the partials per column in a fixed order, so y is deterministic.
-// - Full f32 FMA on the CUDA cores; no TF32, no tensor cores.
+// The coupling: t_i = M[i, :] . r needs all of row i before t_i M[i, :] can
+// be added to y, so a row is read, reduced, and used again. Design:
 //
-// Budget at n_pad = 32768: 128 KB dynamic + 256 B static shared memory of
-// the 227 KB a CTA may use; __launch_bounds__(1024, 1) caps registers at 64.
-// Larger n_pad is rejected (the wrapper raises before the launch).
+// - Thread-block clusters of C = 1, 2, 4, 8 or 16 CTAs, one CTA of 512
+//   threads an SM (the launch plan in ops/precond_apply.py picks C, the rows
+//   per step R, the stages S and the cluster count K). Member m of a cluster
+//   owns the 128-column chunks c = m (mod C), dealt cyclically, so every
+//   member has an equal share of every row's triangle within one chunk.
+//   Thread t of a member always handles the member's float4 slots t,
+//   t + 512, ...: it keeps r and its y-partial there in registers (at most
+//   10 float4 each), so shared memory holds only row stages, and the cap on
+//   n_pad grows with C (303,104 at C = 16, a 367 GB square, past what any
+//   card holds).
+// - Rows go in panels of R; panel p is paired with panel P - 1 - p and the
+//   pairs are dealt to the K clusters in turn, so every cluster has the same
+//   number of steps and the same triangle work within one pair: static, so
+//   the result is bitwise repeatable. (Contiguous row ranges of equal work
+//   give the first cluster a thousand short rows, each a step of fixed
+//   latency.)
+// - Loads: a ring of S stages of R row slices in shared memory. Each thread
+//   copies its own float4s of step s + S - 2 with cp.async (16 bytes each)
+//   before it waits for step s's, so S - 2 steps are in flight while step s
+//   is used and step s - 1 waits for its t. A thread only reads back what it
+//   copied, so waiting on its own copy groups is enough. In the chunks that
+//   hold the diagonal a copy reads only the entries left of it (cp.async's
+//   source size) and zero-fills the rest. (TMA would copy a whole 512-byte
+//   chunk row a request, but cannot stop at the diagonal, and the slots a
+//   thread copies are the ones it consumes, which needs no mbarrier.)
+// - No barrier a step: each warp reduces its R partial dots by shuffles and
+//   pushes them with st.async into every member's inbox, counted on that
+//   member's mbarrier. Step s's t is taken after step s + 1's first pass, so
+//   the exchange overlaps it. Every warp sums the C x 16 partials in the
+//   same fixed order (lane subsets, then a shuffle tree), so t is the same
+//   in every warp of every member. (A cluster barrier a step, with its
+//   release semantics, waited for each thread's copies in flight and so
+//   emptied the ring every step.) Pass 2 adds t_i M[i, slot] to the
+//   thread's y registers: no atomics.
+// - A step's bookkeeping is shifts and adds (C is a power of two, stage
+//   indices wrap), and a warp skips the slots a step does not reach: all 16
+//   warps repeat it every step, and with divisions it cost as much as the
+//   copies.
+// - Each cluster writes its y-partial; a second kernel sums the K
+//   partials per column in a fixed order.
+// - Full f32 FMA on the CUDA cores; no TF32, no tensor cores (a
+//   matrix-vector product has no reuse for them). Offsets are 64-bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <cstddef>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxNPad = 32768;
-constexpr int kVecPerThread = kMaxNPad / 4 / kThreads;  // float4 columns a thread owns
+constexpr int kChunk = 128;          // columns per chunk
+constexpr int kChunk4 = kChunk / 4;  // float4 per chunk row: one per lane of a warp
+constexpr int kMaxCluster = 16;      // past 8 a non-portable cluster size
+constexpr int kMaxSmem = 444 * kChunk * 4;  // 222 KB: with the 4 KB inbox, the 227 KB a CTA may use
+constexpr int kMaxStages = 8;
 
-static_assert(kWarps == 32, "the block reduction reads one warp partial per lane");
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
-// Second read of a row: volatile so it is not merged with the first read
-// (which would keep the row in registers), cache-streaming since the row is
-// not needed again.
-__device__ __forceinline__ float4 reread_streaming(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
-  return v;
+// Copy the first ``bytes`` (0, 4, 8, 12 or 16) of the float4 at src into
+// dst and zero the rest; nothing past ``bytes`` is read.
+__device__ __forceinline__ void copy16(float4* dst, const float4* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory"); }
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
 }
 
-// Sum of v over the block, returned to every thread. The shuffle trees run
-// in a fixed order, so the result is deterministic. ``buf`` alternates
-// between two halves per row, so one barrier per row suffices: a warp can
-// only rewrite a half after every warp passed the barrier of the row between.
-__device__ __forceinline__ float block_sum(float v, float* buf) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) buf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = buf[lane];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-  return t;
+// Float4 slots a thread keeps r and y for at R rows a step (the plan sizes
+// slices to fit): ten at one row, fewer where more rows' stages share the
+// shared memory.
+template <int R>
+__host__ __device__ constexpr int slots_per_thread() {
+  return R >= 4 ? 2 : (R == 2 ? 4 : 10);
 }
 
+// Wait until at most n (1..7) of this thread's copy groups are pending.
+__device__ __forceinline__ void copy_wait_n(int n) {
+  switch (n) {
+    case 1: copy_wait<1>(); break;
+    case 2: copy_wait<2>(); break;
+    case 3: copy_wait<3>(); break;
+    case 4: copy_wait<4>(); break;
+    case 5: copy_wait<5>(); break;
+    case 6: copy_wait<6>(); break;
+    default: copy_wait<7>(); break;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory location in cluster member ``rank``.
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store v at a peer's address and count its 4 bytes on the peer's mbarrier.
+__device__ __forceinline__ void push(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// R rows a step, ``n_stages`` stages. Shared memory: stages [S][R], each
+// ``cap`` float4 (the largest member's slot count).
+//
+// Thread tid's slots are u = tid + 512 j, j < kVec; slot u is float4 column
+// (member + (u / 32) C) * 32 + u % 32, so the thread's columns are
+// q0 + j * 512 C with q0 = (member + warp C) * 32 + lane, and a warp's 32
+// lanes share each j's chunk: whether slot j is in a step is warp-uniform.
+// Everything a step recomputes is shifts and adds: C is a power of two.
+template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_spd_apply_kernel(const float* __restrict__ m, const float* __restrict__ r,
-                           float* __restrict__ partial, int n_pad) {
-  extern __shared__ float4 r_s[];
-  __shared__ float warp_buf[2][kWarps];
-  const int n4 = n_pad >> 2;
+                           float* __restrict__ partial, int n_pad, int cap, int n_stages) {
+  constexpr int kVec = slots_per_thread<R>();
+  extern __shared__ float4 stages[];
+  // Every warp of every member pushes its R partials of step s here, in
+  // half s % 2, and counts them on bar[s % 2].
+  __shared__ float inbox[2][32 * kWarps];  // C x 16 warps x R <= 512 partials
+  __shared__ alignas(8) unsigned long long bar[2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int log_c = __ffs(C) - 1;
+  const int member = static_cast<int>(cluster.block_rank());
+  const int K = gridDim.x >> log_c, k = blockIdx.x >> log_c;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t n4 = n_pad / 4;
   const float4* r4 = reinterpret_cast<const float4*>(r);
-  for (int q = threadIdx.x; q < n4; q += kThreads) r_s[q] = r4[q];
-  __syncthreads();
+  const int panels = n_pad / R, pairs = panels / 2;
+  const int steps = pairs > k ? 2 * ((pairs - 1 - k) / K + 1) : 0;
+  const int inbox_bytes = (C * kWarps * R) << 2;
+  const int q0 = ((member + (warp << log_c)) << 5) + lane;  // the thread's first float4 column
+  const int stride = kThreads << log_c;                      // float4 columns between its slots
+  const float4* m_col = reinterpret_cast<const float4*>(m) + q0;
 
-  float4 acc[kVecPerThread];
-#pragma unroll
-  for (int k = 0; k < kVecPerThread; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The member's slots through chunk c, and a step's first row.
+  auto slots_through = [&](int c) { return c >= member ? (((c - member) >> log_c) + 1) << 5 : 0; };
+  auto first_row = [&](int s) {
+    const int p = k + (s >> 1) * K;
+    return ((s & 1) ? panels - 1 - p : p) * R;
+  };
+  // How many of the thread's slots (j = 0, 1, ...) a step of ``slots`` holds.
+  auto active = [&](int slots) { return slots > tid ? ((slots - tid - 1) >> 9) + 1 : 0; };
 
-  int half = 0;
-  for (int row = blockIdx.x; row < n_pad; row += gridDim.x) {
-    const float4* mrow = reinterpret_cast<const float4*>(m + static_cast<size_t>(row) * n_pad);
-    float dot = 0.f;
+  // Queue step s's copies (each thread its own slots) as one group into
+  // stage ``st``; an empty group past the last step keeps the wait counts
+  // uniform.
+  auto issue = [&](int s, float4* st) {
+    if (s < steps) {
+      const int row0 = first_row(s);
+      const int nj = active(slots_through((row0 + R - 1) >> 7));
 #pragma unroll
-    for (int k = 0; k < kVecPerThread; ++k) {
-      const int q = threadIdx.x + k * kThreads;
-      if (q < n4) {
-        const float4 a = __ldg(mrow + q);
-        const float4 b = r_s[q];
-        dot = fmaf(a.x, b.x, dot);
-        dot = fmaf(a.y, b.y, dot);
-        dot = fmaf(a.z, b.z, dot);
-        dot = fmaf(a.w, b.w, dot);
+      for (int i = 0; i < R; ++i) {
+        const int row = row0 + i;
+        const float4* src = m_col + static_cast<int64_t>(row) * n4;
+        float4* dst = st + i * cap + tid;
+        // Entries of the thread's float4 on or left of the diagonal, at j = 0.
+        const int left0 = row + 1 - 4 * q0;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          if (j >= nj) break;
+          const int left = left0 - 4 * j * stride;
+          const int bytes = min(max(left, 0), 4) << 2;
+          copy16(dst + j * kThreads, src + static_cast<int64_t>(j) * stride, bytes);
+        }
       }
     }
-    const float t = block_sum(dot, warp_buf[half]);
-    half ^= 1;
+    copy_commit();
+  };
+
+  float4 rv[kVec], yv[kVec];
+  // Pass 2 of a step: y += t_i M[i, slot].
+  auto accumulate = [&](const float4* st, int nj, const float* t) {
 #pragma unroll
-    for (int k = 0; k < kVecPerThread; ++k) {
-      const int q = threadIdx.x + k * kThreads;
-      if (q < n4) {
-        const float4 a = reread_streaming(mrow + q);
-        acc[k].x = fmaf(t, a.x, acc[k].x);
-        acc[k].y = fmaf(t, a.y, acc[k].y);
-        acc[k].z = fmaf(t, a.z, acc[k].z);
-        acc[k].w = fmaf(t, a.w, acc[k].w);
+    for (int j = 0; j < kVec; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 a = st[i * cap + tid + j * kThreads];
+        yv[j].x = fmaf(t[i], a.x, yv[j].x);
+        yv[j].y = fmaf(t[i], a.y, yv[j].y);
+        yv[j].z = fmaf(t[i], a.z, yv[j].z);
+        yv[j].w = fmaf(t[i], a.w, yv[j].w);
       }
     }
+  };
+  // t of step s: wait for every warp's partials, then sum them in a fixed
+  // order (each lane a fixed subset, then a shuffle tree), the same in
+  // every warp of every member.
+  auto receive = [&](int s, float* t) {
+    bar_wait(smem_addr(&bar[s & 1]), (s >> 1) & 1);
+    const float* in = inbox[s & 1];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float sum = 0.f;
+      for (int e = lane; e < (C << 4); e += 32) sum += in[e * R + i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      t[i] = sum;
+    }
+  };
+
+  // The ring holds step s - 1 (pass 2 still to come), s, and S - 2 steps in
+  // flight. Stage indices advance by one a step, wrapping at S. The first
+  // copies go out before r is loaded and the cluster meets.
+  auto next = [&](int i) { return i + 1 == n_stages ? 0 : i + 1; };
+  int st_issue = 0;
+  for (int s = 0; s < n_stages - 2; ++s) {
+    issue(s, stages + st_issue * R * cap);
+    st_issue = next(st_issue);
   }
-
-  float4* out = reinterpret_cast<float4*>(partial + static_cast<size_t>(blockIdx.x) * n_pad);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[0])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[1])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int total = active(slots_through(n_pad / kChunk - 1));
 #pragma unroll
-  for (int k = 0; k < kVecPerThread; ++k) {
-    const int q = threadIdx.x + k * kThreads;
-    if (q < n4) out[q] = acc[k];
+  for (int j = 0; j < kVec; ++j) {
+    rv[j] = j < total ? __ldg(r4 + q0 + j * stride) : zero4();
+    yv[j] = zero4();
+  }
+  cluster.sync();  // every member's mbarriers are set up before anyone pushes
+  int st_cur = 0, st_prev = 0, nj_prev = 0;
+  for (int s = 0; s < steps; ++s) {
+    issue(s + n_stages - 2, stages + st_issue * R * cap);
+    st_issue = next(st_issue);
+    copy_wait_n(n_stages - 2);  // this thread's copies of step s have landed
+    const float4* st = stages + st_cur * R * cap;
+    const int nj = active(slots_through((first_row(s) + R - 1) >> 7));
+
+    // Pass 1: the warp's partial dots of the R rows with r.
+    float dot[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) dot[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int i = 0; i < R; ++i) dot[i] = dot4(st[i * cap + tid + j * kThreads], rv[j], dot[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
+    }
+
+    // Step s - 1 while step s's partials travel: its t, then pass 2. Its
+    // inbox half is free again once every warp of every member has read it,
+    // which each does before it pushes step s (below), so no push of step
+    // s + 1 can reach it early.
+    if (s > 0) {
+      float t[R];
+      receive(s - 1, t);
+      accumulate(stages + st_prev * R * cap, nj_prev, t);
+    }
+    // Lane l pushes row l % R's partial to member l / R.
+    if (lane < (R << log_c)) {
+      const int p = lane / R, i = lane % R;
+      float v = dot[0];
+#pragma unroll
+      for (int ii = 1; ii < R; ++ii) v = i == ii ? dot[ii] : v;
+      const unsigned slot = smem_addr(&inbox[s & 1][(((member << 4) + warp) * R) + i]);
+      push(peer_addr(slot, p), v, peer_addr(smem_addr(&bar[s & 1]), p));
+    }
+    if (tid == 0) bar_expect(smem_addr(&bar[s & 1]), inbox_bytes);
+    st_prev = st_cur;
+    nj_prev = nj;
+    st_cur = next(st_cur);
+  }
+  if (steps > 0) {
+    float t[R];
+    receive(steps - 1, t);
+    accumulate(stages + st_prev * R * cap, nj_prev, t);
+  }
+  copy_wait<0>();
+
+  float4* out = reinterpret_cast<float4*>(partial + static_cast<int64_t>(k) * n_pad) + q0;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    if (j < total) out[j * stride] = yv[j];
+  }
+  // No member exits while a peer may still push to it.
+  cluster.sync();
+}
+
+// y[j] = the sum over the clusters' partials, in a fixed order: thread
+// (x, g) of a block sums partials g, g + 8, ... of column 32 b + x, then
+// lane g = 0 adds the 8 sums in order.
+constexpr int kSumCols = 32, kSumGroups = 8;
+__global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ y, int n_pad,
+                                    int clusters) {
+  __shared__ float part[kSumGroups][kSumCols];
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int j = blockIdx.x * kSumCols + x;
+  float s = 0.f;
+  for (int k = g; k < clusters; k += kSumGroups) s += partial[static_cast<int64_t>(k) * n_pad + j];
+  part[g][x] = s;
+  __syncthreads();
+  if (g == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSumGroups; ++i) sum += part[i][x];
+    y[j] = sum;
   }
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ y,
-                                    int n_pad, int grid) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_pad) return;
-  float s = 0.f;
-  for (int b = 0; b < grid; ++b) s += partial[static_cast<size_t>(b) * n_pad + j];
-  y[j] = s;
+template <int R>
+void* kernel_of() {
+  return reinterpret_cast<void*>(fused_spd_apply_kernel<R>);
+}
+
+int vec_for(int rows) {
+  switch (rows) {
+    case 1: return slots_per_thread<1>();
+    case 2: return slots_per_thread<2>();
+    case 4: return slots_per_thread<4>();
+    default: return slots_per_thread<8>();
+  }
+}
+
+void* kernel_for(int rows) {
+  switch (rows) {
+    case 1: return kernel_of<1>();
+    case 2: return kernel_of<2>();
+    case 4: return kernel_of<4>();
+    case 8: return kernel_of<8>();
+    default: return nullptr;
+  }
+}
+
+cudaLaunchConfig_t config_for(int cluster, int clusters, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lets the kernel take the dynamic shared memory of the largest n_pad. Call
-// once per device, with that device current, before the first launch there.
+// Lets every instance take the largest shared memory and clusters of 16.
+// Call once per device, with that device current, before the first launch
+// or query there.
 int cuadmm_fused_spd_apply_init(void) {
-  return static_cast<int>(cudaFuncSetAttribute(fused_spd_apply_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxNPad * sizeof(float))));
+  for (int rows : {1, 2, 4, 8}) {
+    const void* f = kernel_for(rows);
+    cudaError_t err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
-// y = m^T (m r) for m (n_pad, n_pad), r and y (n_pad,), all f32, contiguous
-// and 16-byte aligned; partial is (grid, n_pad) scratch. Launches on
-// ``stream`` without synchronizing and returns cudaGetLastError().
-int cuadmm_fused_spd_apply(const float* m, const float* r, float* partial, float* y, int n_pad,
-                           int grid, void* stream) {
-  if (n_pad <= 0 || n_pad % 128 != 0 || n_pad > kMaxNPad || grid <= 0 || grid > n_pad) {
+// Clusters of ``cluster`` CTAs with ``smem`` bytes of shared memory each,
+// at ``rows`` a step, that the current device holds at once.
+int cuadmm_fused_spd_apply_resident_clusters(int cluster, int rows, int smem, int* out) {
+  const void* f = kernel_for(rows);
+  if (f == nullptr || cluster < 1 || cluster > kMaxCluster || smem <= 0 || smem > kMaxSmem || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(n_pad) * sizeof(float);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = config_for(cluster, 1, smem, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, f, &config));
+}
+
+// y = m^T (m r) for lower-triangular m (n_pad, n_pad) (its strict upper
+// triangle is never read), r and y (n_pad,), all f32, contiguous and
+// 16-byte aligned; partial is (clusters, n_pad) scratch. ``rows`` (1, 2, 4,
+// 8) a step, ``cluster`` (1, 2, 4, 8, 16) CTAs a cluster, rows * cluster
+// <= 32, ``stages`` (3..8) ring stages, ``smem`` = stages x rows x the
+// largest member's row slice, which must fit its threads' registers
+// (slots_per_thread). Launches on ``stream`` without synchronizing and
+// returns cudaGetLastError().
+int cuadmm_fused_spd_apply(const float* m, const float* r, float* partial, float* y, int n_pad, int cluster,
+                           int clusters, int rows, int stages, int smem, void* stream) {
+  const bool cluster_ok = cluster > 0 && cluster <= kMaxCluster && (cluster & (cluster - 1)) == 0;
+  const void* f = kernel_for(rows);
+  if (n_pad <= 0 || n_pad % kChunk != 0 || !cluster_ok || f == nullptr || rows * cluster > 32 ||
+      clusters <= 0 || stages < 2 || stages > kMaxStages) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int cap = (n_pad / kChunk + cluster - 1) / cluster * kChunk4;  // float4 slots of the largest member
+  if (cap > vec_for(rows) * kThreads || smem != stages * rows * cap * 16 || smem > kMaxSmem || stages < 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_spd_apply_kernel<<<grid, kThreads, smem, s>>>(m, r, partial, n_pad);
-  cudaError_t err = cudaGetLastError();
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = config_for(cluster, clusters, smem, s, &attr);
+  void* args[] = {&m, &r, &partial, &n_pad, &cap, &stages};
+  cudaError_t err = cudaLaunchKernelExC(&config, f, args);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<(n_pad + 255) / 256, 256, 0, s>>>(partial, y, n_pad, grid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_partials_kernel<<<n_pad / kSumCols, dim3(kSumCols, kSumGroups), 0, s>>>(partial, y, n_pad, clusters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -169,7 +169,8 @@ class NormalEqSolver:
 
     mode: str
     sparse_a: SparseA  # f64, for the refinement residuals
-    # precond, and split's prefix: (n_pad, n_pad) f32, zero-padded inv(L).
+    # precond, and split's prefix: (n_pad, n_pad) f32, zero-padded inv(L),
+    # exactly zero above the diagonal (``pad_factor``).
     inv_l: Optional[torch.Tensor] = None
     # dense, and split's prefix carried over from an f64 JAX build: the f64
     # lower Cholesky factor.
@@ -410,8 +411,10 @@ def _tri_inv(l: torch.Tensor) -> torch.Tensor:
     Error ~ cond(L) * eps = sqrt(cond(P)) * eps, enough for a refined
     preconditioner. The JAX package blocks this by hand only to dodge an
     XLA temporary blow-up on a 16 GB chip; a triangular solve against the
-    identity needs two n^2 f32 buffers (8.6 GB at dense_chol_max = 32768),
-    which the H100's 80 GB holds.
+    identity needs two n^2 f32 buffers beside L (and ``pad_factor``'s copy
+    one more after the identity is freed: 23.6 GB at n = 44,312), which the
+    H100's 80 GB holds. Callers pass the result through ``pad_factor``,
+    which keeps only its lower triangle.
     """
     eye = torch.eye(l.shape[0], dtype=l.dtype, device=l.device)
     return torch.linalg.solve_triangular(l, eye, upper=False)

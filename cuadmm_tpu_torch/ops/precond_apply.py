@@ -1,11 +1,14 @@
-"""Fused preconditioner application y = M^T (M r) in one pass over M (K1).
+"""Fused preconditioner application y = M^T (M r) in one pass over M's lower
+triangle (K1).
 
-The precond normal solver applies its explicitly inverted, zero-padded f32
-Cholesky factor M once per refinement sweep (ops/chol.py). As two matvecs
-that reads M from device memory twice; the CUDA kernel in
-``csrc/precond_apply.cu`` reads it once. It replaces the Pallas kernel
-``cuadmm_tpu/ops/precond_apply.py::_kernel``; the source says what bounds
-it and how its design answers that.
+The precond normal solver (and split's coupled prefix) applies its
+explicitly inverted, zero-padded f32 Cholesky factor M once per refinement
+sweep (ops/chol.py). M is lower triangular; as two matvecs that reads the
+square from device memory twice, while the CUDA kernel in
+``csrc/precond_apply.cu`` reads only the lower triangle, once. It replaces
+the Pallas kernel ``cuadmm_tpu/ops/precond_apply.py::_kernel``; the source
+says what bounds it and how its design answers that. ``launch_plan`` below
+sizes its launch for each n_pad.
 
 ``fused_spd_apply`` launches the kernel for CUDA tensors and runs the
 plain version ``fused_spd_apply_ref`` for CPU tensors. There is no
@@ -15,19 +18,71 @@ fallback: on CUDA it launches or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Callable
 
 import torch
 
 from cuadmm_tpu_torch import _build
 
-LANE = 128  # n_pad granularity (a float4 per thread, rows 512-byte aligned)
-MAX_N_PAD = 32768  # dense_chol_max; the kernel's shared-memory budget
+LANE = 128  # n_pad granularity and the kernel's column chunk
+# The kernel's constants (csrc/precond_apply.cu).
+THREADS = 512
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # past 8 non-portable
+ROWS_PER_STEP = (8, 4, 2, 1)
+SLOTS_PER_THREAD = {1: 10, 2: 4, 4: 2, 8: 2}  # float4 of r and y a thread keeps, by rows a step
+MAX_STAGES = 8
+SLOT_BYTES = LANE * 4  # shared memory per owned chunk of one row
+MAX_SMEM = 444 * SLOT_BYTES  # dynamic shared memory of one CTA, 222 KB
+# The largest member slice: three stages of one row fit (one in flight).
+MAX_MEMBER_CHUNKS = MAX_SMEM // (3 * SLOT_BYTES)
+MAX_N_PAD = CLUSTER_SIZES[-1] * MAX_MEMBER_CHUNKS * LANE  # 303,104: a 367 GB square
 
 # Kernel launches so far (one per fused_spd_apply call on a CUDA tensor).
 LAUNCHES = 0
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
-_GRID: dict = {}  # device index -> persistent CTAs (one per SM), once set up
+_READY: set = set()  # devices whose kernel attributes are set
+_PLANS: dict = {}  # (device index, n_pad) -> LaunchPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    cluster: int  # C: CTAs a cluster; member m owns the chunks c = m (mod C)
+    clusters: int  # K: clusters launched
+    rows: int  # R: rows a step; panel p of R rows is paired with panel P - 1 - p
+    stages: int  # S: ring stages of R row slices: one in use, one awaiting its t, S - 2 in flight
+    smem: int  # dynamic shared memory of a CTA: S x R row slices
+
+
+def member_slice(n_pad: int, cluster: int) -> int:
+    """Bytes of one row that the largest member holds: its
+    ceil(chunks / cluster) chunks."""
+    return -(-(n_pad // LANE) // cluster) * SLOT_BYTES
+
+
+def launch_plan(n_pad: int, resident: Callable[[int, int, int], int]) -> LaunchPlan:
+    """K1's launch for ``n_pad``; ``resident(cluster, rows, smem)`` is how
+    many such clusters the card holds at once (the kernel's occupancy
+    query).
+
+    The smallest cluster whose members hold three stages of one row; then
+    as many rows a step as still leave four stages, fit the threads'
+    registers and keep R x C within a warp's lanes (each lane pushes one
+    partial); then as many stages as fit, at most MAX_STAGES; then
+    one wave of clusters, no more than there are panel pairs."""
+    if n_pad <= 0 or n_pad % LANE or n_pad > MAX_N_PAD:
+        raise ValueError(f"n_pad={n_pad} must be a positive multiple of {LANE} <= {MAX_N_PAD}")
+    c = next(c for c in CLUSTER_SIZES if 3 * member_slice(n_pad, c) <= MAX_SMEM)
+    piece = member_slice(n_pad, c)
+    fits_registers = lambda r: piece <= SLOTS_PER_THREAD[r] * THREADS * 16
+    rows = next((r for r in ROWS_PER_STEP
+                 if r * c <= 32 and fits_registers(r) and 4 * r * piece <= MAX_SMEM), 1)
+    stages = min(MAX_STAGES, MAX_SMEM // (rows * piece))
+    smem = stages * rows * piece
+    pairs = n_pad // rows // 2
+    k = max(1, min(resident(c, rows, smem), pairs))
+    return LaunchPlan(cluster=c, clusters=k, rows=rows, stages=stages, smem=smem)
 
 
 def fused_spd_apply_ref(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -47,8 +102,11 @@ def _load() -> ctypes.CDLL:
         lib = _build.load("precond_apply")
         lib.cuadmm_fused_spd_apply_init.argtypes = []
         lib.cuadmm_fused_spd_apply_init.restype = ctypes.c_int
+        q = lib.cuadmm_fused_spd_apply_resident_clusters
+        q.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        q.restype = ctypes.c_int
         fn = lib.cuadmm_fused_spd_apply
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.cuadmm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
@@ -56,23 +114,37 @@ def _load() -> ctypes.CDLL:
     return _LIB
 
 
-def _grid(lib: ctypes.CDLL, device: torch.device) -> int:
-    """CTAs for ``device``; on its first use, let the kernel take the shared
-    memory of the largest n_pad (an attribute set once per device)."""
-    idx = torch.cuda.current_device() if device.index is None else device.index
-    if idx not in _GRID:
+def _plan(lib: ctypes.CDLL, idx: int, n_pad: int) -> LaunchPlan:
+    """The launch plan for ``n_pad`` on CUDA device ``idx``, made once; on a
+    device's first use, set the kernel's attributes there."""
+    key = (idx, n_pad)
+    if key not in _PLANS:
         with torch.cuda.device(idx):
-            _check(lib, lib.cuadmm_fused_spd_apply_init(), "set-up")
-        _GRID[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _GRID[idx]
+            if idx not in _READY:
+                _check(lib, lib.cuadmm_fused_spd_apply_init(), "set-up")
+                _READY.add(idx)
+
+            def resident(cluster: int, rows: int, smem: int) -> int:
+                out = ctypes.c_int(0)
+                err = lib.cuadmm_fused_spd_apply_resident_clusters(cluster, rows, smem, ctypes.byref(out))
+                _check(lib, err, "occupancy query")
+                if out.value < 1:
+                    raise RuntimeError(f"fused_spd_apply: no cluster of {cluster} CTAs with {smem} bytes fits")
+                return out.value
+
+            _PLANS[key] = launch_plan(n_pad, resident)
+    return _PLANS[key]
 
 
 def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """y = m^T (m r) for square f32 ``m`` (n_pad, n_pad) and ``r`` (n_pad,).
+    """y = m^T (m r) for lower-triangular f32 ``m`` (n_pad, n_pad) and ``r``
+    (n_pad,).
 
-    ``n_pad`` must be a positive multiple of 128 and at most 32768 (see
-    ``pad_factor``). On CUDA the kernel is launched on the current stream
-    without synchronizing.
+    ``n_pad`` must be a positive multiple of 128 and at most MAX_N_PAD (see
+    ``pad_factor``). On CUDA the kernel reads only ``m``'s lower triangle
+    and is launched on the current stream without synchronizing; the
+    refinement sweeps call it several times an iteration, so the host work
+    of a call is kept to one allocation and one foreign call.
     """
     global LAUNCHES
     if m.dim() != 2 or m.shape[0] != m.shape[1] or tuple(r.shape) != (m.shape[0],):
@@ -82,37 +154,51 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     n_pad = m.shape[0]
     if n_pad == 0 or n_pad % LANE or n_pad > MAX_N_PAD:
         raise ValueError(f"n_pad={n_pad} must be a positive multiple of {LANE} <= {MAX_N_PAD}")
-    if m.device != r.device:
-        raise ValueError(f"m on {m.device} but r on {r.device}")
+    dev = m.device
+    if dev != r.device:
+        raise ValueError(f"m on {dev} but r on {r.device}")
     if not (m.is_contiguous() and r.is_contiguous()):
         raise ValueError("m and r must be contiguous")
-    if m.device.type == "cpu":
+    if dev.type == "cpu":
         return fused_spd_apply_ref(m, r)
-    if m.device.type != "cuda":
-        raise ValueError(f"unsupported device {m.device}")
-    if m.data_ptr() % 16 or r.data_ptr() % 16:
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    m_ptr, r_ptr = m.data_ptr(), r.data_ptr()
+    if m_ptr % 16 or r_ptr % 16:
         raise ValueError("m and r must be 16-byte aligned")
-    lib = _load()
-    grid = min(_grid(lib, m.device), n_pad)
-    partial = torch.empty((grid, n_pad), dtype=torch.float32, device=m.device)
-    y = torch.empty(n_pad, dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
-        stream = torch.cuda.current_stream(m.device).cuda_stream
-        err = lib.cuadmm_fused_spd_apply(
-            m.data_ptr(), r.data_ptr(), partial.data_ptr(), y.data_ptr(), n_pad, grid, stream
-        )
+    lib = _LIB or _load()
+    idx = dev.index
+    plan = _PLANS.get((idx, n_pad)) or _plan(lib, idx, n_pad)
+    k = plan.clusters
+    out = torch.empty((k + 1) * n_pad, dtype=torch.float32, device=dev)  # K partial rows, then y
+    ptr = out.data_ptr()
+    args = (m_ptr, r_ptr, ptr, ptr + 4 * k * n_pad, n_pad, plan.cluster, k, plan.rows, plan.stages, plan.smem)
+    # The raw handle of the device's current stream, as Triton's launcher
+    # takes it: torch.cuda.current_stream() costs as much host time as the
+    # launch itself.
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        err = lib.cuadmm_fused_spd_apply(*args, stream)
+    else:  # the launch goes to the current device
+        with torch.cuda.device(idx):
+            err = lib.cuadmm_fused_spd_apply(*args, stream)
     _check(lib, err, "kernel launch")
     LAUNCHES += 1
-    return y
+    return out[k * n_pad:]
 
 
 def pad_factor(inv_l: torch.Tensor) -> torch.Tensor:
-    """Zero-pad an (n, n) factor to the next multiple of 128 (exact: zero
-    rows and columns contribute nothing)."""
+    """The lower triangle of an (n, n) factor, zero-padded to the next
+    multiple of 128, as a new row-major tensor.
+
+    Zero rows and columns contribute nothing, and the strict upper triangle
+    is exactly zero whatever the triangular solve left there, so the plain
+    version, which reads the square, agrees with the kernel, which reads the
+    triangle. The triangle is taken in place on the padded copy."""
     n = inv_l.shape[0]
     n_pad = -(-n // LANE) * LANE
     if n_pad == n:
-        return inv_l.contiguous()
+        return torch.tril(inv_l).contiguous()
     out = inv_l.new_zeros((n_pad, n_pad))
     out[:n, :n] = inv_l
-    return out
+    return out.tril_()

@@ -148,6 +148,66 @@ def test_tri_inv_matches_jax():
     np.testing.assert_allclose(mt, mj, rtol=0, atol=1e-10)
 
 
+def _upper_is_zero(m: torch.Tensor) -> bool:
+    return bool(torch.equal(m.triu(1), torch.zeros_like(m)))
+
+
+@pytest.mark.parametrize("mode", ["precond", "split"])
+def test_inverse_factor_is_exactly_lower_triangular(mode):
+    """K1 reads only the lower triangle of the inverse factor and its plain
+    version reads the square, so the factor is exactly zero above the
+    diagonal, for precond and for split's coupled prefix, and still M = inv(L)."""
+    if mode == "precond":
+        prob = _chordal()
+        vals, _, sa = _operands(prob)
+        neq = _port_solver(prob, vals, sa, applies=2)
+        con = prob.con_num
+    else:
+        r, c, v, con, vec_len = _split_at()
+        sa = tsparse.build_sparse_a(r, c, v, con, vec_len, torch.float64, CPU)
+        neq = tchol.build_normal_solver(r, c, v, con, vec_len, sa, "split", torch.float64, CPU, applies=2)
+        con = neq.split_p
+    m = neq.inv_l
+    assert m.dtype == torch.float32 and m.shape[0] % 128 == 0 and m.is_contiguous() and _upper_is_zero(m)
+    assert not m[con:].any() and not m[:, con:].any()
+    l = torch.linalg.inv(m[:con, :con].double())  # L, lower triangular up to rounding
+    assert float(l.triu(1).abs().max()) < 1e-6 * float(l.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["precond", "split"])
+@pytest.mark.parametrize("build", ["cpu", "accelerator"])
+def test_convert_keeps_only_the_lower_triangle(mode, build, monkeypatch):
+    """From the JAX package's CPU build (an f64 factor, inverted here) and
+    from its accelerator build (a padded f32 inverse, here with ones written
+    above its diagonal), the carried-over inverse factor is exactly zero
+    above the diagonal and keeps the JAX lower triangle bit for bit."""
+    import dataclasses
+
+    from cuadmm_tpu_torch import convert
+
+    prob = _quasar(3) if mode == "split" else _chordal()
+    vals, sa_j, _ = _operands(prob)
+    args = (prob.At_rows, prob.At_cols, vals, prob.con_num, prob.vec_len)
+    if build == "accelerator":
+        monkeypatch.setattr(jchol.jax, "default_backend", lambda: "gpu")
+    neq_j = jchol.build_normal_solver(*args, sa_j, mode, jnp.float64, applies=2)
+    monkeypatch.undo()
+    if build == "accelerator":
+        inv_j = np.asarray(neq_j.inv_l, np.float32)
+        assert inv_j.shape[0] % 128 == 0
+        neq_j = dataclasses.replace(neq_j, inv_l=inv_j + np.triu(np.ones_like(inv_j), 1))
+    else:
+        assert neq_j.inv_l is None and neq_j.chol_l is not None
+    neq_t = convert.normal_solver_from_numpy(neq_j, CPU)
+    if build == "cpu" and mode == "split":  # the f64 prefix factor is carried as it is
+        assert neq_t.inv_l is None and neq_t.chol_l is not None
+        return
+    m = neq_t.inv_l
+    assert m.dtype == torch.float32 and m.is_contiguous() and _upper_is_zero(m)
+    if build == "accelerator":
+        assert np.array_equal(m.numpy(), np.tril(inv_j))
+
+
 @pytest.mark.parametrize("mode", ["sharded"])
 def test_unported_modes_raise(mode):
     r, c, v, _ = _semidefinite_at()

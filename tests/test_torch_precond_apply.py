@@ -1,7 +1,9 @@
-"""K1, the fused y = M^T (M r): the port's wrapper and plain version.
+"""K1, the fused y = M^T (M r): the port's wrapper, plain version and launch
+plan.
 
 On the CPU the wrapper runs the plain version, held here against the JAX
-package's Pallas kernel in interpret mode and the f64 dot pair. The CUDA
+package's Pallas kernel in interpret mode and the f64 dot pair, and the
+launch plan is checked for its invariants up to n_pad 262,144. The CUDA
 kernel itself runs only on a card: those tests are marked ``cuda`` and run
 with ``python -m pytest --noconftest -m cuda tests/test_torch_precond_apply.py``
 (the suite's conftest imports jax, which the card's machine lacks).
@@ -19,10 +21,11 @@ REL_TOL = 1e-5  # f32 sums in another order (tests/test_ops.py:404)
 
 
 def _factor(n, seed):
-    """M = inv(L) for a well-conditioned lower-triangular L, and an r."""
+    """M = inv(L) for a well-conditioned lower-triangular L (its lower
+    triangle: a general inverse leaves rounding above the diagonal), and an r."""
     rng = np.random.default_rng(seed)
     L = np.tril(rng.standard_normal((n, n))) + n * np.eye(n)
-    return np.linalg.inv(L).astype(np.float32), rng.standard_normal(n).astype(np.float32)
+    return np.tril(np.linalg.inv(L)).astype(np.float32), rng.standard_normal(n).astype(np.float32)
 
 
 def _rel(a, b):
@@ -65,7 +68,7 @@ def test_cpu_tensors_launch_nothing():
         (torch.zeros(128, 128, dtype=torch.float64), torch.zeros(128), TypeError),
         (torch.zeros(128, 128), torch.zeros(128, dtype=torch.float16), TypeError),
         (torch.zeros(256, 256)[::2, ::2], torch.zeros(128), ValueError),  # not contiguous
-        (torch.empty(32896, 32896, device="meta"), torch.empty(32896, device="meta"), ValueError),
+        (torch.empty(303232, 303232, device="meta"), torch.empty(303232, device="meta"), ValueError),
         (torch.empty(128, 128, device="meta"), torch.empty(128), ValueError),  # devices differ
         (torch.empty(128, 128, device="meta"), torch.empty(128, device="meta"), ValueError),
     ],
@@ -79,13 +82,113 @@ def test_wrapper_rejects(m, r, err):
     assert tpa.LAUNCHES == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [128, 1024, 4224])
-def test_kernel_matches_plain_on_card(n):
+@pytest.mark.parametrize("n", [128, 130, 517])
+def test_pad_factor_keeps_only_the_lower_triangle(n):
+    """Whatever a triangular solve leaves above the diagonal, the padded
+    factor is exactly zero there and row-major; the lower triangle is kept
+    bit for bit."""
+    a = torch.as_tensor(np.random.default_rng(n).standard_normal((n, n)), dtype=torch.float32)
+    mp = tpa.pad_factor(a.T.contiguous().T)  # a column-major input, as cuSOLVER returns
+    n_pad = mp.shape[0]
+    assert n_pad % tpa.LANE == 0 and n_pad >= n and mp.is_contiguous()
+    assert torch.equal(mp.triu(1), torch.zeros_like(mp))
+    assert torch.equal(mp[:n, :n], torch.tril(a)) and not mp[n:].any() and not mp[:, n:].any()
+
+
+def _h100_resident(cluster, rows, smem):
+    """Clusters an H100 (132 SMs) holds at once, as the occupancy query would
+    say for one CTA an SM."""
+    return 132 // cluster
+
+
+# The kernel's static shared memory (the partials' inbox and its two
+# mbarriers) and what one CTA of an H100 may use (227 KB).
+STATIC_SMEM = 2 * 32 * (tpa.THREADS // 32) * 4 + 16
+BLOCK_SMEM_LIMIT = 232_448
+
+
+def _panel_steps(n_pad, plan, k):
+    """The kernel's rule for cluster k's steps, as their first rows: pair j
+    is p = k + j K, its steps panels p and P - 1 - p."""
+    panels = n_pad // plan.rows
+    out = []
+    for p in range(k, panels // 2, plan.clusters):
+        out += [p * plan.rows, (panels - 1 - p) * plan.rows]
+    return out
+
+
+def _member_chunks(chunks, cluster, member):
+    """The kernel's ownership rule: slot u of member m lies in chunk
+    m + (u // 32) * cluster."""
+    return np.arange(member, chunks, cluster)
+
+
+PLAN_SIZES = [128, 256, 1024, 5120, 17152, 24576, 24704, 32512, 44416, 65536, 131072, 196608, 262144]
+
+
+@pytest.mark.parametrize("n_pad", PLAN_SIZES)
+def test_launch_plan_invariants(n_pad):
+    """Every chunk has one owner, members' shares of every row's triangle
+    differ by at most one chunk, a CTA's row stages fit its shared memory
+    (two or more in flight) and its threads' r and y their registers, the t
+    exchange fits a warp, and the clusters' panel pairs
+    cover every row once with equal steps and equal triangle work within
+    one pair."""
+    plan = tpa.launch_plan(n_pad, _h100_resident)
+    c, r, chunks = plan.cluster, plan.rows, n_pad // tpa.LANE
+    assert c in tpa.CLUSTER_SIZES and r in tpa.ROWS_PER_STEP and r * c <= 32
+    owned = [_member_chunks(chunks, c, m) for m in range(c)]
+    assert np.array_equal(np.sort(np.concatenate(owned)), np.arange(chunks))
+    slice_bytes = max(len(o) for o in owned) * tpa.SLOT_BYTES
+    assert 3 <= plan.stages <= tpa.MAX_STAGES
+    assert plan.smem == plan.stages * r * slice_bytes <= tpa.MAX_SMEM
+    assert plan.smem + STATIC_SMEM <= BLOCK_SMEM_LIMIT
+    assert slice_bytes <= tpa.SLOTS_PER_THREAD[r] * tpa.THREADS * 16  # r and y fit the registers
+    rows = np.unique(np.r_[np.linspace(0, n_pad - 1, 257).astype(np.int64), n_pad - 1])
+    work = np.stack([
+        np.clip(rows[:, None] + 1 - tpa.LANE * o[None, :], 0, tpa.LANE).sum(axis=1) for o in owned
+    ])
+    assert (work.max(axis=0) - work.min(axis=0)).max() <= tpa.LANE
+    assert work.sum(axis=0).tolist() == (rows + 1).tolist()
+    steps = [_panel_steps(n_pad, plan, k) for k in range(plan.clusters)]
+    firsts = np.sort(np.concatenate(steps))
+    assert np.array_equal(firsts, np.arange(0, n_pad, r))  # every panel once
+    assert max(map(len, steps)) - min(map(len, steps)) <= 2 and min(map(len, steps)) >= 2
+    tri = lambda row0: sum(row0 + i + 1 for i in range(r))  # a panel's entries
+    pair_work = {tri(s[j]) + tri(s[j + 1]) for s in steps for j in range(0, len(s), 2)}
+    assert len(pair_work) == 1  # p and P - 1 - p: every pair the same work
+    assert 1 <= plan.clusters <= _h100_resident(c, r, plan.smem)
+
+
+def test_launch_plan_rejects_what_the_kernel_cannot_take():
+    for n_pad in (0, 130, tpa.MAX_N_PAD + tpa.LANE):
+        with pytest.raises(ValueError):
+            tpa.launch_plan(n_pad, _h100_resident)
+    big = tpa.launch_plan(tpa.MAX_N_PAD, _h100_resident)
+    assert big.cluster == tpa.CLUSTER_SIZES[-1] and big.smem <= tpa.MAX_SMEM
+
+
+def _card_operands(n, seed):
+    """M on the card: the inverse of a lower-triangular L up to n = 4224,
+    past that a unit-diagonal random lower triangle made directly."""
+    if n <= 4224:
+        M, r = _factor(n, seed)
+        return torch.as_tensor(M, device="cuda"), torch.as_tensor(r, device="cuda")
+    from cuadmm_tpu_torch.k1_ab import unit_lower
+
+    return unit_lower(n, seed)
+
+
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
-    M, r = _factor(n, 5)
-    m, rv = torch.as_tensor(M, device="cuda"), torch.as_tensor(r, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1024, 4224, 5120, 44416])
+def test_kernel_matches_plain_on_card(n):
+    _needs_card()
+    m, rv = _card_operands(n, 5)
     before = tpa.LAUNCHES
     y = tpa.fused_spd_apply(m, rv)
     torch.cuda.synchronize()
@@ -93,4 +196,20 @@ def test_kernel_matches_plain_on_card(n):
     ref = tpa.fused_spd_apply_ref(m.double(), rv.double())
     assert _rel(y.cpu(), ref.cpu()) < REL_TOL
     # Deterministic: partials are summed in a fixed order.
+    assert torch.equal(tpa.fused_spd_apply(m, rv), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 5120, 33024])
+def test_kernel_never_reads_the_strict_upper_triangle(n):
+    """NaN above the diagonal: the kernel's result is finite, matches the
+    plain version on the lower triangle and is bitwise repeatable."""
+    _needs_card()
+    m, rv = _card_operands(n, 7)
+    ref = tpa.fused_spd_apply_ref(m.double(), rv.double())
+    m.add_(torch.full_like(m, float("nan")).triu_(1))
+    y = tpa.fused_spd_apply(m, rv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y.cpu(), ref.cpu()) < REL_TOL
     assert torch.equal(tpa.fused_spd_apply(m, rv), y)
