@@ -25,7 +25,9 @@ Phases, in order; any failure raises and exits non-zero:
    n/32 past n = 64, see k4_tol); at n = 128 in f64 also against
    torch.linalg.eigh; K4, the plain version, K4 + reconstruction, eigh +
    reconstruction and eigh alone (library_ms) timed with CUDA events (the
-   plain version once a shape), and us per rotation;
+   plain version once a shape, one sweep of its rotations replayed from a
+   CUDA graph after a bitwise check against the eager plain version at
+   n = 8), and us per rotation;
 5. run the stand-in problem (max-cut, chordally decomposed, banded graph
    n=1560 with off-diagonals 1..4: 17,110 constraints, 1,556 5x5 blocks)
    through SDPSolver in float64 with normal_solver and projection "auto":
@@ -55,6 +57,8 @@ Phases, in order; any failure raises and exits non-zero:
    exactly 2 sweep kernels launched per solve (torch.profiler), both times
    from CUDA events, the bound counting every tile once per sweep (a solve
    is two sweeps, and no factor here stays in the 50 MB L2 between them);
+   at the large grid's two layouts one torch.cholesky_solve on the dense
+   expansion of the factor (18.8 GB) as library_ms;
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -90,7 +94,30 @@ Phases, in order; any failure raises and exits non-zero:
 13. solve a certified random SDP to 1e-6 and match its known optimum
    through normal_solver "precond", "auto" (split), "dense", "cg" and
    "host", and through "dense" with its factor zeroed, where divergence
-   recovery must end in the level-2 CG rebuild and still converge.
+   recovery must end in the level-2 CG rebuild and still converge;
+14. float32 state beside float64, TF32 asserted off before every f32 run:
+   the stand-in plain ADMM (precond + K1; 100 warm, 500 timed iterations,
+   timed f64, f32, f32, f64 in turns as rate_ab.py pairs checkouts), gated
+   on finite, decreasing residuals and exactly one K1 launch per
+   calibrated sweep, with both sweep counts, rates, device ms, busy shares
+   and K1 ms; the grid with "jacobi" and "auto" from the f32 table (100
+   warm, 200 timed), gated on K4's f32 instantiation on every jacobi
+   bucket of every iteration, device and K4 ms beside the grid's f64
+   jacobi run; the large grid (auto -> banded + K3) and QUASAR-500
+   (split + K1, "poly" with the f32 sign schedule), rate and device ms
+   beside the f64 runs above;
+15. the certified SDP in f32 through every normal solver of 13 and
+   "packed" and "banded" (K2 and K3 at one 256-wide block) to stop_tol
+   2e-4 and its optimum within 5e-3 (tests/test_solver.py:101),
+   then solve_escalated on tests/test_solver.py:194's instance at
+   stop_tol 1e-4: converged, optimum within 1e-2;
+16. BatchedSDPSolver on 8 stand-ins (the banded graph with weights from
+   uniform(0.5, 1.5) under seeds 0-7: one A, eight C) in f64 (precond +
+   K1, eigh): 20 warm and 100 timed plain-ADMM iterations, gated on K1
+   launched exactly B times a sweep and on each instance's last errRp
+   within 1e-9 (relative) of its own SDPSolver(projection="eigh") run of
+   100 iterations; instance-iterations per second beside the single runs'
+   it/s.
 
 The next-to-last line is the kernel table as JSON (each kernel's bound_ms
 is the least time for its work on the card: bytes at 3.35 TB/s or flops at
@@ -112,10 +139,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from cuadmm_tpu_torch import SDPSolver, SolverConfig, _build
+from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, solve_escalated
 from cuadmm_tpu_torch.device import card_line
 from cuadmm_tpu_torch.k1_ab import unit_lower
-from cuadmm_tpu_torch.models.chordal import maxcut_chordal
+from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
@@ -173,6 +200,9 @@ PAST_CAP_CON, PAST_CAP_N_PAD, PAST_CAP_DENSE_CHOL_MAX = 44312, 44416, 45_056
 G22_NODES, G22_EDGE_P = 2000, 0.01  # the G-set's G22: 2,000 nodes, 19,990 edges
 CG_ITERS = 20
 CERT_MODES = ("precond", "auto", "dense", "cg", "host")
+CERT_MODES_F32 = CERT_MODES + ("packed", "banded")  # every normal solver but sharded
+PROBE_TOL = {"float64": 1e-6, "float32": 1e-5}  # the f32 calibration target is 1e-6 to 1e-5
+BATCH = 8  # stand-ins in the batched phase
 REPORT = Path("chiprun_out") / "chip_smoke.json"
 report: dict = {}  # everything printed, written to REPORT at the end
 
@@ -318,6 +348,31 @@ def k4_bound_ms(n: int, batch: int, dtype) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def plain_k4(mats: torch.Tensor) -> tuple:
+    """jacobi_eigh_ref, op for op, with one sweep of its rotations captured
+    into a CUDA graph and replayed default_sweeps(n) times: the same
+    kernels on the same buffers in the same order, without the Python loop
+    (about 50 launches a rotation, a minute and more a shape at n = 128).
+    compare_k4 holds it to jacobi_eigh_ref bit for bit at n = 8."""
+    b, n, _ = mats.shape
+    eps = 1e-30 if mats.dtype == torch.float64 else 1e-18
+    a = mats.clone()
+    v = torch.eye(n, dtype=mats.dtype, device=mats.device).expand(b, n, n).clone()
+    pairs = jacobi._pair_schedule(n)
+    jacobi._rotate_ref(a.clone(), v.clone(), *pairs[0], eps)  # loads every kernel before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for p, q in pairs:
+            jacobi._rotate_ref(a, v, p, q, eps)
+    for _ in range(jacobi.default_sweeps(n)):
+        graph.replay()
+    out = torch.diagonal(a, dim1=1, dim2=2).clone(), v.clone()
+    torch.cuda.synchronize()
+    del graph
+    return out
+
+
 def _sym_batch(n: int, batch: int, dtype, seed: int) -> torch.Tensor:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     m = torch.randn((batch, n, n), dtype=dtype, device="cuda", generator=gen)
@@ -340,19 +395,25 @@ def compare_k4() -> dict:
     full sweeps (after two sweeps the iteration is far from converged and
     amplifies rounding: 1e-7 of input noise moves the plain version's sorted
     f32 w by 4e-4 of the largest entry at n = 80, tests/test_torch_jacobi.py::
-    test_unconverged_sweeps_amplify_rounding); the plain version (a
-    Python loop of rotations: 4-94 s a shape past n = 32) runs once, then
-    K4 twice, beside eigh + reconstruction and eigh alone (library_ms). At
-    n = 128 in f64 the kernel is also held against torch.linalg.eigh.
-    Returns the f64 sums over the grid's bucket shapes for the kernel table."""
+    test_unconverged_sweeps_amplify_rounding); the plain version (its
+    rotations replayed from a CUDA graph, ``plain_k4``, first held to the
+    eager jacobi_eigh_ref bit for bit) runs once, then K4 twice, beside
+    eigh + reconstruction and eigh alone (library_ms). At n = 128 in f64
+    the kernel is also held against torch.linalg.eigh. Returns the f64
+    sums over the grid's bucket shapes for the kernel table."""
     at_grid = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     rows = []
+    for dtype in (torch.float64, torch.float32):
+        mats = _sym_batch(8, 598, dtype, seed=0)
+        eager, graphed = jacobi.jacobi_eigh_ref(mats), plain_k4(mats)
+        check(all(torch.equal(x, y) for x, y in zip(eager, graphed)),
+              f"K4 plain version replayed from a graph differs from jacobi_eigh_ref ({dtype})")
     for dtype in (torch.float64, torch.float32):
         for n, batch in K4_SHAPES:
             tol = k4_tol(n, dtype)
             mats = _sym_batch(n, batch, dtype, seed=n)
             k4 = lambda: jacobi.jacobi_eigh(mats)
-            plain = lambda: jacobi.jacobi_eigh_ref(mats)
+            plain = lambda: plain_k4(mats)
             eigh = lambda: reconstruct_clamped(*torch.linalg.eigh(mats))
             k4_proj = lambda: reconstruct_clamped(*jacobi.jacobi_eigh(mats))
             library = lambda: torch.linalg.eigh(mats)
@@ -464,13 +525,13 @@ def timed_run(solver, iters: int, warm: int = 100):
     kernel's launch count set to 0 just before and read just after."""
     solver.solve(max_iter=warm, stop_tol=0.0)
     torch.cuda.synchronize()
-    precond_apply.LAUNCHES = jacobi.LAUNCHES = 0
+    precond_apply.LAUNCHES = jacobi.LAUNCHES = jacobi.LAUNCHES_F32 = 0
     tri_stream.LAUNCHES.update(packed_solve=0, band_solve=0)
     t0 = time.perf_counter()
     res = solver.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES,
+    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES, k4_f32=jacobi.LAUNCHES_F32,
                   k2=tri_stream.LAUNCHES["packed_solve"], k3=tri_stream.LAUNCHES["band_solve"])
     check(res.iterations == iters, f"ran {res.iterations} of {iters} iterations")
     return res, elapsed, counts
@@ -491,12 +552,21 @@ def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str) -> 
 
 
 def _probe_normal_solve(solver, con_num: int) -> float:
+    """The normal solve of a consistent probe rhs in f64, to the state
+    dtype's PROBE_TOL (an f32 state calibrates its sweeps to 1e-6-1e-5)."""
     neq = solver.params.neq
     v = torch.as_tensor(np.random.default_rng(1).standard_normal(con_num), device="cuda")
     rhs = aat_matvec(neq.sparse_a, v)
     resid = float(neq.residual_norm(rhs, neq.solve(rhs)))
-    check(resid < 1e-6, f"normal-solve residual {resid:.3e} on the probe rhs")
+    tol = PROBE_TOL[solver.config.dtype]
+    check(resid < tol, f"normal-solve residual {resid:.3e} on the probe rhs (limit {tol:g})")
     return resid
+
+
+def _no_tf32() -> None:
+    """TF32 off (device.resolve_device): an f32 run's matmuls at full f32."""
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on before an f32 run")
 
 
 def standin_problem() -> Problem:
@@ -633,6 +703,23 @@ def _synthetic_factor(lay, seed: int) -> torch.Tensor:
     return tiles
 
 
+def _dense_factor(tiles, lay) -> torch.Tensor:
+    """The factor's dense lower-triangular expansion (n_pad, n_pad) for
+    torch.cholesky_solve: off-diagonal tiles as stored, each diagonal block
+    the lower triangle of the inverse of its stored (inverted) tile. The
+    synthetic diagonal tiles are full matrices, so this L differs from the
+    kernel's in their upper triangles: the call does the same work on a
+    factor of the same size, and its result is only timed. A band's
+    expansion is the full square, which the call reads whole."""
+    B, packed = lay.block, isinstance(lay, tri_stream.PackedLayout)
+    L = torch.zeros((lay.n_pad, lay.n_pad), device="cuda")
+    for i in range(lay.nb):
+        for j in range(0 if packed else max(0, i - lay.nbw), i + 1):
+            t = tri_stream.tid(i, j) if packed else tri_stream.tid_band(i, j, lay)
+            L[i * B:(i + 1) * B, j * B:(j + 1) * B] = torch.linalg.inv(tiles[t]).tril_() if i == j else tiles[t]
+    return L
+
+
 def _launches_per_solve(kernel, tiles, r, lay, tries: int = 3) -> int:
     """CUDA kernel launches of one solve, counted by torch.profiler. The
     wrapper launches or raises, so a trace with no sweep kernel at all
@@ -656,8 +743,9 @@ def compare_tri_stream() -> dict:
     """K2 and K3 against their plain versions at each TRI_LAYOUTS layout,
     one at a time; times in turns (plain, kernel, kernel, plain); two solves
     of the same r bitwise equal; the sweep kernels a solve launches, from the
-    profiler. Returns the kernel-table numbers at the large grid's own
-    layouts."""
+    profiler. At the large grid's own layouts one torch.cholesky_solve on
+    the factor's dense expansion (``_dense_factor``, 18.8 GB) is timed as
+    library_ms. Returns the kernel-table numbers at those layouts."""
     at_grid = {}
     for i, (label, lay) in enumerate(TRI_LAYOUTS):
         packed = isinstance(lay, tri_stream.PackedLayout)
@@ -688,31 +776,43 @@ def compare_tri_stream() -> dict:
         # that).
         bound_ms = (2 * sweep_gb * 1e9 + 8.0 * lay.n_pad) / HBM_BYTES_PER_S * 1e3
         gbs = 2 * sweep_gb / (k_ms * 1e-3)  # both sweeps
+        l_ms = None
+        if label.endswith("grid"):
+            L = _dense_factor(tiles, lay)
+            rcol = torch.nn.functional.pad(r, (0, lay.n_pad - lay.n)).unsqueeze(1)
+            library = lambda: torch.cholesky_solve(rcol, L)
+            check(bool(torch.isfinite(library()).all()), f"{label}: cholesky_solve on the dense factor")
+            l_ms = _time_ms(library, TRI_REPS)
+            del L, rcol
         row = dict(layout=label, kind="packed" if packed else "band", n=lay.n, block=lay.block,
                    nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T, gb_per_sweep=sweep_gb,
                    rel_err=rel, max_abs_err=max_abs, deterministic=True, launches_per_solve=launches,
-                   ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k_ms,
+                   ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k_ms,
                    gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
         print("K2/K3 " + json.dumps(row), flush=True)
         report.setdefault("k2k3", []).append(row)
         if label.endswith("grid"):
             at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                                                     bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+                                                     bound_ms=bound_ms, bound_by="bytes", library_ms=l_ms)
         del tiles, r, y, ref
         torch.cuda.empty_cache()
     return at_grid
 
 
-def large_grid() -> dict:
-    """The 20x120 grid past dense_chol_max: normal_solver "auto" (banded)
-    and "packed", each timed, gated and counted; returns K2's and K3's
-    launch counts from those runs."""
+def large_grid_problem() -> Problem:
     t0 = time.perf_counter()
     prob = grid_problem(LARGE_GRID)
     emit("large grid problem", dict(
         graph=f"{LARGE_GRID[0]}x{LARGE_GRID[1]} grid", con_num=prob.con_num, vec_len=prob.vec_len,
         blocks=len(prob.blk), host_build_s=time.perf_counter() - t0))
     check(prob.con_num == LARGE_GRID_CON, f"large grid con_num {prob.con_num}")
+    return prob
+
+
+def large_grid(prob: Problem) -> dict:
+    """The 20x120 grid past dense_chol_max: normal_solver "auto" (banded)
+    and "packed", each timed, gated and counted; returns K2's and K3's
+    launch counts from those runs."""
     launches, last = {}, {}
     for ns, mode, k in (("auto", "banded", "k3"), ("packed", "packed", "k2")):
         what = f"large grid normal_solver={ns}"
@@ -772,17 +872,20 @@ def quasar_problem(n_poses: int, seed: int = 0) -> Problem:
     )
 
 
-def big_block_run(prob: Problem, projection: str, split_p: int, what: str) -> dict:
+def big_block_run(prob: Problem, projection: str, split_p: int, what: str, dtype: str = "float64") -> dict:
     """One big-block problem plain ADMM with normal_solver "auto", which must
     resolve to split with ``split_p`` coupled rows as its prefix (no
     permutation): BIG_BLOCK_WARM warm and BIG_BLOCK_ITERS timed iterations,
     gated on the probe rhs, finite and decreasing residuals, and K1 on
     exactly every refinement sweep (none when split_p is 0)."""
-    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=projection)
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=projection,
+                       dtype=dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     solver = SDPSolver(prob, cfg, device="cuda")
     init_s = time.perf_counter() - t0
+    if dtype == "float32":
+        _no_tf32()
     neq = solver.params.neq
     check(neq.mode == "split" and neq.split_p == split_p and neq.split_perm is None,
           f"{what}: resolved to {neq.mode!r} with p={neq.split_p}, permuted={neq.split_perm is not None}")
@@ -809,14 +912,18 @@ def big_block_run(prob: Problem, projection: str, split_p: int, what: str) -> di
     return out
 
 
-def quasar() -> None:
-    """QUASAR-500 at full size, projection "auto" and "eigh"."""
+def quasar_500() -> Problem:
     t0 = time.perf_counter()
     prob = quasar_problem(QUASAR_POSES)
     shape = (prob.con_num, len(prob.At_vals), prob.blk[0][1])
     emit("quasar-500 problem", dict(con_num=shape[0], at_nnz=shape[1], block=shape[2], vec_len=prob.vec_len,
                                     host_build_s=time.perf_counter() - t0))
     check(shape == QUASAR_SHAPE and len(prob.blk) == 1, f"QUASAR-500 shape {shape}")
+    return prob
+
+
+def quasar(prob: Problem) -> None:
+    """QUASAR-500 at full size, projection "auto" and "eigh"."""
     print("projection auto for a 2004x1 bucket:", choose_methods([(QUASAR_SHAPE[2], 1)], "cuda", "float64"))
     for proj in ("auto", "eigh"):
         big_block_run(prob, proj, QUASAR_P, f"quasar-500 projection={proj}")
@@ -954,6 +1061,235 @@ def certified() -> None:
     emit("certified", out)
 
 
+def _profile_numbers(out: dict) -> dict:
+    """The profile numbers an f32 line prints beside f64's."""
+    prof = out["profile"]
+    return dict(it_per_s=out["it_per_s"], device_ms_per_it=prof["device_ms_per_it"],
+                busy_share=prof["busy_share"], k1_ms_per_it=prof["k1_ms_per_it"],
+                k4_ms_per_it=prof["k4_ms_per_it"], k2k3_ms_per_it=prof["k2k3_ms_per_it"])
+
+
+def standin_f32(prob: Problem) -> int:
+    """The stand-in plain ADMM in f32 and f64 (precond + K1, projection
+    "auto" from each dtype's table): one solver each, 100 warm iterations,
+    then 500 timed in the order f64, f32, f32, f64, each gated; one K1
+    launch per calibrated sweep exactly; a profile of each. Returns the
+    f32 run's K1 launches (the first timed f32 run)."""
+    iters = 500
+    solvers, lines = {}, {}
+    for dt in ("float64", "float32"):
+        cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, dtype=dt)
+        t0 = time.perf_counter()
+        solver = SDPSolver(prob, cfg, device="cuda")
+        init_s = time.perf_counter() - t0
+        neq = solver.params.neq
+        check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD,
+              f"stand-in {dt}: {neq.mode!r} at n_pad {None if neq.inv_l is None else neq.inv_l.shape[0]}")
+        solvers[dt] = solver
+        lines[dt] = dict(init_s=init_s, applies=neq.applies, methods=_methods(solver),
+                         residual_norm=_probe_normal_solve(solver, prob.con_num), it_per_s=[])
+    launches = None
+    for k, dt in enumerate(("float64", "float32", "float32", "float64")):
+        solver = solvers[dt]
+        if dt == "float32":
+            _no_tf32()
+        res, elapsed, counts = timed_run(solver, iters, 100 if k < 2 else 0)
+        what = f"stand-in {dt} timed run {k}"
+        _gates(res, prob.vec_len, what)
+        sweeps = iters * solver.params.neq.applies
+        check(counts["k1"] == sweeps, f"{what}: K1 launched {counts['k1']} times, not {sweeps}")
+        lines[dt]["it_per_s"].append(iters / elapsed)
+        lines[dt].update(launches=counts, errRp_first=float(res.info["errRp"][0]),
+                         errRp_last=float(res.info["errRp"][-1]))
+        if dt == "float32" and launches is None:
+            launches = counts["k1"]
+    for dt, solver in solvers.items():
+        rate = float(np.mean(lines[dt]["it_per_s"]))
+        lines[dt]["profile"] = profile_window(solver, 1e3 / rate)
+        lines[dt]["it_per_s_mean"] = rate
+    emit("stand-in f32 vs f64", lines)
+    del solvers
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grid_f32() -> int:
+    """The grid plain ADMM in f32 with "jacobi" and "auto" (the f32 table):
+    100 warm and 200 timed iterations, gated as the f64 grid runs and, for
+    jacobi, on K4's f32 instantiation launched exactly once per bucket and
+    iteration; device and K4 ms beside the f64 jacobi run's. Returns those
+    K4 launches."""
+    prob = grid_problem()
+    f64 = report["grid jacobi pack_to=0"]
+    launches = None
+    for proj in ("jacobi", "auto"):
+        what = f"grid float32 {proj}"
+        cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=proj,
+                           dtype="float32")
+        t0 = time.perf_counter()
+        solver = SDPSolver(prob, cfg, device="cuda")
+        init_s = time.perf_counter() - t0
+        _no_tf32()
+        neq = solver.params.neq
+        check(neq.mode == "precond" and neq.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
+        resid = _probe_normal_solve(solver, prob.con_num)
+        res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
+        _gates(res, prob.vec_len, what)
+        _gate_launches(solver, counts, GRID_ITERS, 1, what)
+        k4_buckets = sum(m == "jacobi" and bk.n > 1 for m, bk in zip(_methods(solver), solver.structure.buckets))
+        check(counts["k4_f32"] == counts["k4"] == GRID_ITERS * k4_buckets,
+              f"{what}: K4 f32 launches {counts['k4_f32']} of {counts['k4']}, not {GRID_ITERS} x {k4_buckets}")
+        out = dict(it_per_s=GRID_ITERS / elapsed, init_s=init_s, methods=_methods(solver), applies=neq.applies,
+                   applies_f64=f64["applies"], launches=counts, residual_norm=resid,
+                   errRp_first=float(res.info["errRp"][0]), errRp_last=float(res.info["errRp"][-1]),
+                   profile=profile_window(solver, elapsed * 1e3 / GRID_ITERS))
+        if proj == "jacobi":
+            launches = counts["k4_f32"]
+            out["f64_jacobi"] = _profile_numbers(f64)
+        emit(what, out)
+        del solver, neq, res
+        torch.cuda.empty_cache()
+    return launches
+
+
+def large_grid_f32(prob: Problem) -> int:
+    """The large grid in f32, normal_solver "auto" (banded + K3): 100 warm
+    and 200 timed iterations, gated as the f64 run; rate and device time
+    beside its. Returns K3's launches."""
+    what = "large grid float32 normal_solver=auto"
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection="auto",
+                       dtype="float32")
+    t0 = time.perf_counter()
+    solver = SDPSolver(prob, cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    _no_tf32()
+    neq = solver.params.neq
+    check(neq.mode == "banded", f"{what}: resolved to {neq.mode!r}")
+    resid = _probe_normal_solve(solver, prob.con_num)
+    res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
+    _gates(res, prob.vec_len, what)
+    _gate_launches(solver, counts, GRID_ITERS, 1, what)
+    out = dict(it_per_s=GRID_ITERS / elapsed, init_s=init_s, methods=_methods(solver), applies=neq.applies,
+               launches=counts, residual_norm=resid, errRp_first=float(res.info["errRp"][0]),
+               errRp_last=float(res.info["errRp"][-1]),
+               profile=profile_window(solver, elapsed * 1e3 / GRID_ITERS))
+    f64 = report["large grid normal_solver=auto"]
+    out["f64"] = dict(_profile_numbers(f64), applies=f64["applies"])
+    emit(what, out)
+    return counts["k3"]
+
+
+def quasar_f32(prob: Problem) -> None:
+    """QUASAR-500 in f32 (split + K1, "poly" with SIGN_SCHEDULE_F32), beside
+    the f64 "auto" (poly) run."""
+    out = big_block_run(prob, "poly", QUASAR_P, "quasar-500 float32 projection=poly", dtype="float32")
+    f64 = report["quasar-500 projection=auto"]
+    emit("quasar-500 float32 vs float64", dict(f32=_profile_numbers(out), f64=_profile_numbers(f64),
+                                              applies_f32=out["applies"], applies_f64=f64["applies"]))
+
+
+def certified_f32() -> None:
+    """The certified SDP of tests/test_solver.py:101 in f32 through each
+    CERT_MODES_F32 normal solver to stop_tol 2e-4, optimum within 5e-3; then
+    solve_escalated on tests/test_solver.py:194's instance at stop_tol 1e-4,
+    converged with the optimum within 1e-2. max_iter 6000 each."""
+    prob, _, _, _, opt = random_certified_sdp([("s", 5), ("s", 3)], con_num=8, seed=23)
+    base = SolverConfig(verbose=False, check_every=25, switch_admm=10**9, dtype="float32")
+    out = {}
+    for mode in CERT_MODES_F32:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # host mode's warning on CUDA (phase 13 checks it)
+            solver = SDPSolver(prob, base.replace(normal_solver=mode), device="cuda")
+        _no_tf32()
+        resolved = solver.params.neq.mode
+        check(resolved == ("split" if mode == "auto" else mode), f"certified f32 {mode}: resolved to {resolved!r}")
+        res = solver.solve(max_iter=6000, stop_tol=2e-4)
+        gap = abs(res.pobj - opt) / (1 + abs(opt))
+        check(res.converged and gap < 5e-3, f"certified f32 {mode}: converged={res.converged} gap {gap:.2e}")
+        out[mode] = dict(mode=solver.params.neq.mode, applies=solver.params.neq.applies,
+                         iterations=res.iterations, rel_gap_p=gap, seconds=time.perf_counter() - t0)
+    prob, _, _, _, opt = random_certified_sdp([("s", 6)] * 8, con_num=200, seed=3)
+    t0 = time.perf_counter()
+    _no_tf32()
+    res = solve_escalated(prob, base.replace(check_every=100), max_iter=6000, stop_tol=1e-4)
+    gap = abs(res.pobj - opt) / (1 + abs(opt))
+    check(res.converged and gap < 1e-2, f"solve_escalated: converged={res.converged} gap {gap:.2e}")
+    out["solve_escalated 1e-4"] = dict(iterations=res.iterations, rel_gap_p=gap, message=res.message,
+                                       seconds=time.perf_counter() - t0)
+    emit("certified float32", out)
+
+
+def standin_family() -> list:
+    """BATCH stand-ins: the banded graph of standin_problem with edge
+    weights from uniform(0.5, 1.5) under seeds 0..BATCH-1 (one A, BATCH C).
+    The first is converted whole; the others share its clique tree and
+    constraints and take only their own objective (-L/4, as maxcut_chordal
+    forms it), which gives maxcut_chordal's problem in a tenth of the
+    time."""
+    n = 1560
+    probs = []
+    for seed in range(BATCH):
+        rng = np.random.default_rng(seed)
+        W = sp.diags([rng.uniform(0.5, 1.5, n - k) for k in (1, 2, 3, 4)], [1, 2, 3, 4], shape=(n, n))
+        W = (W + W.T).tocsr()
+        if not probs:
+            base, info = maxcut_chordal(W)
+            probs.append(base)
+            continue
+        C = -0.25 * (sp.diags(np.asarray(W.sum(axis=1)).ravel()) - W)
+        pos, vals = objective_svec(info.tree, info.block_offsets, C)
+        probs.append(dataclasses.replace(base, C_indices=pos.astype(np.int32), C_vals=vals, name=f"stand-in {seed}"))
+    return probs
+
+
+def batched() -> int:
+    """BatchedSDPSolver on BATCH stand-ins, f64 plain ADMM (precond + K1,
+    eigh): 20 warm and 100 timed iterations; K1 exactly BATCH times a
+    sweep; each instance's last errRp within 1e-9 of its own single
+    SDPSolver(projection="eigh") run of 100 iterations. Returns the timed
+    run's K1 launches."""
+    iters = BIG_BLOCK_ITERS
+    t0 = time.perf_counter()
+    probs = standin_family()
+    host_s = time.perf_counter() - t0
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0)
+    t0 = time.perf_counter()
+    batch = BatchedSDPSolver(probs, cfg)
+    init_s = time.perf_counter() - t0
+    neq = batch.params.neq
+    check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD, f"batched: {neq.mode!r}")
+    batch.solve(max_iter=BIG_BLOCK_WARM, stop_tol=0.0)
+    torch.cuda.synchronize()
+    precond_apply.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = batch.solve(max_iter=iters, stop_tol=0.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = precond_apply.LAUNCHES
+    sweeps = BATCH * iters * neq.applies
+    check(launches == sweeps, f"batched: K1 launched {launches} times, not {BATCH} x {iters} x {neq.applies}")
+    single_rates, rel = [], []
+    for i, (prob, rb) in enumerate(zip(probs, results)):
+        _gates(rb, prob.vec_len, f"batched instance {i}")
+        single = SDPSolver(prob, cfg.replace(projection="eigh"), device="cuda")
+        t0 = time.perf_counter()
+        rs = single.solve(max_iter=iters, stop_tol=0.0)
+        torch.cuda.synchronize()
+        single_rates.append(iters / (time.perf_counter() - t0))
+        rel.append(abs(rb.errRp - rs.errRp) / abs(rs.errRp))
+        check(rb.iterations == rs.iterations == iters and rel[-1] <= 1e-9,
+              f"batched instance {i}: errRp {rb.errRp!r} against single {rs.errRp!r} (rel {rel[-1]:.2e})")
+        del single
+    emit("batched", dict(instances=BATCH, host_build_s=host_s, init_s=init_s, applies=neq.applies,
+                         k1_launches=launches, instance_it_per_s=BATCH * iters / elapsed,
+                         batch_it_per_s=iters / elapsed, single_it_per_s=single_rates,
+                         single_it_per_s_mean=float(np.mean(single_rates)), errRp_rel_to_single=rel))
+    del batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed_phase(fn, *args):
     """Run one phase and record its wall seconds in the report."""
     t0 = time.perf_counter()
@@ -971,22 +1307,36 @@ def main() -> None:
     prob = standin_problem()
     k1_launches = timed_phase(standin, prob)
     k4_launches = timed_phase(grid)
-    tri_launches = timed_phase(large_grid)
-    timed_phase(quasar)
+    large = large_grid_problem()
+    tri_launches = timed_phase(large_grid, large)
+    quasar_prob = quasar_500()
+    timed_phase(quasar, quasar_prob)
     timed_phase(grid_past_cap)
     timed_phase(g22_maxcut)
     timed_phase(standin_cg, prob)
     timed_phase(certified)
+    k1_f32 = timed_phase(standin_f32, prob)
+    k4_f32 = timed_phase(grid_f32)
+    k3_f32 = timed_phase(large_grid_f32, large)
+    timed_phase(quasar_f32, quasar_prob)
+    del large, quasar_prob
+    timed_phase(certified_f32)
+    k1_batched = timed_phase(batched)
     emit("phase seconds", report["phase_s"])
+    k1_paths = {"stand-in f64": k1_launches, "stand-in f32": k1_f32, "batched f64": k1_batched}
+    k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32}
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
-             replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=k1_launches, **k1),
+             replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),
+             launches_by_path=k1_paths, **k1),
         dict(name="jacobi_eigh", route="cuda", source="cuadmm_tpu_torch/csrc/jacobi_eigh.cu",
-             replaces="cuadmm_tpu/ops/jacobi.py:147", launches=k4_launches, **k4),
+             replaces="cuadmm_tpu/ops/jacobi.py:147", launches=sum(k4_paths.values()),
+             launches_by_path=k4_paths, **k4),
         dict(name="packed_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
              replaces="cuadmm_tpu/ops/tri_stream.py:264", launches=tri_launches["k2"], **k2k3["k2"]),
         dict(name="band_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
-             replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"], **k2k3["k3"]),
+             replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"] + k3_f32,
+             launches_by_path={"large grid f64": tri_launches["k3"], "large grid f32": k3_f32}, **k2k3["k3"]),
     ]}
     report.update(kernels)
     REPORT.parent.mkdir(exist_ok=True)

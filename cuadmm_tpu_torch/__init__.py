@@ -2,25 +2,31 @@
 
 The port of ``cuadmm_tpu`` (JAX) to PyTorch for NVIDIA Hopper. It imports
 torch and never jax; ``cuadmm_tpu`` stays the reference its tests compare
-against. Ported so far: float64 state with every normal solver but
-``sharded``: ``precond`` and ``split`` (whose inverse factor, or coupled
-prefix's, runs the hand-written CUDA kernel K1, ops/precond_apply.py),
-``packed`` and ``banded`` (K2/K3, ops/tri_stream.py), ``dense``, ``cg``
-and ``host``, with ``auto`` resolving among them; divergence recovery at
-both levels; and the PSD projection with its "eigh", "poly", "jacobi" and
-calibrated "auto" methods; "jacobi" runs the hand-written CUDA kernel K4
-(ops/jacobi.py).
+against. Ported so far: float64 and float32 state (``dtype="float32"``
+with the f64 tables of the refinement, the true-residual probe, the
+precision-stall detector and the f64 primal residuals ``rp_hp``) with
+every normal solver but ``sharded``: ``precond`` and ``split`` (whose
+inverse factor, or coupled prefix's, runs the hand-written CUDA kernel K1,
+ops/precond_apply.py), ``packed`` and ``banded`` (K2/K3,
+ops/tri_stream.py), ``dense``, ``cg`` and ``host``, with ``auto``
+resolving among them; divergence recovery at both levels; the PSD
+projection with its "eigh", "poly", "jacobi" and calibrated "auto"
+methods ("jacobi" runs the hand-written CUDA kernel K4, ops/jacobi.py);
+``solve_escalated``; and the batched multi-instance solver.
 
 Public API:
-    Problem        -- problem container + TXT loader
-    SDPSolver      -- init/solve driver on an explicit ``device``
-    SolverConfig   -- the JAX package's configuration, unchanged
-    solve          -- one-shot convenience wrapper
+    Problem          -- problem container + TXT loader
+    SDPSolver        -- init/solve driver on an explicit ``device``
+    SolverConfig     -- the JAX package's configuration, unchanged
+    solve            -- one-shot convenience wrapper
+    solve_escalated  -- f32 solve with an f64 tail past the f32 floor
+    BatchedSDPSolver -- lockstep solve of instances sharing (blk, A)
 """
 
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.problem import Problem
-from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver, solve
+from cuadmm_tpu_torch.parallel.batch import BatchedSDPSolver
+from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver, solve, solve_escalated
 from cuadmm_tpu_torch.structure import BlockStructure
 
 __all__ = [
@@ -29,5 +35,7 @@ __all__ = [
     "SDPResult",
     "SolverConfig",
     "BlockStructure",
+    "BatchedSDPSolver",
     "solve",
+    "solve_escalated",
 ]

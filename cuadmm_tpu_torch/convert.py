@@ -4,8 +4,11 @@ Each function takes one of ``cuadmm_tpu``'s objects (SolverState,
 SolveParams, SparseA/EllTable, the ``device_maps`` dict, a NormalEqSolver of any
 mode but host and sharded) whose array fields are numpy arrays or anything
 ``np.asarray`` reads, and returns the port's counterpart on ``device``.
-So one step of each package can start from identical state. This module
-never imports jax: it only reads attributes and converts arrays.
+So one step of each package can start from identical state. Dtypes carry
+over as they are: an f32 state, the f32 and f64 copies of A's tables and
+a normal solver built for an f32 state (whose refinement reads the f64
+copy) arrive as the port's f32 driver holds them. This module never
+imports jax: it only reads attributes and converts arrays.
 """
 
 from __future__ import annotations
@@ -145,3 +148,12 @@ def params_from_numpy(params, device) -> SolveParams:
         neq=normal_solver_from_numpy(params.neq, device),
         **{name: _tensor(getattr(params, name), device) for name in scalars},
     )
+
+
+def rp_hp_from_numpy(solver, device) -> tuple:
+    """The f64 tables of the port's ``rp_hp`` step (solver/step.py) from a
+    JAX SDPSolver: its f64 copy of A's tables and its unrounded scaled b
+    and row norms, as its driver builds them (cuadmm_tpu/solver/driver.py:
+    440-454)."""
+    f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=device)
+    return sparse_a_from_numpy(solver._sa_hp, device), f64(solver._b_scaled), f64(solver.scaling.normA)

@@ -256,6 +256,22 @@ def _svec_entries(block_off: int, nloc: int, sub: sp.coo_matrix):
     return pos, vals
 
 
+def objective_svec(T: CliqueTree, offs: np.ndarray, C: sp.spmatrix) -> Tuple[np.ndarray, np.ndarray]:
+    """The objective C allocated over the cliques of ``T`` (ctc.m:69), as
+    sorted svec (positions, values); ``offs`` are the blocks' svec offsets
+    (``CTCInfo.block_offsets``). A problem with another C of the same
+    pattern takes the same tree, so its constraints need not be rebuilt."""
+    C_pos = [np.empty(0, dtype=np.int64)]
+    C_val = [np.empty(0)]
+    for u, sub in _allocate(T, sp.csr_matrix(C)):
+        p_, v_ = _svec_entries(int(offs[u]), int(T.nn[u]), sub)
+        C_pos.append(p_)
+        C_val.append(v_)
+    pos, val = np.concatenate(C_pos), np.concatenate(C_val)
+    srt = np.argsort(pos, kind="stable")
+    return pos[srt], val[srt]
+
+
 @dataclasses.dataclass
 class CTCInfo:
     """Recovery data (the reference's ``info`` struct, ctc.m:205-209)."""
@@ -379,17 +395,7 @@ def clique_tree_conversion(
             add_row(np.array([q_v, q_p]), np.array([1.0, -1.0]), 0.0)
         n_overlap += len(ii)
 
-    # Objective, allocated over cliques (ctc.m:69).
-    C_pos = [np.empty(0, dtype=np.int64)]
-    C_val = [np.empty(0)]
-    for u, sub in _allocate(T, sp.csr_matrix(C)):
-        p_, v_ = _svec_entries(int(offs[u]), int(nn[u]), sub)
-        C_pos.append(p_)
-        C_val.append(v_)
-    C_pos_arr = np.concatenate(C_pos)
-    C_val_arr = np.concatenate(C_val)
-    srt = np.argsort(C_pos_arr, kind="stable")
-    C_pos_arr, C_val_arr = C_pos_arr[srt], C_val_arr[srt]
+    C_pos_arr, C_val_arr = objective_svec(T, offs, C)
 
     rows = np.concatenate(at_rows)
     cols = np.concatenate(at_cols)

@@ -68,7 +68,8 @@ def _not_ported(mode: str) -> NotImplementedError:
 
 
 # Calibration of the sweep count: the relative residual the f64 refinement
-# must beat, and the most sweeps tried.
+# must beat unless the caller passes a target (the f32 driver does), and
+# the most sweeps tried.
 CALIBRATE_TARGET = 1e-10
 CALIBRATE_MAX_APPLIES = 6
 
@@ -208,16 +209,16 @@ class NormalEqSolver:
     applies: int = 2  # refinement sweeps per solve
     eps_used: float = 0.0
 
-    def _residual_buffer(self) -> Optional[torch.Tensor]:
-        """A zeroed f32 buffer of the f32 factor's padded length n_pad, which
-        ``_apply_factor`` reads as it is; the sweeps write only its head.
-        None for the f64 factors, which read the f64 residual."""
+    def _residual_buffer(self, lead: tuple = ()) -> Optional[torch.Tensor]:
+        """A zeroed f32 buffer (*lead, n_pad) of the f32 factor's padded
+        length, which ``_apply_factor`` reads as it is; the sweeps write only
+        its head. None for the f64 factors, which read the f64 residual."""
         if self.inv_l is not None:
-            return self.inv_l.new_zeros(self.inv_l.shape[0])
+            return self.inv_l.new_zeros(lead + (self.inv_l.shape[0],))
         if self.packed_tiles is not None:
-            return self.packed_tiles.new_zeros(tri_stream.PackedLayout(*self.packed_layout).n_pad)
+            return self.packed_tiles.new_zeros(lead + (tri_stream.PackedLayout(*self.packed_layout).n_pad,))
         if self.band_tiles is not None:
-            return self.band_tiles.new_zeros(tri_stream.BandLayout(*self.band_layout).n_pad)
+            return self.band_tiles.new_zeros(lead + (tri_stream.BandLayout(*self.band_layout).n_pad,))
         return None
 
     def _apply_factor(self, r: torch.Tensor) -> torch.Tensor:
@@ -226,7 +227,11 @@ class NormalEqSolver:
 
         precond: M^T (M r) by K1. packed: the two streaming sweeps by K2.
         banded: r gathered into the band's order, K3, and gathered back;
-        the gathers are skipped when the permutation is the identity."""
+        the gathers are skipped when the permutation is the identity. A
+        buffer with an instance axis (B, n_pad) takes one launch per
+        instance."""
+        if r.dim() > 1:
+            return torch.stack([self._apply_factor(row) for row in r])
         if self.inv_l is not None:
             return fused_spd_apply(self.inv_l, r)
         if self.packed_tiles is not None:
@@ -243,10 +248,10 @@ class NormalEqSolver:
         dense mode, the coupled prefix in split mode): through ``r_pad`` and
         K1 for an f32 inverse factor, else an f64 cholesky_solve."""
         if self.inv_l is not None:
-            p = r.shape[0]
-            r_pad[:p] = r
-            return self._apply_factor(r_pad)[:p]
-        return torch.cholesky_solve(r.unsqueeze(1), self.chol_l).squeeze(1)
+            p = r.shape[-1]
+            r_pad[..., :p] = r
+            return self._apply_factor(r_pad)[..., :p]
+        return torch.cholesky_solve(r.unsqueeze(-1), self.chol_l).squeeze(-1)
 
     def _sweep(self, rhs: torch.Tensor, y: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
         """One refinement sweep: y + P^{-1} (rhs - AA^T y), in f64 but for
@@ -262,25 +267,33 @@ class NormalEqSolver:
         its head; only a permutation that is not the identity copies the
         vector (two gathers).
         """
-        n = y.shape[0]
+        n = y.shape[-1]
         if self.tail_inv_diag is None and self.chol_l is None:
-            torch.sub(rhs, aat_matvec(self.sparse_a, y), out=r_pad[:n])
-            return y + self._apply_factor(r_pad)[:n]
+            torch.sub(rhs, aat_matvec(self.sparse_a, y), out=r_pad[..., :n])
+            return y + self._apply_factor(r_pad)[..., :n]
         r = rhs - aat_matvec(self.sparse_a, y)
         if self.tail_inv_diag is None:  # dense
             return y + self._apply_prefix(r, r_pad)
         p = self.split_p
         if self.split_perm is not None:
-            r = r[self.split_perm]
-        r[p:] *= self.tail_inv_diag
+            r = r[..., self.split_perm]
+        r[..., p:] *= self.tail_inv_diag
         if p:
-            r[:p] = self._apply_prefix(r[:p], r_pad)
+            r[..., :p] = self._apply_prefix(r[..., :p], r_pad)
         if self.split_inv_perm is not None:
-            r = r[self.split_inv_perm]
+            r = r[..., self.split_inv_perm]
         return y + r
 
     def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y with (AA^T) y ~= rhs, in rhs's dtype, from ``warm`` (or 0).
+
+        ``rhs`` (con_num,) or, for a batch of instances, (B, con_num): the
+        refinement sweeps then run on the whole batch, the factor once per
+        instance; cg and host solve one instance at a time."""
         hp = torch.float64
+        if rhs.dim() > 1 and self.mode in ("cg", "host"):
+            warms = [None] * len(rhs) if warm is None else warm
+            return torch.stack([self.solve(r, w) for r, w in zip(rhs, warms)])
         if self.mode == "host":
             y = self.host_solve(rhs.detach().to("cpu", hp).numpy())
             return torch.as_tensor(y, device=rhs.device).to(rhs.dtype)
@@ -297,7 +310,7 @@ class NormalEqSolver:
             return y.to(rhs.dtype)
         # Refinement through the composed A (A^T y): its rounding stays in
         # range(A), which the regularized factor does not amplify.
-        r_pad = self._residual_buffer()
+        r_pad = self._residual_buffer(tuple(rhs.shape[:-1]))
         for _ in range(self.applies):
             y = self._sweep(rhs_hp, y, r_pad)
         return y.to(rhs.dtype)
@@ -420,14 +433,17 @@ def _tri_inv(l: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, eye, upper=False)
 
 
-def _calibrate_applies(neq: NormalEqSolver, con_num: int, device: torch.device) -> NormalEqSolver:
+def _calibrate_applies(
+    neq: NormalEqSolver, con_num: int, device: torch.device, target: Optional[float] = None
+) -> NormalEqSolver:
     """Pick the refinement sweep count on the device that will run it.
 
     Runs the real solve path on a consistent probe rhs = (AA^T) v and takes
-    the smallest sweep count whose relative residual beats
-    ``CALIBRATE_TARGET``. Doubles as a factor sanity probe: raises if even
-    ``CALIBRATE_MAX_APPLIES`` sweeps cannot reach 1e-2.
+    the smallest sweep count whose relative residual beats ``target``
+    (None: ``CALIBRATE_TARGET``). Doubles as a factor sanity probe: raises
+    if even ``CALIBRATE_MAX_APPLIES`` sweeps cannot reach 1e-2.
     """
+    target = CALIBRATE_TARGET if target is None else float(target)
     sa = neq.sparse_a
     r_pad = neq._residual_buffer()
     rng = np.random.default_rng(0)
@@ -439,7 +455,7 @@ def _calibrate_applies(neq: NormalEqSolver, con_num: int, device: torch.device) 
         y = neq._sweep(rhs, y, r_pad)
         resids.append(torch.linalg.norm(rhs - aat_matvec(sa, y)))
     curve = (torch.stack(resids) / torch.linalg.norm(rhs)).cpu().numpy()
-    ok = np.isfinite(curve) & (curve < CALIBRATE_TARGET)
+    ok = np.isfinite(curve) & (curve < target)
     if ok.any():
         return dataclasses.replace(neq, applies=int(np.argmax(ok)) + 1)
     best = int(np.nanargmin(curve)) if np.isfinite(curve).any() else CALIBRATE_MAX_APPLIES - 1
@@ -615,6 +631,7 @@ def build_normal_solver(
     cg_precond: str = "auto",
     fsai_cap: int = 64,
     fsai_pattern_power: int = 2,
+    calibrate_target: Optional[float] = None,
 ) -> NormalEqSolver:
     """Prepare the solve once at init and return a device-resident solver.
 
@@ -622,7 +639,11 @@ def build_normal_solver(
     (``_resolve_auto``); ``sharded`` raises ``NotImplementedError``.
     ``sparse_a`` is the f64 A of the refinement. ``eps`` (SolverConfig's
     aat_eps) regularizes the f64 factors, FSAI, block-Jacobi and host's LU;
-    ``cg_tol`` <= 0 takes the default of the state dtype (64 eps in f64).
+    ``cg_tol`` <= 0 takes the default of the state dtype ``dtype`` (2e-7 in
+    f32, 64 eps in f64); CG's rhs and iterate are f64 either way.
+    ``calibrate_target`` is the relative residual the calibrated sweep
+    count must reach in every mode with sweeps (None: ``CALIBRATE_TARGET``,
+    the f64 state's).
     ``timings``, when given, receives the wall seconds of each stage (and
     the band's bandwidth and layout, FSAI's nonzeros).
     """
@@ -743,6 +764,6 @@ def build_normal_solver(
                 applies=applies_0, eps_used=eps_used,
             )
     if applies <= 0:
-        neq = _calibrate_applies(neq, con_num, device)
+        neq = _calibrate_applies(neq, con_num, device, calibrate_target)
     mark("calibrate")
     return neq

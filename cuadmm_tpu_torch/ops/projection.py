@@ -52,31 +52,38 @@ def psd_project_pool(
     eig_rank: Optional[int] = None,
     method: Union[str, Dict[int, str]] = "eigh",
 ) -> torch.Tensor:
-    """Project a pool-coordinate vector onto the product cone.
+    """Project a pool-coordinate vector (..., pool_len) onto the product
+    cone, each leading index (an instance of a batch) on its own.
 
-    Each bucket's (count, n, n) tensor is a reshape of a pool segment. The
+    Each bucket's (count, n, n) tensor is a reshape of a pool segment; with
+    leading axes the instances' buckets form one (L * count, n, n) batch. The
     projected bucket is multiplied by its 0/1 padding mask so round-off
     never leaks into padded positions. Free entries pass through unchanged.
     ``method`` is one method for every bucket, or a dict from bucket index
     to method (the calibrated dispatch of ops/dispatch.py, ``bucket_method``).
     """
+    lead = P.shape[:-1]
     parts = []
     for i, bm in enumerate(maps["buckets"]):
         count, n, base = bm["count"], bm["n"], bm["base"]
-        seg = P[base : base + count * n * n]
+        seg = P[..., base : base + count * n * n]
         if n == 1:
             parts.append(torch.clamp(seg, min=0.0))
             continue
         meth = bucket_method(method, i)
-        bt = seg.reshape(count, n, n)
+        bt = seg.reshape(-1, n, n)
         packed = bm["packed"]
         if packed:
             # Norm-equalize each real block of a packed super-matrix
             # (projection is positively homogeneous), so small-norm packmates
             # keep relative accuracy.
             gid = bm["diag_group"]  # (count, n), padding -> n_groups
+            n_inst = bt.shape[0] // count
+            if n_inst > 1:  # each instance's groups take their own slots
+                step = bm["n_groups"] + 1
+                gid = (gid + step * torch.arange(n_inst, device=gid.device)[:, None, None]).reshape(-1, n)
             rowsq = torch.sum(bt * bt, dim=-1).reshape(-1)
-            sums = bt.new_zeros(bm["n_groups"] + 1).index_add_(0, gid.reshape(-1), rowsq)
+            sums = bt.new_zeros(n_inst * (bm["n_groups"] + 1)).index_add_(0, gid.reshape(-1), rowsq)
             norms = torch.sqrt(sums)
             ok = norms > torch.finfo(bt.dtype).tiny * 16
             s_blk = torch.where(ok, 1.0 / torch.where(ok, norms, 1.0), 1.0)
@@ -91,8 +98,8 @@ def psd_project_pool(
             raise ValueError(f"unknown projection method {meth!r} for bucket {i}")
         if packed:
             proj = proj * torch.where(ok, norms, 1.0)[gid][:, :, None]
-        parts.append((proj * bm["pad_mask"]).reshape(-1))
+        parts.append((proj.reshape(lead + (count, n, n)) * bm["pad_mask"]).reshape(lead + (-1,)))
     if maps["free_pos"].shape[0]:
         fb = maps["free_base"]
-        parts.append(P[fb : fb + maps["free_pos"].shape[0]])
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        parts.append(P[..., fb : fb + maps["free_pos"].shape[0]])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)

@@ -6,12 +6,14 @@ grouped into power-of-two-width buckets, each stored as padded
 (rows, width) index/value tables; a matvec is, per bucket, a gather, a
 multiply and a row sum, followed by one placement of the bucket outputs.
 Index tables are uploaded as int64, the index dtype of torch indexing.
+The products take vectors with leading instance axes, (..., length), for
+the batched solver; the tables are shared by every instance.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -153,6 +155,17 @@ def _ell_upload(h: dict, dtype: torch.dtype, device) -> EllTable:
     )
 
 
+def _cast_table(t: EllTable, dtype: torch.dtype) -> EllTable:
+    return dataclasses.replace(t, vals=tuple(v.to(dtype) for v in t.vals))
+
+
+def cast_sparse_a(sa: SparseA, dtype: torch.dtype) -> SparseA:
+    """The same index tensors with the values cast to ``dtype`` on their
+    device (cuadmm_tpu/ops/sparse.py:296, whose host-side cast is a
+    workaround for the TPU's compile service)."""
+    return dataclasses.replace(sa, a=_cast_table(sa.a, dtype), at=_cast_table(sa.at, dtype))
+
+
 def _build_ell(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -192,14 +205,19 @@ def build_sparse_a_pool(
     vals: np.ndarray,
     con_num: int,
     structure,
-    dtype: torch.dtype,
+    dtype: Union[torch.dtype, Tuple[torch.dtype, ...]],
     device,
-) -> SparseA:
+) -> Union[SparseA, Tuple[SparseA, ...]]:
     """Both matvec directions with the vec side in pool coordinates.
 
     A @ x gathers each svec entry from its lower-triangle pool slot, the
     value scaled by sqrt(2) off the diagonal; A^T @ y writes each
     off-diagonal svec row to both mirrored pool slots, scaled by 1/sqrt(2).
+
+    ``dtype`` may be a tuple of dtypes: one host build then gives one
+    SparseA per dtype, in order, all sharing the index tensors (the f64 copy
+    of the refinement and the f32 copy of an f32 state). Put the widest
+    first: the others are device casts of it (``cast_sparse_a``).
     """
     lo = structure.svec_pool_lo[at_svec_idx]
     hi = structure.svec_pool_hi[at_svec_idx]
@@ -231,34 +249,39 @@ def build_sparse_a_pool(
             )
             compact.append(_upload_idx(np.where(hit, out_src[pc], n_cat), device))
         compact = tuple(compact)
-    return SparseA(
-        a=_ell_upload(a_h, dtype, device),
-        at=_ell_upload(at_h, dtype, device),
+    several = isinstance(dtype, (tuple, list))
+    dtypes = tuple(dtype) if several else (dtype,)
+    first = SparseA(
+        a=_ell_upload(a_h, dtypes[0], device),
+        at=_ell_upload(at_h, dtypes[0], device),
         con_num=int(con_num),
         vec_len=pool_len,
         a_idx_compact=compact,
     )
+    return (first,) + tuple(cast_sparse_a(first, dt) for dt in dtypes[1:]) if several else first
 
 
 def _ell_matvec(t: EllTable, x: torch.Tensor) -> torch.Tensor:
-    x_ext = torch.cat([x, x.new_zeros(1)])
-    parts = [(v * x_ext[i]).sum(dim=1) for i, v in zip(t.idx, t.vals)]
+    """The table's product with ``x`` (..., in_len) -> (..., out_len)."""
+    lead = x.shape[:-1]
+    x_ext = torch.cat([x, x.new_zeros(lead + (1,))], dim=-1)
+    parts = [(v * x_ext[..., i]).sum(dim=-1) for i, v in zip(t.idx, t.vals)]
     if t.out_pos is not None:
-        cat = parts[0] if len(parts) == 1 else torch.cat(parts)
-        out = x.new_zeros(t.out_len)
-        out[t.out_pos] = cat[t.out_src]
+        cat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        out = x.new_zeros(lead + (t.out_len,))
+        out[..., t.out_pos] = cat[..., t.out_src]
         return out
-    parts.append(x.new_zeros(1))  # sentinel for empty rows
-    return torch.cat(parts)[t.out_perm]
+    parts.append(x.new_zeros(lead + (1,)))  # sentinel for empty rows
+    return torch.cat(parts, dim=-1)[..., t.out_perm]
 
 
 def spmv_a(sa: SparseA, x: torch.Tensor) -> torch.Tensor:
-    """A @ x: (vec_len,) -> (con_num,)."""
+    """A @ x: (..., vec_len) -> (..., con_num)."""
     return _ell_matvec(sa.a, x)
 
 
 def spmv_at(sa: SparseA, y: torch.Tensor) -> torch.Tensor:
-    """A^T @ y: (con_num,) -> (vec_len,)."""
+    """A^T @ y: (..., con_num) -> (..., vec_len)."""
     return _ell_matvec(sa.at, y)
 
 
@@ -267,13 +290,14 @@ def aat_matvec(sa: SparseA, y: torch.Tensor) -> torch.Tensor:
     A-direction gathers read A^T's compact partial-sum vector directly."""
     if sa.a_idx_compact is None or sa.a.out_perm is None:
         return spmv_a(sa, spmv_at(sa, y))
-    y_ext = torch.cat([y, y.new_zeros(1)])
-    parts = [(v * y_ext[i]).sum(dim=1) for i, v in zip(sa.at.idx, sa.at.vals)]
-    parts.append(y.new_zeros(1))  # sentinel for never-written slots
-    cat = torch.cat(parts)
-    parts2 = [(v * cat[i]).sum(dim=1) for i, v in zip(sa.a_idx_compact, sa.a.vals)]
-    parts2.append(y.new_zeros(1))
-    return torch.cat(parts2)[sa.a.out_perm]
+    zero = y.new_zeros(y.shape[:-1] + (1,))
+    y_ext = torch.cat([y, zero], dim=-1)
+    parts = [(v * y_ext[..., i]).sum(dim=-1) for i, v in zip(sa.at.idx, sa.at.vals)]
+    parts.append(zero)  # sentinel for never-written slots
+    cat = torch.cat(parts, dim=-1)
+    parts2 = [(v * cat[..., i]).sum(dim=-1) for i, v in zip(sa.a_idx_compact, sa.a.vals)]
+    parts2.append(zero)
+    return torch.cat(parts2, dim=-1)[..., sa.a.out_perm]
 
 
 def normalize_rows(

@@ -1,0 +1,188 @@
+"""Batched multi-instance solver: many SDPs sharing one structure and A.
+
+Port of cuadmm_tpu/parallel/batch.py. The instances share the block
+structure and the constraint matrix A and differ in b and C (a parametric
+family: moment or SOS relaxations whose data enter only through b and C).
+One base ``SDPSolver`` builds the structure, A's tables and the normal
+solver's factor once; each instance has its own scaling. The whole batch
+advances in lockstep, ``check_every`` iterations a chunk, through one step
+whose state carries a leading instance axis (solver/step.py): the sparse
+products gather on the last axis, each bucket's blocks of every instance go
+to one eigh call, and the normal solve takes (B, con_num) right-hand sides
+(one K1 launch per instance and sweep in precond and split). An instance
+that converges is frozen by its own done guard and keeps its own
+convergence iteration and ``SDPResult``.
+
+As in the JAX package the step projects with "eigh" and has no divergence
+recovery and no rp_hp; ``config.dtype`` sets the state dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from cuadmm_tpu_torch.config import SolverConfig
+from cuadmm_tpu_torch.ops.svec import pool_from_svec, svec_from_pool
+from cuadmm_tpu_torch.problem import Problem
+from cuadmm_tpu_torch.solver import scaling as scaling_mod
+from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver
+from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
+from cuadmm_tpu_torch.solver.step import make_step, run_chunk
+
+
+def _same_pattern(p0: Problem, p: Problem) -> bool:
+    return (
+        p0.blk == p.blk
+        and p0.con_num == p.con_num
+        and len(p0.At_vals) == len(p.At_vals)
+        and np.array_equal(p0.At_rows, p.At_rows)
+        and np.array_equal(p0.At_cols, p.At_cols)
+        and np.allclose(p0.At_vals, p.At_vals)
+    )
+
+
+class BatchedSDPSolver:
+    """Lockstep batch solver over instances sharing (blk, A), on one device.
+
+    ``mesh`` (the JAX package's instance axis over several devices) raises
+    ``NotImplementedError``.
+    """
+
+    def __init__(self, problems: List[Problem], config: SolverConfig = SolverConfig(), mesh=None,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchedSDPSolver(mesh=) is not ported yet (ROADMAP.md queue 1: 'Several devices')"
+            )
+        if not problems:
+            raise ValueError("empty problem batch")
+        base = problems[0]
+        for p in problems[1:]:
+            if not _same_pattern(base, p):
+                raise ValueError("batched solve requires identical blk and At across instances")
+        self.problems = problems
+        self.config = config
+        self._base = SDPSolver(base, config, device=device)
+        self.dtype = self._base.dtype
+        self.device = self._base.device
+
+        # Per-instance scaling; normA depends only on A, so it is shared.
+        normA = self._base.scaling.normA
+        self._scalings, b_list, C_list, self._init_list = [], [], [], []
+        for p in problems:
+            sc, b_s, C_s, X_s, y_s, S_s = scaling_mod.scale_problem(
+                normA, p.dense_b(), p.dense_C(), p.X0, p.y0, p.S0
+            )
+            self._scalings.append(sc)
+            b_list.append(b_s)
+            C_list.append(C_s)
+            self._init_list.append((X_s, y_s, S_s))
+        self._b_stack = np.stack(b_list)
+        self._C_stack = np.stack(C_list)
+
+        bp, dev = self._base.params, self._base._tensor
+        scal = lambda name: dev([getattr(sc, name) for sc in self._scalings])
+        self.params = SolveParams(
+            sparse_a=bp.sparse_a,
+            maps=bp.maps,
+            neq=bp.neq,
+            b=dev(self._b_stack),
+            C=torch.stack([pool_from_svec(dev(C), bp.maps) for C in self._C_stack]),
+            normA=bp.normA,
+            bscale=scal("bscale"),
+            Cscale=scal("Cscale"),
+            objscale=scal("objscale"),
+            norm_borg=scal("norm_borg"),
+            norm_Corg=scal("norm_Corg"),
+        )
+
+    def _initial_states(self, sig: float) -> SolverState:
+        states = [
+            self._base._initial_state(X_s, y_s, S_s, sig, scaling=sc, b_scaled=self._b_stack[i],
+                                      C_scaled=self._C_stack[i])
+            for i, ((X_s, y_s, S_s), sc) in enumerate(zip(self._init_list, self._scalings))
+        ]
+        return SolverState(**{
+            f.name: torch.stack([getattr(s, f.name) for s in states]) for f in dataclasses.fields(SolverState)
+        })
+
+    def solve(self, max_iter: Optional[int] = None, stop_tol: Optional[float] = None,
+              sig: Optional[float] = None) -> List[SDPResult]:
+        """Run every instance from its own starting point; one SDPResult per
+        instance, in order. The batch stops when every instance converged or
+        at ``max_iter``."""
+        cfg = self.config
+        max_iter = cfg.max_iter if max_iter is None else int(max_iter)
+        stop_tol = cfg.stop_tol if stop_tol is None else float(stop_tol)
+        sig = cfg.sig if sig is None else float(sig)
+        B = len(self.problems)
+        step = make_step(
+            stop_tol=stop_tol,
+            switch_admm=cfg.switch_admm,
+            sig_update_threshold=cfg.sig_update_threshold,
+            sig_update_stage_1=cfg.sig_update_stage_1,
+            sig_min=cfg.sig_min,
+            sig_max=cfg.sig_max,
+        )
+
+        state = self._initial_states(sig)
+        info_rows = []
+        t0 = time.perf_counter()
+        it_done = 0
+        conv_iter = np.full(B, -1, dtype=np.int64)
+        while it_done < max_iter:
+            chunk = min(cfg.check_every, max_iter - it_done)
+            state, info = run_chunk(step, state, self.params, it_done, chunk)
+            info_np = info.cpu().numpy().astype(np.float64)  # (chunk, B, 8)
+            kkt = np.maximum(np.maximum(info_np[:, :, 2], info_np[:, :, 3]), info_np[:, :, 4])
+            for b in range(B):
+                if conv_iter[b] < 0:
+                    hits = np.nonzero(kkt[:, b] < stop_tol)[0]
+                    if hits.size:
+                        conv_iter[b] = it_done + int(hits[0]) + 1
+            info_rows.append(info_np)
+            it_done += chunk
+            if np.all(conv_iter >= 0):
+                break
+        total_time = time.perf_counter() - t0
+
+        info_mat = np.concatenate(info_rows, axis=0) if info_rows else np.empty((0, B, len(INFO_FIELDS)))
+        maps = self.params.maps
+        host = lambda t: t.cpu().numpy()
+        X_all = [host(svec_from_pool(x, maps)) for x in state.X]
+        S_all = [host(svec_from_pool(s, maps)) for s in state.S]
+        y_all = host(state.y)
+        scalars = {k: host(getattr(state, k)).astype(np.float64)
+                   for k in ("pobj", "dobj", "errRp", "errRd", "relgap", "sig")}
+        results = []
+        for b in range(B):
+            converged = bool(conv_iter[b] >= 0)
+            iters = int(conv_iter[b]) if converged else it_done
+            X, y, S = scaling_mod.unscale_solution(self._scalings[b], X_all[b], y_all[b], S_all[b])
+            info_b = info_mat[:iters, b, :]
+            info = {name: info_b[:, i] for i, name in enumerate(INFO_FIELDS)}
+            info["iter_num"] = np.asarray(iters)
+            info["total_time"] = np.asarray(total_time)
+            results.append(SDPResult(
+                X=X,
+                y=y,
+                S=S,
+                iterations=iters,
+                converged=converged,
+                diverged=not bool(np.isfinite(scalars["errRp"][b]) and np.isfinite(scalars["errRd"][b])),
+                message="Solver ended: converged." if converged else "Solver ended: maximum iteration reached",
+                pobj=float(scalars["pobj"][b]),
+                dobj=float(scalars["dobj"][b]),
+                errRp=float(scalars["errRp"][b]),
+                errRd=float(scalars["errRd"][b]),
+                relgap=float(scalars["relgap"][b]),
+                sig=float(scalars["sig"][b]),
+                total_time=total_time,
+                info=info,
+            ))
+        return results

@@ -1,9 +1,18 @@
-"""SDPSolver: the user-facing solve driver.
+"""SDPSolver: the user-facing solve driver, and solve_escalated.
 
-Port of cuadmm_tpu/solver/driver.py for float64 state and every normal
-solver but ``sharded``. The iteration runs in chunks of ``config.check_every``
-steps between host-side convergence checks; a chunk queues its work on
-the device and its info rows come back in one copy at the chunk's end.
+Port of cuadmm_tpu/solver/driver.py for float64 and float32 state and every
+normal solver but ``sharded``. The iteration runs in chunks of
+``config.check_every`` steps between host-side convergence checks; a chunk
+queues its work on the device and its info rows come back in one copy at
+the chunk's end.
+
+In float32 state the driver carries the JAX package's precision machinery:
+an f64 copy of A's tables beside the f32 one (the normal solver's
+refinement and CG read it), the true-residual probe at the convergence
+boundary, the precision-stall detector (``precision_stall``) whose first
+stall switches the step to f64 primal residuals (``rp_hp``) and whose
+second ends the solve, and ``solve_escalated``, an f32 solve with an f64
+tail.
 """
 
 from __future__ import annotations
@@ -12,7 +21,7 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -23,6 +32,7 @@ from cuadmm_tpu_torch.device import resolve_device, synchronize
 from cuadmm_tpu_torch.ops import chol as chol_ops
 from cuadmm_tpu_torch.ops import sparse as sparse_ops
 from cuadmm_tpu_torch.ops.dispatch import choose_methods
+from cuadmm_tpu_torch.ops.sparse import spmv_a
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
@@ -56,28 +66,52 @@ class SDPResult:
     recoveries: int = 0
 
 
+# Precision-stall detector (cuadmm_tpu/solver/driver.py:614-663): the
+# checks in the KKT trail, and the share of its oldest entry the trail's
+# best must beat to count as progress.
+STALL_WINDOW = 10
+STALL_GAIN = 0.98
+# The tightest tolerance an f32 state certifies (cuadmm_tpu/solver/
+# driver.py:785-788); solve_escalated takes the f32 phase no further.
+F32_CERT_TOL = 1e-5
+
+
+def precision_stall(trail: List[float], chunk_kkt: np.ndarray, last_row: np.ndarray, stop_tol: float) -> bool:
+    """One check of the float32 precision-floor stall detector.
+
+    Appends the chunk's best KKT (``chunk_kkt``, one per row) to ``trail``,
+    keeps the last STALL_WINDOW entries, and returns True when the trail
+    was already full, feasibility (errRp and errRd of the chunk's last info
+    row) is below ``stop_tol``, and the trail's best KKT improved on its
+    oldest by less than 2%: the f32 iterate is grinding on its precision
+    floor.
+    """
+    trail.append(float(np.min(chunk_kkt)))
+    if len(trail) <= STALL_WINDOW:
+        return False
+    del trail[:-STALL_WINDOW]
+    return max(last_row[2], last_row[3]) < stop_tol and min(trail) > STALL_GAIN * trail[0]
+
+
 class SDPSolver:
     """sGS-ADMM solver for one problem on one device.
 
     ``device`` defaults to "cuda" and is never replaced: a CUDA device that
     is absent raises (``device.resolve_device``, which also turns TF32 off).
-    Float64 state only for now; ``dtype="float32"`` raises.
+    ``config.dtype`` is the state's dtype, "float64" or "float32".
     """
 
     def __init__(self, problem: Problem, config: SolverConfig = SolverConfig(), device="cuda"):
-        if config.dtype != "float64":
-            raise NotImplementedError(
-                "dtype='float32' is not ported yet (ROADMAP.md queue 1: "
-                "'f32-state machinery and solve_escalated'); use dtype='float64'"
-            )
         self.problem = problem
         self.config = config
         self.device = resolve_device(device)
-        self.dtype = torch.float64
+        self.dtype = getattr(torch, config.dtype)
         self._init()
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=self.device)
+        """A host array on the device in the state dtype (rounded once from f64)."""
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
+        return torch.as_tensor(np.asarray(x, dtype=np_dtype), device=self.device)
 
     # ------------------------------------------------------------------
     def _init(self) -> None:
@@ -103,12 +137,12 @@ class SDPSolver:
             # device's backend; without a table, eigh (as the JAX driver does
             # off a TPU).
             per_bucket = choose_methods(
-                [(bk.n, bk.count) for bk in self.structure.buckets], self.device.type, "float64"
+                [(bk.n, bk.count) for bk in self.structure.buckets], self.device.type, cfg.dtype
             )
             self._projection = "eigh" if per_bucket is None else per_bucket
             if per_bucket is None and cfg.verbose:
                 print(
-                    f"projection='auto': no calibration table for {self.device.type}/float64 "
+                    f"projection='auto': no calibration table for {self.device.type}/{cfg.dtype} "
                     "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
                 )
         if self.structure.vec_len != prob.vec_len:
@@ -133,13 +167,19 @@ class SDPSolver:
         self._initial_scaled = (X_s, y_s, S_s)
         mark("scaling")
 
-        sa = sparse_ops.build_sparse_a_pool(
-            prob.At_rows, prob.At_cols, at_vals, con_num, self.structure, self.dtype, self.device
+        # A's tables in f64 for the normal solver's refinement and CG, and in
+        # f32 beside them for an f32 state's step: one host build.
+        f64 = torch.float64
+        tables = sparse_ops.build_sparse_a_pool(
+            prob.At_rows, prob.At_cols, at_vals, con_num, self.structure,
+            (f64,) if self.dtype == f64 else (f64, self.dtype), self.device,
         )
+        sa_hp, sa = tables[0], tables[-1]
+        self._sa_hp = sa_hp
         mark("ell_tables")
         self._at_triplets = (prob.At_rows, prob.At_cols, at_vals)
         neq_timings: Dict[str, object] = {}
-        neq = self._normal_solver(sa, cfg.normal_solver, cfg.cg_max_iter, neq_timings)
+        neq = self._normal_solver(cfg.normal_solver, cfg.cg_max_iter, neq_timings)
         mark("normal_solver")
         self.init_breakdown.update({f"neq.{k}": v for k, v in neq_timings.items()})
         self._maps = device_maps(self.structure, self.dtype, self.device)
@@ -157,18 +197,29 @@ class SDPSolver:
             norm_borg=dev(sc.norm_borg),
             norm_Corg=dev(sc.norm_Corg),
         )
+        # f32 state: the f64 tables of the rp_hp step (make_step), b and
+        # normA from their unrounded host copies.
+        self._rp_hp = None
+        if self.dtype != f64:
+            as64 = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=self.device)
+            self._rp_hp = (sa_hp, as64(b_s), as64(normA))
         mark("params")
         self.init_time = time.perf_counter() - t0
         if cfg.verbose:
             print(f"init {self.init_time:.1f}s: {self.init_breakdown}")
 
-    def _normal_solver(self, sa, mode: str, cg_max_iter: int, timings=None):
+    def _normal_solver(self, mode: str, cg_max_iter: int, timings=None):
+        """The normal solver on the f64 tables. In f32 state its calibrated
+        sweep count need only reach clip(0.03 stop_tol, 1e-6, 1e-5): every
+        sweep more reads the factor once more an iteration
+        (cuadmm_tpu/solver/driver.py:233-241)."""
         cfg, prob = self.config, self.problem
+        target = None if self.dtype == torch.float64 else float(np.clip(cfg.stop_tol * 0.03, 1e-6, 1e-5))
         return chol_ops.build_normal_solver(
             *self._at_triplets,
             prob.con_num,
             prob.vec_len,
-            sa,
+            self._sa_hp,
             mode,
             self.dtype,
             self.device,
@@ -183,14 +234,29 @@ class SDPSolver:
             cg_precond=cfg.cg_precond,
             fsai_cap=cfg.fsai_cap,
             fsai_pattern_power=cfg.fsai_pattern_power,
+            calibrate_target=target,
         )
 
+    def _true_errRp(self, X_pool: torch.Tensor) -> float:
+        """errRp of the pool iterate ``X_pool`` through the f64 A-product,
+        from the parameters as the state holds them (cuadmm_tpu/solver/
+        driver.py:186-207)."""
+        p, f64 = self.params, torch.float64
+        r = p.b.to(f64) - spmv_a(self._sa_hp, X_pool.to(f64))
+        return float(torch.linalg.norm(p.normA.to(f64) * r) * p.bscale.to(f64) / p.norm_borg.to(f64))
+
     # ------------------------------------------------------------------
-    def _initial_state(self, X_s, y_s, S_s, sig: float) -> SolverState:
+    def _initial_state(
+        self, X_s, y_s, S_s, sig: float, scaling=None, b_scaled=None, C_scaled=None
+    ) -> SolverState:
         """Initial residuals in scaled space (reference: src/solver.cu:194-228
-        and the re-entrant path :385-409)."""
-        sc = self.scaling
-        b, C, A = self._b_scaled, self._C_scaled, self._A_host
+        and the re-entrant path :385-409). The overrides give the batched
+        solver each instance's (scaling, b, C) without touching this
+        solver's own."""
+        sc = self.scaling if scaling is None else scaling
+        b = self._b_scaled if b_scaled is None else b_scaled
+        C = self._C_scaled if C_scaled is None else C_scaled
+        A = self._A_host
         Rp = b - A @ X_s
         SmC = S_s - C
         Rd = A.T @ y_s + SmC
@@ -233,11 +299,12 @@ class SDPSolver:
         Level 1 adds two refinement sweeps to the normal solver in every mode
         that has sweeps (the JAX package skips banded, cuadmm_tpu/solver/
         driver.py:356, a defect not copied); ``solve`` also runs the eigh
-        projection for a probation window. Level 2 rebuilds the normal
-        solver as the factor-free CG with at least 800 steps a solve
-        (driver.py:358-377), which bypasses a corrupted factor. The iterate
-        restarts from the best finite iterate seen so far, else from the
-        initial point.
+        projection for a probation window, keeping ``rp_hp`` if it is on
+        (the JAX driver drops it there, driver.py:523 and :580, a defect not
+        copied). Level 2 rebuilds the normal solver as the factor-free CG
+        with at least 800 steps a solve (driver.py:358-377), which bypasses
+        a corrupted factor. The iterate restarts from the best finite
+        iterate seen so far, else from the initial point.
         """
         cfg, prob = self.config, self.problem
         neq = self.params.neq
@@ -245,7 +312,7 @@ class SDPSolver:
             if neq.mode not in ("cg", "host"):
                 neq = dataclasses.replace(neq, applies=neq.applies + 2)
         else:
-            neq = self._normal_solver(self.params.sparse_a, "cg", max(cfg.cg_max_iter, 800))
+            neq = self._normal_solver("cg", max(cfg.cg_max_iter, 800))
         self.params = dataclasses.replace(self.params, neq=neq)
         X_s = y_s = S_s = None
         if np.isfinite(float(state.best_kkt)):
@@ -294,10 +361,11 @@ class SDPSolver:
         state = self._initial_state(X_s, y_s, S_s, sig)
         it_host = 0  # iterations ``state`` has completed (see make_step)
 
-        def mk_step(projection):
-            # The projection is the only option that changes within a solve
-            # (the probation window below); every other option is fixed here,
-            # so swapping the projection back drops nothing else.
+        def mk_step(projection, rp_hp: bool):
+            # The projection (the probation window below) and rp_hp (the
+            # stall detector) are the only options that change within a
+            # solve; both are passed every time, so neither change drops
+            # the other.
             return make_step(
                 stop_tol=stop_tol,
                 switch_admm=cfg.switch_admm,
@@ -307,9 +375,12 @@ class SDPSolver:
                 sig_max=cfg.sig_max,
                 eig_rank=cfg.eig_rank,
                 projection=projection,
+                rp_hp=self._rp_hp if rp_hp else None,
             )
 
-        step = mk_step(self._projection)
+        projection = self._projection
+        rp_hp_on = False  # f64 primal residuals, engaged by a precision stall
+        step = mk_step(projection, rp_hp_on)
 
         log = IterLogger(enabled=cfg.verbose)
         log.header(self.scaling.norm_Corg, self.scaling.norm_borg)
@@ -321,6 +392,8 @@ class SDPSolver:
         chunk_idx = 0
         profiled = False
         diverged = False
+        stalled = False
+        kkt_trail: List[float] = []  # best KKT of each check (precision_stall)
         recoveries = 0
         converged = float(torch.maximum(state.maxfeas, state.relgap)) < stop_tol
         # After a divergence recovery the step runs the exact eigh projection
@@ -329,7 +402,8 @@ class SDPSolver:
         eigh_until = -1
         while it_done < max_iter and not converged:
             if eigh_until >= 0 and it_done >= eigh_until:
-                step = mk_step(self._projection)
+                projection = self._projection
+                step = mk_step(projection, rp_hp_on)
                 eigh_until = -1
             chunk = min(cfg.check_every, max_iter - it_done)
             # Trace one steady-state chunk (the second; the first pays the
@@ -370,7 +444,8 @@ class SDPSolver:
                         )
                     state = self._recovery_restart(state, recoveries)
                     it_host = 0
-                    step = mk_step("eigh")
+                    projection = "eigh"
+                    step = mk_step(projection, rp_hp_on)
                     eigh_until = it_done + 5 * cfg.check_every
                     continue
                 diverged = True
@@ -383,6 +458,30 @@ class SDPSolver:
                 it_done += keep
             else:
                 it_done += chunk
+            if not converged and stop_tol > 0.0 and self.dtype == torch.float32:
+                # An f32 errRp is a measurement floor, not the iterate's:
+                # when it alone blocks convergence (within 10x), take the
+                # true residual once and patch the last row with it
+                # (cuadmm_tpu/solver/driver.py:596-613).
+                last = info_np[-1]
+                if max(last[3], last[4]) < stop_tol <= last[2] < 10 * stop_tol:
+                    rp_true = self._true_errRp(state.X)
+                    if rp_true < stop_tol:
+                        converged = True
+                        info_np[-1, 2] = rp_true
+                if not converged and precision_stall(kkt_trail, kkt, info_np[-1], stop_tol):
+                    if rp_hp_on:
+                        stalled = True
+                        info_rows.append(info_np)
+                        log.maybe_row(it_done, info_np[-1], time.perf_counter() - t0)
+                        break
+                    # First stall: the f32 errRp has been biasing the sigma
+                    # vote; keep iterating in f32 with f64 primal residuals.
+                    rp_hp_on = True
+                    step = mk_step(projection, rp_hp_on)
+                    kkt_trail.clear()
+                    if cfg.verbose:
+                        print("  [precision] errRp floor stall: switching to f64 primal residuals")
             info_rows.append(info_np)
             log.maybe_row(it_done, info_np[-1], time.perf_counter() - t0)
         total_time = time.perf_counter() - t0
@@ -401,6 +500,12 @@ class SDPSolver:
             )
         elif converged:
             message = "Solver ended: converged."
+        elif stalled:
+            message = (
+                "Solver ended: stalled at the float32 precision floor "
+                "(feasibility below tolerance, KKT not improving); use "
+                "solve_escalated or dtype='float64' to close the gap"
+            )
         else:
             message = "Solver ended: maximum iteration reached"
 
@@ -433,8 +538,11 @@ class SDPSolver:
             message=message,
             pobj=float(state.pobj),
             dobj=float(state.dobj),
-            # Last recorded row wins over chunk-end state: on early exit it
-            # is the hit iteration's value.
+            # Last recorded row wins over chunk-end state: the true-residual
+            # probe patches it, and on early exit it is the hit iteration's
+            # value. The done guard freezes the state at the hit row, and
+            # the probe reads the chunk-end state, so errRd and relgap below
+            # are the same iterate's.
             errRp=float(info_mat[-1, 2]) if info_mat.size else float(state.errRp),
             errRd=float(state.errRd),
             relgap=float(state.relgap),
@@ -450,3 +558,45 @@ class SDPSolver:
 def solve(problem: Problem, config: SolverConfig = SolverConfig(), device="cuda", **kw) -> SDPResult:
     """One-shot convenience wrapper."""
     return SDPSolver(problem, config, device=device).solve(**kw)
+
+
+def solve_escalated(
+    problem: Problem,
+    config: SolverConfig = SolverConfig(),
+    max_iter: Optional[int] = None,
+    stop_tol: Optional[float] = None,
+    device="cuda",
+) -> SDPResult:
+    """An f32 solve, then an f64 tail when the f32 precision floor blocks
+    convergence (cuadmm_tpu/solver/driver.py:752-815).
+
+    The tail runs when the f32 solve did not converge and either diverged
+    (a fresh f64 solve) or hit its floor: feasibility met with only the gap
+    open, or ``stop_tol`` <= F32_CERT_TOL, below what f32 state can
+    certify (a warm start from the f32 result, with its sigma). The tail's
+    result is returned with the iterations and solve times of both phases
+    added; otherwise the f32 result.
+
+    Below F32_CERT_TOL the f32 phase stops at F32_CERT_TOL. The JAX ladder
+    runs it to ``stop_tol``, which an f32 state that neither diverges nor
+    reaches feasibility never meets: it spends all of ``max_iter`` and
+    leaves the f64 tail one iteration. That defect is not copied.
+    """
+    cfg32 = config.replace(dtype="float32")
+    max_iter = cfg32.max_iter if max_iter is None else int(max_iter)
+    stop_tol = cfg32.stop_tol if stop_tol is None else float(stop_tol)
+    tol32 = max(stop_tol, F32_CERT_TOL)
+    res = SDPSolver(problem, cfg32, device=device).solve(max_iter=max_iter, stop_tol=tol32)
+    floor_hit = bool(np.isfinite(res.relgap)) and (
+        max(res.errRp, res.errRd) < stop_tol or stop_tol <= F32_CERT_TOL
+    )
+    if (res.converged and tol32 == stop_tol) or not (floor_hit or res.diverged):
+        return res
+    s64 = SDPSolver(problem, config.replace(dtype="float64"), device=device)
+    warm = {} if res.diverged else dict(X0=res.X, y0=res.y, S0=res.S, sig=res.sig)
+    res64 = s64.solve(max_iter=max(max_iter - res.iterations, 1), stop_tol=stop_tol, **warm)
+    return dataclasses.replace(
+        res64,
+        iterations=res.iterations + res64.iterations,
+        total_time=res.total_time + res64.total_time,
+    )

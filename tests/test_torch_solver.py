@@ -95,9 +95,13 @@ def test_admm_from_start_and_warm_restart():
 
 
 def test_unported_configurations_raise():
+    """Only ``sharded`` (queue item "Several devices") is left to raise;
+    float32 state builds (tests/test_torch_f32.py runs it)."""
     prob = _certified()
-    with pytest.raises(NotImplementedError, match="float32"):
-        cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(dtype="float32"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Several devices"):
+        cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(normal_solver="sharded"), device="cpu")
+    s32 = cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(dtype="float32"), device="cpu")
+    assert s32.params.C.dtype == torch.float32
     # Jacobi has no size bound any more: a 70x70 block builds.
     big, *_ = random_certified_sdp([("s", 3), ("s", 70)], con_num=12, seed=3)
     t = cuadmm_tpu_torch.SDPSolver(
