@@ -117,7 +117,29 @@ Phases, in order; any failure raises and exits non-zero:
    launched exactly B times a sweep and on each instance's last errRp
    within 1e-9 (relative) of its own SDPSolver(projection="eigh") run of
    100 iterations; instance-iterations per second beside the single runs'
-   it/s.
+   it/s;
+17. front ends, with files under build/frontends (removed at the end): the
+   stand-in and the grid written as a TXT directory, SDPA (plain and .gz),
+   SeDuMi, MOSEK and cuADMM .mat by this script's writers (the exact
+   inverses of the importers), and a certified random SDP with an LP part
+   and a free part in each format that holds its block order; each file
+   imported with the port's importer, every Problem field equal to the
+   generator's (exactly for .mat, within 1e-15 relative for text), import
+   seconds and file MB at the grid's size; ``python -m cuadmm_tpu_torch
+   info`` and ``solve DIR --device cuda --switch-admm 0 --check-every 100
+   --max-iter 300 --quiet`` on the stand-in as subprocesses (exit code 0
+   where the in-process SDPSolver run of the same configuration converged,
+   2 where it did not; no kernel rebuilt; X_opt.txt finite and within
+   1e-10 relative of that run); ``cuadmm`` on the
+   grid imported from SeDuMi (projection "jacobi", plain ADMM, 200
+   iterations), gated as the grid phase gates (K1 on every sweep, K4 on
+   every bucket of every iteration); the certified SDP from SDPA through
+   ``cuadmm`` to 1e-6 and its optimum, and with its free part from SeDuMi
+   through SDPSolver, each resumed from its converged checkpoint within 60
+   iterations (the SDPSolver run also from a 1e-4 checkpoint, within 60
+   of what the uninterrupted run took past 1e-4); the examples minimizer, maxcut_demo and mosek_pipeline (on
+   the stand-in's MOSEK file, and with no path, which must exit 2) as
+   subprocesses.
 
 The next-to-last line is the kernel table as JSON (each kernel's bound_ms
 is the least time for its work on the card: bytes at 3.35 TB/s or flops at
@@ -129,18 +151,31 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 import cuadmm_tpu_torch  # noqa: F401  (first: fails alone, without the repo)
 
 import dataclasses
+import gzip
 import json
+import shutil
+import subprocess
+import sys
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+import scipy.io as sio
 import scipy.sparse as sp
 import torch
 
-from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, solve_escalated
+from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, compat, solve_escalated
+from cuadmm_tpu_torch.compat import cuadmm
 from cuadmm_tpu_torch.device import card_line
+from cuadmm_tpu_torch.io import txt as txtio
+from cuadmm_tpu_torch.io.admm_mat import load_admm_mat
+from cuadmm_tpu_torch.io.conewise import SQRT2
+from cuadmm_tpu_torch.io.mosek import load_mosek_mat
+from cuadmm_tpu_torch.io.sdpa import load_sdpa
+from cuadmm_tpu_torch.io.sedumi import load_sedumi_mat
 from cuadmm_tpu_torch.k1_ab import unit_lower
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
@@ -151,6 +186,7 @@ from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.problem import Problem
+from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 # 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
 K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768, 44416, 65536)
@@ -1290,6 +1326,441 @@ def batched() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Front ends. The writers below are harness code, the exact inverses of the
+# port's importers (cuadmm_tpu_torch/io/): a file they write imports back
+# into the Problem it was written from (tests/test_torch_importers.py uses
+# them too). Neither package has writers for these formats.
+
+ROOT = Path(__file__).resolve().parent
+FE_DIR = ROOT / "build" / "frontends"  # the phase's files; removed at its end
+CERT_LP, CERT_FREE = 20, 3  # the certified SDP's LP part (1x1 blocks) and free variables
+CERT_PSD = [("s", 6), ("s", 4)]
+CLI_ARGS = ("--switch-admm", "0", "--check-every", "100", "--max-iter", "300", "--quiet")
+CLI_REL_TOL = 1e-10  # the CLI subprocess's X_opt.txt against the in-process run
+TEXT_REL_TOL = 1e-15  # a text format's values against the generator's (.mat: exact)
+FE_GRID_ITERS = 200
+RESUME_MAX_ITERS = 60  # tests/test_compat.py:48
+SUBPROCESS_TIMEOUT_S = 300
+
+
+def certified_lp_free(fmt: str, seed: int = 11):
+    """A certified random SDP with an LP part (CERT_LP 1x1 blocks) and a
+    free part (CERT_FREE variables), its blocks in the order ``fmt``'s
+    importer makes: SeDuMi (and TXT, cuADMM .mat) free, LP, PSD; MOSEK PSD,
+    LP, free; SDPA, which has no free variables, PSD and LP only."""
+    lp, free = [("s", 1)] * CERT_LP, [("u", CERT_FREE)]
+    blk = {"sedumi": free + lp + CERT_PSD, "mosek": CERT_PSD + lp + free, "sdpa": CERT_PSD + lp}[fmt]
+    return random_certified_sdp(blk, con_num=30, seed=seed)
+
+
+def _svec_layout(blk) -> tuple:
+    """Per svec position: its block, and its row k >= column l in the block
+    (k = l for a free variable)."""
+    bid, ks, ls = [], [], []
+    for b, (t, n) in enumerate(blk):
+        k, l = np.tril_indices(n) if t == "s" else (np.arange(n), np.arange(n))
+        bid.append(np.full(len(k), b))
+        ks.append(k)
+        ls.append(l)
+    return np.concatenate(bid), np.concatenate(ks), np.concatenate(ls)
+
+
+def _exact_split(v: np.ndarray, scale: float) -> tuple:
+    """(w1, w2) with w1 * scale + w2 * scale == v exactly in floating point.
+    An importer multiplies an off-diagonal entry by ``scale`` and sums the
+    entries that land on one svec position, so a value that one product
+    cannot reach is written as two entries (w2 is 0 where one suffices)."""
+    w1 = v / scale
+    w2 = (v - w1 * scale) / scale
+    check(np.array_equal(w1 * scale + w2 * scale, v), "no exact two-entry split")
+    return w1, w2
+
+
+def write_sdpa(prob: Problem, path: Path) -> None:
+    """SDPA sparse format (.dat-s; gzip when the name ends in .gz). A run of
+    1x1 blocks is one diagonal (LP) block of negative size; every matrix is
+    negated and an off-diagonal entry divided by sqrt(2)
+    (cuadmm_tpu_torch/io/sdpa.py). Values print with 17 digits."""
+    check(all(t == "s" for t, _ in prob.blk), "SDPA has no free variables")
+    sizes, sdpa_blk, lp_pos = [], [], []
+    for _, n in prob.blk:
+        if n == 1 and sizes and sizes[-1] < 0:
+            sizes[-1] -= 1
+        else:
+            sizes.append(-1 if n == 1 else n)
+        sdpa_blk.append(len(sizes))
+        lp_pos.append(-sizes[-1] if n == 1 else 0)
+    bid, k, l = _svec_layout(prob.blk)
+    lp = np.array([n == 1 for _, n in prob.blk])[bid]
+    i = np.where(lp, np.asarray(lp_pos)[bid], k + 1)
+    j = np.where(lp, i, l + 1)
+    scale = np.where(k == l, -1.0, -1.0 / SQRT2)
+    pos = np.concatenate([prob.C_indices, prob.At_rows]).astype(np.int64)
+    matno = np.concatenate([np.zeros(len(prob.C_indices), np.int64), prob.At_cols.astype(np.int64) + 1])
+    val = np.concatenate([prob.C_vals, prob.At_vals]) * scale[pos]
+    opener = gzip.open if path.name.endswith(".gz") else open
+    with opener(path, "wt") as f:
+        f.write(f"{prob.con_num}\n{len(sizes)}\n{' '.join(map(str, sizes))}\n")
+        f.write(" ".join(f"{x:.17g}" for x in -prob.dense_b()) + "\n")
+        ent = np.column_stack([matno, np.asarray(sdpa_blk)[bid[pos]], i[pos], j[pos]])
+        f.writelines(f"{a} {b} {c} {d} {x:.17g}\n" for (a, b, c, d), x in zip(ent.tolist(), val.tolist()))
+
+
+def write_sedumi(prob: Problem, path: Path) -> None:
+    """SeDuMi .mat (A, b, c, K): a leading free block is K.f, the 1x1 blocks
+    after it K.l, the other blocks K.s, each an n x n column-major section;
+    an off-diagonal svec value goes to its two mirrored columns
+    (cuadmm_tpu_torch/io/sedumi.py folds them back with half of sqrt(2))."""
+    blk = prob.blk
+    first = 1 if blk[0][0] == "u" else 0
+    l_end = first
+    while l_end < len(blk) and blk[l_end] == ("s", 1):
+        l_end += 1
+    check(all(t == "s" for t, _ in blk[first:]), "SeDuMi: one free block, first")
+    square = np.array([b >= l_end for b in range(len(blk))])
+    width = np.array([n * n if sq else n for (_, n), sq in zip(blk, square)])
+    off = np.concatenate([[0], np.cumsum(width)[:-1]])
+    size = np.array([n for _, n in blk])
+    bid, k, l = _svec_layout(blk)
+    col = np.where(square[bid], off[bid] + l * size[bid] + k, off[bid] + k)
+    mirror = off[bid] + k * size[bid] + l
+    n_cols = int(width.sum())
+
+    def columns(pos, v):  # sedumi columns and values of svec entries
+        diag = k[pos] == l[pos]
+        w1, w2 = _exact_split(v[~diag], SQRT2 / 2.0)
+        keep = w2 != 0
+        cols = np.concatenate([col[pos[diag]], col[pos[~diag]], mirror[pos[~diag]][keep]])
+        return cols, np.concatenate([v[diag], w1, w2[keep]]), diag, keep
+
+    r = prob.At_rows.astype(np.int64)
+    cols, vals, diag, keep = columns(r, prob.At_vals)
+    con = prob.At_cols.astype(np.int64)
+    rows = np.concatenate([con[diag], con[~diag], con[~diag][keep]])
+    A = sp.csc_matrix((vals, (rows, cols)), shape=(prob.con_num, n_cols))
+    c = np.zeros(n_cols)
+    c_cols, c_vals, _, _ = columns(prob.C_indices.astype(np.int64), prob.C_vals)
+    c[c_cols] = c_vals
+    K = {"f": float(blk[0][1] if first else 0), "l": float(l_end - first),
+         "s": np.array([n for _, n in blk[l_end:]], dtype=np.float64)}
+    sio.savemat(path, {"A": A, "b": prob.dense_b()[:, None], "c": c[:, None], "K": K})
+
+
+def write_mosek(prob: Problem, path: Path) -> None:
+    """MOSEK 'prob' struct .mat: the PSD blocks as bar variables given by
+    their lower triangles (subk >= subl, an off-diagonal entry standing for
+    both mirrored positions), a trailing free block as scalar variables with
+    infinite bounds, blc = buc = b (cuadmm_tpu_torch/io/mosek.py)."""
+    blk = prob.blk
+    n_scalar = blk[-1][1] if blk[-1][0] == "u" else 0
+    psd = blk[:-1] if n_scalar else blk
+    check(all(t == "s" for t, _ in psd), "MOSEK: PSD blocks, then one free block")
+    bar_len = sum(n * (n + 1) // 2 for _, n in psd)
+    bid, k, l = _svec_layout(blk)
+
+    def triplets(pos, v):  # (index into pos, subj, subk, subl, val), 1-based
+        diag = k[pos] == l[pos]
+        w1, w2 = _exact_split(v[~diag], SQRT2)
+        keep = w2 != 0
+        idx = np.concatenate([np.nonzero(diag)[0], np.nonzero(~diag)[0], np.nonzero(~diag)[0][keep]])
+        val = np.concatenate([v[diag], w1, w2[keep]])
+        p = pos[idx]
+        return idx, bid[p] + 1.0, k[p] + 1.0, l[p] + 1.0, val
+
+    r = prob.At_rows.astype(np.int64)
+    bar = r < bar_len
+    idx, subj, subk, subl, val = triplets(r[bar], prob.At_vals[bar])
+    out = {"bardim": np.array([n for _, n in psd], dtype=np.float64),
+           "blc": prob.dense_b(), "buc": prob.dense_b(),
+           "bara": {"subi": prob.At_cols[bar][idx] + 1.0, "subj": subj, "subk": subk,
+                    "subl": subl, "val": val}}
+    cpos = prob.C_indices.astype(np.int64)
+    cbar = cpos < bar_len
+    _, subj, subk, subl, val = triplets(cpos[cbar], prob.C_vals[cbar])
+    out["barc"] = {"subj": subj, "subk": subk, "subl": subl, "val": val}
+    if n_scalar:
+        out["a"] = sp.csc_matrix((prob.At_vals[~bar], (prob.At_cols[~bar], r[~bar] - bar_len)),
+                                 shape=(prob.con_num, n_scalar))
+        out["c"] = prob.dense_C()[bar_len:]
+        out["blx"] = np.full(n_scalar, -np.inf)
+        out["bux"] = np.full(n_scalar, np.inf)
+    sio.savemat(path, {"prob": out})
+
+
+def write_admm_mat(prob: Problem, path: Path) -> None:
+    """cuADMM .mat: At (vec_len x con_num, sparse), b and C as dense columns
+    (cuadmm_tpu_torch/io/admm_mat.py)."""
+    At = sp.csc_matrix((prob.At_vals, (prob.At_rows, prob.At_cols)), shape=(prob.vec_len, prob.con_num))
+    sio.savemat(path, {"At": At, "b": prob.dense_b()[:, None], "C": prob.dense_C()[:, None]})
+
+
+def problem_mismatch(got: Problem, want: Problem, rtol: float = 0.0) -> list:
+    """The Problem fields (name aside) where ``got`` differs from ``want``:
+    indices and structure exactly, values exactly or within ``rtol``."""
+    bad = [f for f in ("blk", "con_num") if getattr(got, f) != getattr(want, f)]
+    for f in ("At_rows", "At_cols", "b_indices", "C_indices"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            bad.append(f)
+    for f in ("At_vals", "b_vals", "C_vals"):
+        g, w = getattr(got, f), getattr(want, f)
+        if g.shape != w.shape or not np.all(np.abs(g - w) <= rtol * np.abs(w)):
+            bad.append(f)
+    bad += [f for f in ("X0", "y0", "S0", "sig0") if getattr(got, f) is not None]
+    return bad
+
+
+FORMATS = {  # format: (file suffix, text?)
+    "txt": ("", True), "sdpa": (".dat-s", True), "sdpa_gz": (".dat-s.gz", True),
+    "sedumi": ("_sedumi.mat", False), "mosek": ("_mosek.mat", False), "admm_mat": ("_admm.mat", False),
+}
+
+
+def _fits(fmt: str, blk) -> bool:
+    """Whether ``fmt`` holds ``blk`` in this order: SDPA has no free
+    variables, SeDuMi's free block comes first and MOSEK's last."""
+    free = [b for b, (t, _) in enumerate(blk) if t == "u"]
+    if fmt.startswith("sdpa"):
+        return not free
+    if fmt == "sedumi":
+        return free in ([], [0])
+    if fmt == "mosek":
+        return free in ([], [len(blk) - 1])
+    return True
+
+
+WRITERS = {"sdpa": write_sdpa, "sdpa_gz": write_sdpa, "sedumi": write_sedumi,
+           "mosek": write_mosek, "admm_mat": write_admm_mat}
+
+
+def write_file(prob: Problem, fmt: str, stem: Path) -> Path:
+    """``prob`` as ``fmt`` at ``stem`` + the format's suffix."""
+    check(_fits(fmt, prob.blk), f"{fmt} cannot hold the block order {prob.blk[:4]}...")
+    path = Path(f"{stem}{FORMATS[fmt][0]}")
+    if fmt == "txt":
+        prob.to_txt(str(path))
+    else:
+        WRITERS[fmt](prob, path)
+    return path
+
+
+def import_file(fmt: str, path: Path, blk) -> Problem:
+    """``path`` through the port's importer for ``fmt``."""
+    if fmt == "txt":
+        return Problem.from_txt(str(path))
+    if fmt.startswith("sdpa"):
+        return load_sdpa(str(path))
+    if fmt == "sedumi":
+        return load_sedumi_mat(str(path))
+    if fmt == "mosek":
+        return load_mosek_mat(str(path))
+    return load_admm_mat(str(path), blk=blk)
+
+
+def _file_mb(path: Path) -> float:
+    files = path.iterdir() if path.is_dir() else [path]
+    return sum(f.stat().st_size for f in files) / 1e6
+
+
+def import_round_trip(prob: Problem, stem: Path, what: str) -> dict:
+    """Write ``prob`` in every format that holds it, import each back with the port's importer, and hold every field to the
+    generator's: exactly for .mat, within TEXT_REL_TOL for text. Returns
+    each format's import seconds and file MB."""
+    out = {}
+    for fmt in filter(lambda f: _fits(f, prob.blk), FORMATS):
+        path = write_file(prob, fmt, stem)
+        t0 = time.perf_counter()
+        got = import_file(fmt, path, prob.blk)
+        seconds = time.perf_counter() - t0
+        bad = problem_mismatch(got, prob, TEXT_REL_TOL if FORMATS[fmt][1] else 0.0)
+        check(not bad, f"{what} from {fmt}: fields {bad} differ from the generator's")
+        out[fmt] = dict(seconds=seconds, mb=_file_mb(path))
+    return out
+
+
+def _built_kernels() -> dict:
+    return {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+
+
+def run_module(*args: str) -> tuple:
+    """``python -m <args>`` from the checkout's root: (exit code, output,
+    wall seconds). The child is killed at SUBPROCESS_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT_S)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+class _observe_solvers:
+    """Within the block, record each SDPSolver that ``cuadmm`` makes, so its
+    resolved normal solver, sweeps and buckets can be gated."""
+
+    def __enter__(self):
+        self.made, self._orig = [], compat.SDPSolver
+        made = self.made
+
+        class Recording(self._orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        compat.SDPSolver = Recording
+        return self.made
+
+    def __exit__(self, *exc):
+        compat.SDPSolver = self._orig
+
+
+def _at(prob: Problem) -> sp.coo_matrix:
+    return sp.coo_matrix((prob.At_vals, (prob.At_rows, prob.At_cols)), shape=(prob.vec_len, prob.con_num))
+
+
+def frontends_cli(standin_dir: Path, standin: Problem) -> dict:
+    """``python -m cuadmm_tpu_torch info`` and ``solve`` on the stand-in's
+    TXT directory as subprocesses, against an in-process run."""
+    rc, out, info_s = run_module("cuadmm_tpu_torch", "info", str(standin_dir))
+    check(rc == 0 and f"constraints: {standin.con_num}" in out, f"cli info: rc {rc}: {out[-2000:]}")
+    before = _built_kernels()
+    rc, out, solve_s = run_module("cuadmm_tpu_torch", "solve", str(standin_dir), "--device", "cuda", *CLI_ARGS)
+    check(rc in (0, 2), f"cli solve: exit code {rc}: {out[-2000:]}")
+    check(_built_kernels() == before, "cli solve: the subprocess rebuilt a kernel")
+    x_cli = txtio.read_dense_vector(str(standin_dir / "X_opt.txt"))
+    check(x_cli.shape == (standin.vec_len,) and bool(np.all(np.isfinite(x_cli))), "cli solve: bad X_opt.txt")
+    # The CLI's defaults for the flags not given (cuadmm_tpu_torch/cli.py).
+    cfg = SolverConfig(max_iter=300, stop_tol=1e-3, sig=1.0, switch_admm=0, check_every=100, verbose=False)
+    res = SDPSolver(Problem.from_txt(str(standin_dir)), cfg, device="cuda").solve()
+    check(rc == (0 if res.converged else 2), f"cli solve: exit code {rc}, in-process converged={res.converged}")
+    rel = float(np.max(np.abs(x_cli - res.X)) / np.max(np.abs(res.X)))
+    check(rel <= CLI_REL_TOL, f"cli solve: X_opt.txt {rel:.2e} from the in-process run")
+    return dict(info_wall_s=info_s, solve_wall_s=solve_s, exit_code=rc, x_rel_to_in_process=rel,
+                iterations_in_process=res.iterations, converged_in_process=res.converged)
+
+
+def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
+    """The grid imported from SeDuMi through ``cuadmm`` (jacobi, plain ADMM,
+    stop_tol 0): gated as the grid phase gates. Returns (line, launches)."""
+    prob = load_sedumi_mat(str(grid_sedumi))
+    precond_apply.LAUNCHES = jacobi.LAUNCHES = jacobi.LAUNCHES_F32 = 0
+    t0 = time.perf_counter()
+    with _observe_solvers() as made:
+        X, y, S, info = cuadmm(0, FE_GRID_ITERS, 0.0, _at(prob), prob.dense_b(), prob.dense_C(),
+                               [n for _, n in prob.blk], sig=1.0, device="cuda", verbose=False,
+                               check_every=100, switch_admm=0, projection="jacobi")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES, k4_f32=jacobi.LAUNCHES_F32, k2=0, k3=0)
+    (solver,) = made
+    neq = solver.params.neq
+    what = "front ends: grid through cuadmm"
+    check(neq.mode == "precond" and neq.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
+    buckets = tuple((bk.n, bk.count) for bk in solver.structure.buckets)
+    check(buckets == GRID_BUCKETS and set(_methods(solver)) == {"jacobi"}, f"{what}: buckets {buckets}")
+    check(info["iter_num"] == FE_GRID_ITERS and len(info["errRp_arr"]) == FE_GRID_ITERS, f"{what}: iterations")
+    err = info["errRp_arr"]
+    finite = all(np.all(np.isfinite(a)) for a in (X, y, S, err, info["errRd_arr"], info["relgap_arr"]))
+    check(finite and X.shape == (prob.vec_len,), f"{what}: non-finite output")
+    check(err[-1] < err[0], f"{what}: errRp did not decrease ({err[0]} -> {err[-1]})")
+    _gate_launches(solver, counts, FE_GRID_ITERS, 1, what)
+    line = dict(it_per_s=FE_GRID_ITERS / info["total_time"], wall_s=wall_s, applies=neq.applies,
+                launches=counts, errRp_first=float(err[0]), errRp_last=float(err[-1]))
+    return line, counts
+
+
+def frontends_certified() -> dict:
+    """The certified SDP (PSD and LP blocks) imported from SDPA through
+    ``cuadmm`` to 1e-6, then a checkpoint round trip that resumes within
+    RESUME_MAX_ITERS; the same with the free part, imported from SeDuMi,
+    through SDPSolver."""
+    out = {}
+    kw = dict(device="cuda", verbose=False, check_every=25, switch_admm=10**9)
+    prob_lp, *_, opt = certified_lp_free("sdpa")
+    path = FE_DIR / "certified_lp.dat-s"
+    write_sdpa(prob_lp, path)
+    prob = load_sdpa(str(path))
+    args = (_at(prob), prob.dense_b(), prob.dense_C(), [n for _, n in prob.blk])
+    X, y, S, info = cuadmm(0, 6000, 1e-6, *args, sig=1.0, **kw)
+    gap = abs(info["pobj_arr"][-1] - opt) / (1 + abs(opt))
+    check(info["errRp_arr"][-1] < 1e-6 and gap < 1e-4, f"certified through cuadmm: gap {gap:.2e}")
+    ck = FE_DIR / "certified_lp.npz"
+    save_checkpoint(str(ck), types.SimpleNamespace(X=X, y=y, S=S, sig=float(info["sig_arr"][-1])))
+    kw_ck = load_checkpoint(str(ck))
+    X2, _, _, info2 = cuadmm(0, 2000, 1e-6, *args, X0=kw_ck["X0"], y0=kw_ck["y0"], S0=kw_ck["S0"],
+                             sig=kw_ck["sig"], **kw)
+    # Stopping before max_iter with finite rows is convergence (0: at the start).
+    check(info2["iter_num"] <= RESUME_MAX_ITERS and np.all(np.isfinite(info2["errRp_arr"]))
+          and np.all(np.isfinite(X2)), f"certified through cuadmm: resumed in {info2['iter_num']}")
+    out["cuadmm lp"] = dict(iterations=int(info["iter_num"]), rel_gap=gap, resumed_iterations=int(info2["iter_num"]))
+
+    prob_free, *_, opt = certified_lp_free("sedumi")
+    path = FE_DIR / "certified_free_sedumi.mat"
+    write_sedumi(prob_free, path)
+    prob = load_sedumi_mat(str(path))
+    cfg = SolverConfig(verbose=False, check_every=25, switch_admm=10**9)
+    solver = SDPSolver(prob, cfg, device="cuda")
+    part = solver.solve(max_iter=6000, stop_tol=1e-4)
+    save_checkpoint(str(FE_DIR / "part.npz"), part)
+    res = solver.solve(max_iter=6000, stop_tol=1e-6)
+    gates = _certified_gates(res, opt, "certified lp + free from SeDuMi")
+    save_checkpoint(str(FE_DIR / "done.npz"), res)
+    resumed = {}
+    for name in ("done", "part"):  # each in a fresh solver
+        r = SDPSolver(prob, cfg, device="cuda").solve(max_iter=6000, stop_tol=1e-6,
+                                                      **load_checkpoint(str(FE_DIR / f"{name}.npz")))
+        check(r.converged, f"certified lp + free: the run resumed from {name} did not converge")
+        resumed[name] = r.iterations
+    # From the 1e-4 checkpoint the resumed run takes about what the
+    # uninterrupted run took past that point (tests/test_torch_compat.py).
+    rest = res.iterations - part.iterations
+    check(resumed["done"] <= RESUME_MAX_ITERS and abs(resumed["part"] - rest) <= RESUME_MAX_ITERS,
+          f"certified lp + free: resumed in {resumed} (uninterrupted past 1e-4: {rest})")
+    out["SDPSolver lp + free"] = dict(gates, iterations_to_1e_4=part.iterations, resumed_iterations=resumed)
+    return out
+
+
+def frontends_examples(standin_mosek: Path) -> dict:
+    """The ported examples as subprocesses on the card, all at once."""
+    ex = "cuadmm_tpu_torch.examples."
+    runs = {  # name: (arguments, exit code, text the output must hold)
+        "minimizer": ((ex + "minimizer", "--device", "cuda"), 0, "iterations:"),
+        "maxcut_demo": ((ex + "maxcut_demo", "--device", "cuda"), 0, "chordal: Solver ended: converged"),
+        "mosek_pipeline": ((ex + "mosek_pipeline", str(standin_mosek), "--device", "cuda"), 0, "pobj"),
+        "mosek_pipeline, no path": ((ex + "mosek_pipeline",), 2, "needs the path"),
+    }
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = dict(zip(runs, pool.map(lambda r: run_module(*r[0]), runs.values())))
+    for name, (rc, out, _) in done.items():
+        _, want_rc, want_text = runs[name]
+        check(rc == want_rc and want_text in out, f"example {name}: rc {rc}: {out[-2000:]}")
+    return {name: dict(exit_code=rc, wall_s=s) for name, (rc, _, s) in done.items()}
+
+
+def frontends(standin: Problem) -> dict:
+    """Front ends on the card: every importer at the stand-in's and the
+    grid's size, the CLI as a subprocess, ``cuadmm`` on the grid through K1
+    and K4, the certified SDP with checkpoints, and the examples. Returns
+    the grid run's K1 and K4 launches."""
+    shutil.rmtree(FE_DIR, ignore_errors=True)
+    FE_DIR.mkdir(parents=True)
+    try:
+        grid = grid_problem()
+        importers = dict(grid=import_round_trip(grid, FE_DIR / "grid", "grid"),
+                         standin=import_round_trip(standin, FE_DIR / "standin", "stand-in"))
+        for fmt in ("sedumi", "mosek", "sdpa"):
+            prob = certified_lp_free(fmt)[0]
+            import_round_trip(prob, FE_DIR / f"certified_{fmt}", f"certified ({fmt} order)")
+        del grid
+        cli = frontends_cli(FE_DIR / "standin", standin)
+        grid_line, counts = frontends_grid_cuadmm(Path(f"{FE_DIR / 'grid'}_sedumi.mat"))
+        cert = frontends_certified()
+        examples = frontends_examples(Path(f"{FE_DIR / 'standin'}_mosek.mat"))
+    finally:
+        shutil.rmtree(FE_DIR, ignore_errors=True)
+    emit("frontends", dict(card=report["card"], importers_at_grid=importers["grid"],
+                           importers_at_standin=importers["standin"], cli=cli, cuadmm_grid=grid_line,
+                           certified=cert, examples=examples))
+    return counts
+
+
 def timed_phase(fn, *args):
     """Run one phase and record its wall seconds in the report."""
     t0 = time.perf_counter()
@@ -1322,9 +1793,11 @@ def main() -> None:
     del large, quasar_prob
     timed_phase(certified_f32)
     k1_batched = timed_phase(batched)
+    fe = timed_phase(frontends, prob)
     emit("phase seconds", report["phase_s"])
-    k1_paths = {"stand-in f64": k1_launches, "stand-in f32": k1_f32, "batched f64": k1_batched}
-    k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32}
+    k1_paths = {"stand-in f64": k1_launches, "stand-in f32": k1_f32, "batched f64": k1_batched,
+                "grid through cuadmm": fe["k1"]}
+    k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32, "grid through cuadmm": fe["k4"]}
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),

@@ -14,6 +14,17 @@ projection with its "eigh", "poly", "jacobi" and calibrated "auto"
 methods ("jacobi" runs the hand-written CUDA kernel K4, ops/jacobi.py);
 ``solve_escalated``; and the batched multi-instance solver.
 
+Front ends, as in the JAX package (each runs on ``device="cuda"`` unless
+the CPU is asked for):
+    python -m cuadmm_tpu_torch solve DIR / info DIR  -- the CLI (cli.py)
+    compat.cuadmm             -- the MATLAB-style MEX signature
+    io.sdpa.load_sdpa         -- SDPA .dat-s (and .dat-s.gz)
+    io.sedumi.load_sedumi_mat -- SeDuMi .mat (A or At, b, c, K)
+    io.mosek.load_mosek_mat   -- MOSEK .mat ('prob' struct)
+    io.admm_mat.load_admm_mat -- cuADMM .mat (At, b, C in svec layout)
+    utils.checkpoint          -- .npz checkpoints, the JAX package's format
+    examples.minimizer, examples.maxcut_demo, examples.mosek_pipeline
+
 Public API:
     Problem          -- problem container + TXT loader
     SDPSolver        -- init/solve driver on an explicit ``device``
