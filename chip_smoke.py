@@ -139,7 +139,28 @@ Phases, in order; any failure raises and exits non-zero:
    iterations (the SDPSolver run also from a 1e-4 checkpoint, within 60
    of what the uninterrupted run took past 1e-4); the examples minimizer, maxcut_demo and mosek_pipeline (on
    the stand-in's MOSEK file, and with no path, which must exit 2) as
-   subprocesses.
+   subprocesses;
+18. several devices (cuadmm_tpu_torch/parallel/): one rank over NCCL in
+   this process (a world of 1 from a FileStore under build/) solves the
+   certified SDP through normal_solver "sharded" to 1e-6 and its optimum
+   (its collectives run at one rank too; all_reduces per normal solve
+   and per run), runs dryrun_multichip(1, "nccl") and the large grid
+   through "sharded" at full size (nb 67, the whole 18.8 GB slab on the
+   card: NCCL's broadcasts of up to 281 MB a Cholesky step; 20
+   iterations, errRp within 1e-6 of the banded run's below); then two gloo
+   ranks share cuda:0 (NCCL refuses two ranks on one GPU) in one spawn
+   of rank_jobs.chip_mesh: the grid with "jacobi" (20 warm, 100 timed
+   iterations continued from them; K4 exactly once per bucket share and
+   iteration, K1 on every sweep, errRp within 1e-9 of one rank's same
+   120 iterations), the large grid through "sharded" (B 1024, nb 68, 34
+   block columns a rank, 9.70 GB a rank; the distributed Cholesky's
+   seconds, each rank's peak memory, one timed normal solve with its
+   all_reduces, 20 iterations whose errRp is within 1e-6 of a banded
+   run's), QUASAR-500 with "poly" (its 2004 block's rows split over the
+   ranks: 40 all_reduces a projection; K1 on every sweep; errRp within
+   1e-9 of one rank) and the 8 batched stand-ins (4 a rank, K1 4 times a
+   sweep on each, every instance within 1e-9 of its single run from
+   phase 16); every rank's X, y, S and info rows bitwise equal.
 
 The next-to-last line is the kernel table as JSON (each kernel's bound_ms
 is the least time for its work on the card: bytes at 3.35 TB/s or flops at
@@ -151,6 +172,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 import cuadmm_tpu_torch  # noqa: F401  (first: fails alone, without the repo)
 
 import dataclasses
+import datetime
 import gzip
 import json
 import shutil
@@ -166,6 +188,7 @@ import numpy as np
 import scipy.io as sio
 import scipy.sparse as sp
 import torch
+import torch.distributed as dist
 
 from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, compat, solve_escalated
 from cuadmm_tpu_torch.compat import cuadmm
@@ -185,6 +208,10 @@ from cuadmm_tpu_torch.ops import chol, jacobi, precond_apply, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
+from cuadmm_tpu_torch.parallel import rank_jobs
+from cuadmm_tpu_torch.parallel.dryrun import dryrun_multichip
+from cuadmm_tpu_torch.parallel.launch import run_ranks
+from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -236,7 +263,7 @@ PAST_CAP_CON, PAST_CAP_N_PAD, PAST_CAP_DENSE_CHOL_MAX = 44312, 44416, 45_056
 G22_NODES, G22_EDGE_P = 2000, 0.01  # the G-set's G22: 2,000 nodes, 19,990 edges
 CG_ITERS = 20
 CERT_MODES = ("precond", "auto", "dense", "cg", "host")
-CERT_MODES_F32 = CERT_MODES + ("packed", "banded")  # every normal solver but sharded
+CERT_MODES_F32 = CERT_MODES + ("packed", "banded")  # every normal solver that needs no mesh
 PROBE_TOL = {"float64": 1e-6, "float32": 1e-5}  # the f32 calibration target is 1e-6 to 1e-5
 BATCH = 8  # stand-ins in the batched phase
 REPORT = Path("chiprun_out") / "chip_smoke.json"
@@ -1279,12 +1306,12 @@ def standin_family() -> list:
     return probs
 
 
-def batched() -> int:
+def batched() -> tuple:
     """BatchedSDPSolver on BATCH stand-ins, f64 plain ADMM (precond + K1,
     eigh): 20 warm and 100 timed iterations; K1 exactly BATCH times a
     sweep; each instance's last errRp within 1e-9 of its own single
     SDPSolver(projection="eigh") run of 100 iterations. Returns the timed
-    run's K1 launches."""
+    run's K1 launches, the stand-ins and the single runs' last errRp."""
     iters = BIG_BLOCK_ITERS
     t0 = time.perf_counter()
     probs = standin_family()
@@ -1305,7 +1332,7 @@ def batched() -> int:
     launches = precond_apply.LAUNCHES
     sweeps = BATCH * iters * neq.applies
     check(launches == sweeps, f"batched: K1 launched {launches} times, not {BATCH} x {iters} x {neq.applies}")
-    single_rates, rel = [], []
+    single_rates, rel, single_errrp = [], [], []
     for i, (prob, rb) in enumerate(zip(probs, results)):
         _gates(rb, prob.vec_len, f"batched instance {i}")
         single = SDPSolver(prob, cfg.replace(projection="eigh"), device="cuda")
@@ -1314,6 +1341,7 @@ def batched() -> int:
         torch.cuda.synchronize()
         single_rates.append(iters / (time.perf_counter() - t0))
         rel.append(abs(rb.errRp - rs.errRp) / abs(rs.errRp))
+        single_errrp.append(rs.errRp)
         check(rb.iterations == rs.iterations == iters and rel[-1] <= 1e-9,
               f"batched instance {i}: errRp {rb.errRp!r} against single {rs.errRp!r} (rel {rel[-1]:.2e})")
         del single
@@ -1323,7 +1351,7 @@ def batched() -> int:
                          single_it_per_s_mean=float(np.mean(single_rates)), errRp_rel_to_single=rel))
     del batch
     torch.cuda.empty_cache()
-    return launches
+    return launches, probs, single_errrp
 
 
 # ---------------------------------------------------------------------------
@@ -1761,6 +1789,202 @@ def frontends(standin: Problem) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Several devices (cuadmm_tpu_torch/parallel/). One card: one rank over
+# NCCL in this process, then two ranks sharing the card over gloo (NCCL
+# refuses two ranks on one GPU), spawned once for every run.
+
+MESH_RANKS = 2
+# (warm, timed) iterations; the large grid's init already ran its solves (calibration).
+MESH_ITERS = dict(grid=(20, 100), large=(0, 20), quasar=(2, 10), batched=(BIG_BLOCK_WARM, BIG_BLOCK_ITERS))
+MESH_TIMEOUT_S = 600
+MESH_ONE_RANK_REL = 1e-9  # a split bucket against the whole one: other batch sizes, the same arithmetic
+LARGE_GRID_SLAB = {1: (67, 67, 1024, 1024), 2: (68, 34, 1024, 1024)}  # by ranks: nb a multiple of them
+POLY_ALL_REDUCES = 40  # f64 schedule: 13 steps of 3 row-split products, and the last product
+
+
+def mesh_one_rank_nccl(large: Problem) -> dict:
+    """One rank over NCCL in this process (a world of 1 from a FileStore
+    under build/): the certified SDP through normal_solver "sharded" to
+    1e-6 (the certified gate), its all_reduces per normal solve and per
+    run; ``dryrun_multichip(1, "nccl")``; and the large grid through
+    "sharded" at full size (``rank_jobs.sharded_large``: nb 67, the whole
+    18.8 GB slab on the card, NCCL's broadcasts of up to 281 MB a
+    Cholesky step and 3 nb all_reduces a sweep), held by ``mesh`` to the
+    banded run's errRp."""
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh1 = make_mesh(1, "nccl")
+        prob, _, _, _, opt = random_certified_sdp([("s", 6), ("s", 4), ("s", 6)], con_num=12, seed=3)
+        solver = SDPSolver(prob, SolverConfig(verbose=False, check_every=25, switch_admm=10**9,
+                                              normal_solver="sharded"), mesh=mesh1)
+        neq = solver.params.neq
+        check(neq.mode == "sharded", f"mesh nccl: resolved to {neq.mode!r}")
+        rhs = aat_matvec(neq.sparse_a, torch.as_tensor(np.random.default_rng(1).standard_normal(prob.con_num),
+                                                       device="cuda"))
+        COLLECTIVES.update(all_reduce=0, broadcast=0)
+        resid = float(neq.residual_norm(rhs, neq.solve(rhs)))
+        per_solve = dict(COLLECTIVES)
+        check(resid < PROBE_TOL["float64"], f"mesh nccl: probe residual {resid:.3e}")
+        COLLECTIVES.update(all_reduce=0, broadcast=0)
+        res = solver.solve(max_iter=6000, stop_tol=1e-6)
+        run = dict(COLLECTIVES)
+        gates = _certified_gates(res, opt, "mesh nccl sharded")
+        dry = dryrun_multichip(1, "nccl")[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lg = rank_jobs.sharded_large(mesh1, large, *MESH_ITERS["large"])
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return dict(gates, mode=neq.mode, grid=list(neq.shard_grid.shape), applies=neq.applies, residual_norm=resid,
+                collectives_per_normal_solve=per_solve, collectives_per_run=run,
+                dryrun=dict(iterations=dry["iterations"], pobj=dry["pobj"], optimum=dry["optimum"],
+                            tri_solve_all_reduces=dry["tri_solve_all_reduces"]),
+                large=lg)
+
+
+def _ranks_agree(ranks: list, what: str) -> None:
+    """Every rank's X, y, S and info rows are bitwise rank 0's."""
+    def arrays(r):
+        return [np.asarray(r[k]) for k in ("X", "y", "S")] + [np.asarray(r["info"][f]) for f in
+                                                               ("pobj", "dobj", "errRp", "errRd", "relgap", "sig")]
+    for i, r in enumerate(ranks[1:], 1):
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(arrays(r), arrays(ranks[0])))
+        check(same, f"{what}: rank {i}'s iterate differs from rank 0's")
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _large_report(lg: list, l1, rel: float, iters: int) -> dict:
+    """The large grid's "sharded" runs (one a rank) for the mesh line."""
+    return dict(
+        iterations=iters, it_per_s=[iters / lr["seconds"] for lr in lg], errRp=lg[0]["errRp"], banded_errRp=l1.errRp,
+        rel=rel, slab=lg[0]["slab_shape"], slab_gb_per_rank=lg[0]["slab_gb"], applies=lg[0]["applies"],
+        eps_used=lg[0]["eps_used"], init_s=[lr["init_s"] for lr in lg],
+        factorize_s=[lr["init_breakdown"]["neq.sharded_factorize"] for lr in lg],
+        calibrate_s=[lr["init_breakdown"]["neq.calibrate"] for lr in lg],
+        normal_solve_ms=[lr["solve_ms"] for lr in lg], collectives_per_normal_solve=lg[0]["solve_counts"],
+        all_reduces_per_it=lg[0]["counts"]["all_reduce"] / iters, residual_norm=lg[0]["residual_norm"],
+        methods=lg[0]["methods"], peak_mem_gb_init=[lr["peak_mem_gb_init"] for lr in lg],
+        peak_mem_gb=[lr["peak_mem_gb"] for lr in lg])
+
+
+def mesh(large: Problem, quasar_prob: Problem, family: list, single_errrp: list) -> dict:
+    """The several-devices path on the card: ``mesh_one_rank_nccl``, then
+    MESH_RANKS gloo ranks on cuda:0 in one spawn (rank_jobs.chip_mesh) for
+    the grid (jacobi: K4 on every rank's share of every bucket, K1 on every
+    sweep), the large grid through "sharded", QUASAR-500 with its block
+    split by rows under "poly", and the batched stand-ins, each held
+    against a one-rank run in this process (the grid and QUASAR to 1e-9,
+    the large grid to a banded run's errRp at 1e-6, the batch to the
+    batched phase's single runs at 1e-9), every rank's iterate bitwise
+    equal. The NCCL rank's large grid is held to the same banded run.
+    Returns the ranks' K1 and K4 launches by run."""
+    nccl = mesh_one_rank_nccl(large)
+    nccl_large = nccl.pop("large")
+    grid = grid_problem()
+    admm = dict(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0)
+    # One-rank references, each run as the ranks run it.
+    solver = SDPSolver(grid, SolverConfig(projection="jacobi", **admm), device="cuda")
+    g1, g1_s, _ = rank_jobs.continued_run(solver, *MESH_ITERS["grid"])
+    solver = SDPSolver(large, SolverConfig(projection="auto", normal_solver="banded", **admm), device="cuda")
+    l1 = solver.solve(max_iter=MESH_ITERS["large"][1], stop_tol=0.0)
+    solver = SDPSolver(quasar_prob, SolverConfig(projection="poly", **admm), device="cuda")
+    q1 = solver.solve(max_iter=MESH_ITERS["quasar"][1], stop_tol=0.0)
+    del solver
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_jobs.chip_mesh, MESH_RANKS, "gloo", "cuda:0",
+                      args=(grid, large, quasar_prob, family, MESH_ITERS), timeout_s=MESH_TIMEOUT_S, threads=None)
+    spawn_s = time.perf_counter() - t0
+    for key in ("grid", "large", "quasar"):
+        _ranks_agree([r[key] for r in ranks], f"mesh {key}")
+    for i in range(len(family)):
+        _ranks_agree([r["batched"]["results"][i] for r in ranks], f"mesh batched instance {i}")
+    warm, iters = MESH_ITERS["large"]
+    rel = _rel(nccl_large["errRp"], l1.errRp)
+    check(nccl_large["mode"] == "sharded" and tuple(nccl_large["slab_shape"]) == LARGE_GRID_SLAB[1],
+          f"mesh nccl large grid: {nccl_large['mode']} slab {nccl_large['slab_shape']}")
+    check(nccl_large["residual_norm"] < PROBE_TOL["float64"],
+          f"mesh nccl large grid: probe residual {nccl_large['residual_norm']:.3e}")
+    _gates(types.SimpleNamespace(**{k: nccl_large[k] for k in ("errRp", "errRd", "relgap", "diverged", "info", "X")}),
+           large.vec_len, "mesh nccl large grid")
+    check(rel <= ERRRP_AGREE, f"mesh nccl large grid: errRp {nccl_large['errRp']!r} against banded {l1.errRp!r}")
+    nccl["large grid sharded"] = _large_report([nccl_large], l1, rel, iters)
+    out = dict(card=report["card"], ranks=MESH_RANKS, backend="gloo", spawn_s=spawn_s, nccl_one_rank=nccl)
+
+    warm, iters = MESH_ITERS["grid"]
+    g = [r["grid"] for r in ranks]
+    rel = _rel(g[0]["errRp"], g1.errRp)
+    for r, gr in enumerate(g):
+        check(gr["mode"] == "precond" and gr["n_pad"] == GRID_N_PAD, f"mesh grid: {gr['mode']} n_pad {gr['n_pad']}")
+        check(gr["counts"]["k4"] == iters * len(GRID_BUCKETS),
+              f"mesh grid rank {r}: K4 launched {gr['counts']['k4']} times, not {iters} x {len(GRID_BUCKETS)}")
+        check(gr["counts"]["k1"] == iters * gr["applies"],
+              f"mesh grid rank {r}: K1 launched {gr['counts']['k1']} times, not {iters} x {gr['applies']}")
+    check(rel <= MESH_ONE_RANK_REL, f"mesh grid: errRp {g[0]['errRp']!r} against one rank's {g1.errRp!r}")
+    out["grid jacobi"] = dict(
+        iterations=f"{warm} warm + {iters} timed", it_per_s=[iters / gr["seconds"] for gr in g],
+        one_rank_it_per_s=iters / g1_s, errRp=g[0]["errRp"], one_rank_errRp=g1.errRp, rel=rel,
+        local_buckets=[gr["local_buckets"] for gr in g], counts=[gr["counts"] for gr in g],
+        all_reduces_per_it=g[0]["counts"]["all_reduce"] / iters, peak_mem_gb=[gr["peak_mem_gb"] for gr in g])
+
+    warm, iters = MESH_ITERS["large"]
+    lg = [r["large"] for r in ranks]
+    rel = _rel(lg[0]["errRp"], l1.errRp)
+    for r, lr in enumerate(lg):
+        check(lr["mode"] == "sharded" and tuple(lr["slab_shape"]) == LARGE_GRID_SLAB[MESH_RANKS],
+              f"mesh large grid rank {r}: {lr['mode']} slab {lr['slab_shape']}")
+        check(lr["residual_norm"] < PROBE_TOL["float64"], f"mesh large grid: probe residual {lr['residual_norm']:.3e}")
+    _gates(types.SimpleNamespace(**{k: lg[0][k] for k in ("errRp", "errRd", "relgap", "diverged", "info", "X")}),
+           large.vec_len, "mesh large grid")
+    check(rel <= ERRRP_AGREE, f"mesh large grid: errRp {lg[0]['errRp']!r} against banded {l1.errRp!r}")
+    out["large grid sharded"] = _large_report(lg, l1, rel, iters)
+
+    warm, iters = MESH_ITERS["quasar"]
+    qs = [r["quasar"] for r in ranks]
+    rel = _rel(qs[0]["errRp"], q1.errRp)
+    for r, qr in enumerate(qs):
+        check(qr["mode"] == "split" and qr["split_p"] == QUASAR_P, f"mesh quasar: {qr['mode']} p {qr['split_p']}")
+        check(qr["counts"]["k1"] == iters * qr["applies"],
+              f"mesh quasar rank {r}: K1 launched {qr['counts']['k1']} times, not {iters} x {qr['applies']}")
+        check(qr["counts"]["all_reduce"] == iters * POLY_ALL_REDUCES,
+              f"mesh quasar rank {r}: {qr['counts']['all_reduce']} all_reduces in {iters} projections")
+    check(rel <= MESH_ONE_RANK_REL, f"mesh quasar: errRp {qs[0]['errRp']!r} against one rank's {q1.errRp!r}")
+    out["quasar poly"] = dict(
+        iterations=iters, it_per_s=[iters / qr["seconds"] for qr in qs], errRp=qs[0]["errRp"],
+        one_rank_errRp=q1.errRp, rel=rel, all_reduces_per_projection=qs[0]["counts"]["all_reduce"] / iters,
+        counts=[qr["counts"] for qr in qs], peak_mem_gb=[qr["peak_mem_gb"] for qr in qs])
+
+    warm, iters = MESH_ITERS["batched"]
+    bs = [r["batched"] for r in ranks]
+    rels = [_rel(res["errRp"], e) for res, e in zip(bs[0]["results"], single_errrp)]
+    for r, br in enumerate(bs):
+        share = br["local"][1] - br["local"][0]
+        check(share == len(family) // MESH_RANKS, f"mesh batched rank {r}: instances {br['local']}")
+        check(br["counts"]["k1"] == share * iters * br["applies"],
+              f"mesh batched rank {r}: K1 launched {br['counts']['k1']} times, not {share} x {iters} x {br['applies']}")
+    for i, (res, rl) in enumerate(zip(bs[0]["results"], rels)):
+        check(res["iterations"] == iters and rl <= MESH_ONE_RANK_REL,
+              f"mesh batched instance {i}: errRp {res['errRp']!r} against its single run's (rel {rl:.2e})")
+    out["batched"] = dict(
+        instances=len(family), per_rank=[br["local"] for br in bs],
+        instance_it_per_s=len(family) * iters / max(br["seconds"] for br in bs), errRp_rel_to_single=rels,
+        counts=[br["counts"] for br in bs], peak_mem_gb=[br["peak_mem_gb"] for br in bs])
+    emit("mesh", out)
+    return dict(grid_k1=sum(gr["counts"]["k1"] for gr in g), grid_k4=sum(gr["counts"]["k4"] for gr in g),
+                quasar_k1=sum(qr["counts"]["k1"] for qr in qs), batched_k1=sum(br["counts"]["k1"] for br in bs))
+
+
 def timed_phase(fn, *args):
     """Run one phase and record its wall seconds in the report."""
     t0 = time.perf_counter()
@@ -1790,14 +2014,17 @@ def main() -> None:
     k4_f32 = timed_phase(grid_f32)
     k3_f32 = timed_phase(large_grid_f32, large)
     timed_phase(quasar_f32, quasar_prob)
-    del large, quasar_prob
     timed_phase(certified_f32)
-    k1_batched = timed_phase(batched)
+    k1_batched, family, single_errrp = timed_phase(batched)
     fe = timed_phase(frontends, prob)
+    ms = timed_phase(mesh, large, quasar_prob, family, single_errrp)
+    del large, quasar_prob, family
     emit("phase seconds", report["phase_s"])
     k1_paths = {"stand-in f64": k1_launches, "stand-in f32": k1_f32, "batched f64": k1_batched,
-                "grid through cuadmm": fe["k1"]}
-    k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32, "grid through cuadmm": fe["k4"]}
+                "grid through cuadmm": fe["k1"], "grid jacobi mesh 2": ms["grid_k1"],
+                "quasar mesh 2": ms["quasar_k1"], "batched mesh 2": ms["batched_k1"]}
+    k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32, "grid through cuadmm": fe["k4"],
+                "grid jacobi mesh 2": ms["grid_k4"]}
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),

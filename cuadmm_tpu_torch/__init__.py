@@ -5,14 +5,18 @@ torch and never jax; ``cuadmm_tpu`` stays the reference its tests compare
 against. Ported so far: float64 and float32 state (``dtype="float32"``
 with the f64 tables of the refinement, the true-residual probe, the
 precision-stall detector and the f64 primal residuals ``rp_hp``) with
-every normal solver but ``sharded``: ``precond`` and ``split`` (whose
+every normal solver: ``precond`` and ``split`` (whose
 inverse factor, or coupled prefix's, runs the hand-written CUDA kernel K1,
 ops/precond_apply.py), ``packed`` and ``banded`` (K2/K3,
-ops/tri_stream.py), ``dense``, ``cg`` and ``host``, with ``auto``
-resolving among them; divergence recovery at both levels; the PSD
+ops/tri_stream.py), ``dense``, ``cg``, ``host`` and ``sharded`` (over a
+rank mesh, parallel/tri_shard.py), with ``auto`` resolving among them; divergence recovery at both levels; the PSD
 projection with its "eigh", "poly", "jacobi" and calibrated "auto"
 methods ("jacobi" runs the hand-written CUDA kernel K4, ops/jacobi.py);
-``solve_escalated``; and the batched multi-instance solver.
+``solve_escalated``; the batched multi-instance solver; and several
+devices: a rank mesh over torch.distributed (parallel/mesh.py, one
+process per rank; ``parallel.launch.run_ranks`` starts ranks on one host,
+torchrun on several), ``SDPSolver(mesh=)``, ``solve_escalated(mesh=)``
+and ``BatchedSDPSolver(mesh=)``.
 
 Front ends, as in the JAX package (each runs on ``device="cuda"`` unless
 the CPU is asked for):
@@ -32,6 +36,7 @@ Public API:
     solve            -- one-shot convenience wrapper
     solve_escalated  -- f32 solve with an f64 tail past the f32 floor
     BatchedSDPSolver -- lockstep solve of instances sharing (blk, A)
+    parallel.mesh.make_mesh -- this rank's Mesh (SDPSolver(mesh=...))
 """
 
 from cuadmm_tpu_torch.config import SolverConfig

@@ -69,9 +69,8 @@ class SolverConfig:
       solve and coverage past the packed HBM ceiling. "split" = exact
       direct solve when AA^T is block-diagonal under a permutation.
       "sharded" = distributed blocked Cholesky + triangular solves over
-      several devices for problems no single device can factor; not
-      ported yet (raises NotImplementedError naming ROADMAP's "Several
-      devices"). "cg" = device preconditioned conjugate
+      a rank mesh (``SDPSolver(mesh=)``, parallel/tri_shard.py) for
+      problems no single device can factor. "cg" = device preconditioned conjugate
       gradient (FSAI / block-Jacobi). "host" = scipy sparse
       factorization with a host callback per solve (reference-style; CPU
       backend only -- TPU PJRT here rejects callbacks). "auto" picks by

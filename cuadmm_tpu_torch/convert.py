@@ -2,7 +2,7 @@
 
 Each function takes one of ``cuadmm_tpu``'s objects (SolverState,
 SolveParams, SparseA/EllTable, the ``device_maps`` dict, a NormalEqSolver of any
-mode but host and sharded) whose array fields are numpy arrays or anything
+mode but host) whose array fields are numpy arrays or anything
 ``np.asarray`` reads, and returns the port's counterpart on ``device``.
 So one step of each package can start from identical state. Dtypes carry
 over as they are: an f32 state, the f32 and f64 copies of A's tables and
@@ -21,6 +21,8 @@ import torch
 from cuadmm_tpu_torch.ops.chol import NormalEqSolver, _tri_inv
 from cuadmm_tpu_torch.ops.precond_apply import pad_factor
 from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA
+from cuadmm_tpu_torch.parallel.mesh import Mesh
+from cuadmm_tpu_torch.parallel.tri_shard import shard_factor
 from cuadmm_tpu_torch.solver.state import SolveParams, SolverState
 
 
@@ -75,9 +77,15 @@ def maps_from_numpy(maps: Dict[str, Any], device) -> Dict[str, Any]:
     return out
 
 
-def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
-    """A precond, dense, split, packed, banded or cg NormalEqSolver. f32
-    factors stay f32 (the port's factor dtype), f64 ones f64.
+def normal_solver_from_numpy(neq, device, mesh: Mesh = None) -> NormalEqSolver:
+    """A precond, dense, split, packed, banded, sharded or cg
+    NormalEqSolver. f32 factors stay f32 (the port's factor dtype), f64 ones
+    f64. sharded needs the port's ``mesh``: the JAX package's factor grid
+    is one global (nb, nb, B, B) array, its block columns sharded over the
+    JAX mesh (``np.asarray`` gathers it), and each rank takes its column
+    slab (``tri_shard.shard_factor``). The port's mesh size need not be the
+    JAX mesh's: it must divide nb. The grid's dtype carries over (f64 from
+    a CPU build, f32 from an accelerator's).
 
     precond: the JAX package keeps the padded f32 inverse factor only on an
     accelerator; from a CPU build (f64 factor ``chol_l``) the port's inverse
@@ -122,13 +130,17 @@ def normal_solver_from_numpy(neq, device) -> NormalEqSolver:
             band_perm=_opt(neq.band_perm, device), band_inv_perm=_opt(neq.band_inv_perm, device),
             **common,
         )
+    if neq.mode == "sharded":
+        if mesh is None:
+            raise ValueError("a sharded solver carries over onto a rank mesh: pass mesh=")
+        return NormalEqSolver(shard_grid=shard_factor(neq.shard_grid, mesh), shard_mesh=mesh, **common)
     if neq.mode == "cg":
         return NormalEqSolver(
             inv_diag=_tensor(neq.inv_diag, device), bj_inv=_opt(neq.bj_inv, device),
             aat_tbl=table(neq.aat_tbl), fsai_g=table(neq.fsai_g), fsai_gt=table(neq.fsai_gt),
             cg_tol=float(neq.cg_tol), cg_max_iter=int(neq.cg_max_iter), **common,
         )
-    raise ValueError(f"a {neq.mode!r} solver does not carry over (precond, dense, split, packed, banded, cg do)")
+    raise ValueError(f"a {neq.mode!r} solver does not carry over (every mode but host does)")
 
 
 def state_from_numpy(state, device) -> SolverState:

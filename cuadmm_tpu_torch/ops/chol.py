@@ -1,9 +1,9 @@
 """Normal-equation solver for (A A^T) y = rhs.
 
-Port of cuadmm_tpu/ops/chol.py, every mode but ``sharded``. The factor
-modes factorize AA^T plus a relative diagonal regularization eps once at
-init (eps escalates x10 until the factor is good) and run ``applies``
-refinement sweeps per solve
+Port of cuadmm_tpu/ops/chol.py, every mode. The factor modes factorize
+AA^T plus a relative diagonal regularization eps once at init (eps
+escalates x10 until the factor is good) and run ``applies`` refinement
+sweeps per solve
 
     y <- y + P^{-1} (rhs - A (A^T y))
 
@@ -24,6 +24,10 @@ with the residual accumulated in f64 through the exact sparse A
   streaming sweep by K2.
 - ``banded``: the same over the block band of AA^T under a reverse
   Cuthill-McKee permutation, swept by K3.
+- ``sharded``: an f32 factor over a rank mesh, its block columns split
+  over the ranks, factored by the distributed blocked Cholesky and swept
+  by the distributed triangular solves of parallel/tri_shard.py (torch
+  matmuls and collectives, as the JAX package's are einsums and psums).
 
 The rhs of every ADMM solve lies in range(A), so each sweep contracts the
 residual by about eps even where AA^T is numerically singular.
@@ -56,15 +60,8 @@ from cuadmm_tpu_torch.ops import tri_stream
 from cuadmm_tpu_torch.ops.fsai import build_fsai, fsai_tables
 from cuadmm_tpu_torch.ops.precond_apply import fused_spd_apply, pad_factor
 from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA, _build_ell, _ell_matvec, aat_matvec
-
-_NOT_PORTED = {"sharded": "Several devices"}
-
-
-def _not_ported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"normal_solver={mode!r} is not ported yet (ROADMAP.md queue 1: "
-        f"{_NOT_PORTED[mode]!r}); the port has every other normal_solver"
-    )
+from cuadmm_tpu_torch.parallel import tri_shard
+from cuadmm_tpu_torch.parallel.mesh import Mesh
 
 
 # Calibration of the sweep count: the relative residual the f64 refinement
@@ -109,7 +106,7 @@ def past_ceiling_mode(con_num: int, bw: Optional[int], on_accel: bool, n_devices
     802-842). On an accelerator: the packed triangle if it streams at most
     15% more bytes than the band factor at RCM bandwidth ``bw``, else the
     band if it fits BAND_MAX_BYTES, else packed if con_num allows, else
-    sharded over several devices, else cg. Off an accelerator: cg."""
+    sharded over ``n_devices`` > 1 ranks, else cg. Off an accelerator: cg."""
     if not on_accel:
         return "cg"
     blay = tri_stream.make_band_layout(con_num, bw)
@@ -187,6 +184,10 @@ class NormalEqSolver:
     band_layout: Optional[tuple] = None
     band_perm: Optional[torch.Tensor] = None
     band_inv_perm: Optional[torch.Tensor] = None
+    # sharded: this rank's (nb, ncl, B, B) f32 column slab of the factor
+    # grid (parallel/tri_shard.py) and the mesh its solves run over.
+    shard_grid: Optional[torch.Tensor] = None
+    shard_mesh: Optional[Mesh] = None
     # split: the coupled rows' count p, the f64 inverse diagonal of the
     # con_num - p others, and the permutation [S, S^c] with its inverse;
     # None when S is already the prefix (QUASAR).
@@ -219,6 +220,9 @@ class NormalEqSolver:
             return self.packed_tiles.new_zeros(lead + (tri_stream.PackedLayout(*self.packed_layout).n_pad,))
         if self.band_tiles is not None:
             return self.band_tiles.new_zeros(lead + (tri_stream.BandLayout(*self.band_layout).n_pad,))
+        if self.shard_grid is not None:
+            nb, _, B, _ = self.shard_grid.shape
+            return self.shard_grid.new_zeros(lead + (nb * B,))
         return None
 
     def _apply_factor(self, r: torch.Tensor) -> torch.Tensor:
@@ -227,7 +231,9 @@ class NormalEqSolver:
 
         precond: M^T (M r) by K1. packed: the two streaming sweeps by K2.
         banded: r gathered into the band's order, K3, and gathered back;
-        the gathers are skipped when the permutation is the identity. A
+        the gathers are skipped when the permutation is the identity.
+        sharded: the distributed sweeps over the mesh, r padded to the
+        grid's n_pad as the buffer is (cuadmm_tpu/ops/chol.py:257-266). A
         buffer with an instance axis (B, n_pad) takes one launch per
         instance."""
         if r.dim() > 1:
@@ -237,6 +243,8 @@ class NormalEqSolver:
         if self.packed_tiles is not None:
             lay = tri_stream.PackedLayout(*self.packed_layout)
             return tri_stream.packed_solve(self.packed_tiles, r, lay)
+        if self.shard_grid is not None:
+            return tri_shard.sharded_tri_solve(self.shard_grid, r, self.shard_mesh)
         lay = tri_stream.BandLayout(*self.band_layout)
         if self.band_perm is None:
             return tri_stream.band_solve(self.band_tiles, r, lay)
@@ -506,10 +514,12 @@ def _block_jacobi_inv(aat: sp.csr_matrix, con_num: int, block: int, eps: float, 
     return torch.as_tensor(out, device=device).to(dtype)
 
 
-def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max):
+def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max,
+                  n_devices: int = 1):
     """``auto`` as the JAX package resolves it (cuadmm_tpu/ops/chol.py:
-    781-847). Returns (mode, AA^T on the host or None, RCM probe or None);
-    the last two are only computed past dense_chol_max on an accelerator."""
+    781-847), ``n_devices`` the mesh's size. Returns (mode, AA^T on the
+    host or None, RCM probe or None); the last two are only computed past
+    dense_chol_max on an accelerator."""
     cpu_max_factor_bytes = 2**31 - 1
     # Coupled rows: constraints sharing an svec column with another.
     col_mult = np.bincount(at_svec_idx, minlength=vec_len)
@@ -525,7 +535,7 @@ def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_acc
         if on_accel:
             aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
             band_probe = _rcm_bandwidth(aat)
-        mode = past_ceiling_mode(con_num, band_probe[0] if band_probe else None, on_accel)
+        mode = past_ceiling_mode(con_num, band_probe[0] if band_probe else None, on_accel, n_devices)
     if not on_accel:  # the JAX package's CPU factor-size guards
         if mode == "dense" and con_num * con_num * 8 > cpu_max_factor_bytes:
             mode = "precond"
@@ -610,6 +620,45 @@ def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi
     )
 
 
+def _sharded_solver(aat, con_num, sparse_a, mesh: Mesh, precond_eps, applies, device,
+                    timings) -> NormalEqSolver:
+    """sharded (cuadmm_tpu/ops/chol.py:1188-1256), with the JAX package's
+    block size (1024 from 64k rows, else a power of two near con_num / 4
+    ranks, at least 64), nb a multiple of the mesh size, the f32 factor's jitter
+    ladder from max(precond_eps, 1e-5) with the probe of the last diagonal
+    entry. Raises, before allocating, when a rank's slab does not fit its
+    device's memory (the JAX package picks the mode without a look,
+    chol.py:834-838)."""
+    D = mesh.size
+    blk = 1024 if con_num >= 64 * 1024 else max(64, 1 << max(0, (con_num // (4 * D)).bit_length() - 1))
+    blk = min(blk, 1024)
+    nb, _ = tri_shard.make_grid_layout(con_num, D, blk)
+    slab_bytes = nb * (nb // D) * blk * blk * 4
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        if slab_bytes > total:
+            raise ValueError(
+                f"normal_solver='sharded': a rank's factor slab is {slab_bytes / 1e9:.2f} GB "
+                f"(nb {nb} x {nb // D} columns x {blk}^2 x 4 bytes over {D} ranks), past its "
+                f"device's {total / 1e9:.2f} GB; use more ranks"
+            )
+    diag_mean = float(aat.diagonal().mean())
+    cur = max(precond_eps, 1e-5)
+    while True:
+        slab = tri_shard.sharded_scatter_aat(aat, con_num, nb, blk, mesh, eps=cur, diag_mean=diag_mean)
+        slab = tri_shard.sharded_cholesky(slab, mesh)
+        if tri_shard.last_diag_finite(slab, mesh):
+            break
+        del slab
+        cur *= 10.0
+        if cur > 1e-1:
+            raise RuntimeError("sharded AA^T Cholesky failed even with jitter 1e-1")
+    if timings is not None:
+        timings["sharded_layout"] = f"nb={nb} B={blk} ranks={D} bytes_per_rank={slab_bytes}"
+    return NormalEqSolver(mode="sharded", sparse_a=sparse_a, shard_grid=slab, shard_mesh=mesh,
+                          applies=applies, eps_used=cur)
+
+
 def build_normal_solver(
     at_svec_idx: np.ndarray,
     at_con_idx: np.ndarray,
@@ -632,11 +681,13 @@ def build_normal_solver(
     fsai_cap: int = 64,
     fsai_pattern_power: int = 2,
     calibrate_target: Optional[float] = None,
+    mesh: Optional[Mesh] = None,
 ) -> NormalEqSolver:
     """Prepare the solve once at init and return a device-resident solver.
 
     ``mode="auto"`` resolves as the JAX package does on the device's kind
-    (``_resolve_auto``); ``sharded`` raises ``NotImplementedError``.
+    (``_resolve_auto``, with the size of ``mesh``); ``sharded`` needs the
+    ``mesh``, and every rank of it builds its share of the factor.
     ``sparse_a`` is the f64 A of the refinement. ``eps`` (SolverConfig's
     aat_eps) regularizes the f64 factors, FSAI, block-Jacobi and host's LU;
     ``cg_tol`` <= 0 takes the default of the state dtype ``dtype`` (2e-7 in
@@ -653,17 +704,18 @@ def build_normal_solver(
     aat = band_probe = None
     if mode == "auto":
         mode, aat, band_probe = _resolve_auto(
-            at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max
+            at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max,
+            1 if mesh is None else mesh.size,
         )
-    if mode in _NOT_PORTED:
-        raise _not_ported(mode)
-    if mode not in ("precond", "dense", "split", "packed", "banded", "cg", "host"):
+    if mode not in ("precond", "dense", "split", "packed", "banded", "sharded", "cg", "host"):
         raise ValueError(f"unknown normal_solver {mode!r}")
     if mode == "precond" and con_num > dense_chol_max:
         raise ValueError(
             f"normal_solver='precond' needs con_num <= dense_chol_max={dense_chol_max}, "
             f"got {con_num}"
         )
+    if mode == "sharded" and mesh is None:
+        raise ValueError("normal_solver='sharded' requires a device mesh (SDPSolver(mesh=...))")
     if cg_tol is None or cg_tol <= 0.0:
         cg_tol = 2e-7 if dtype == torch.float32 else 64.0 * torch.finfo(torch.float64).eps
 
@@ -676,7 +728,7 @@ def build_normal_solver(
             timings[name] = round(now - t[0], 3)
         t[0] = now
 
-    if mode in ("cg", "host") and aat is None:
+    if mode in ("cg", "host", "sharded") and aat is None:
         aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
     if mode == "cg":
         return _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi,
@@ -714,6 +766,9 @@ def build_normal_solver(
         neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
                             dense_chol_max, precond_eps, applies_0, device)
         mark("split_factorize")
+    elif mode == "sharded":
+        neq = _sharded_solver(aat, con_num, sparse_a, mesh, precond_eps, applies_0, device, timings)
+        mark("sharded_factorize")
     else:
         if aat is None:
             aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)

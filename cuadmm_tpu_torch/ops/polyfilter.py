@@ -9,6 +9,13 @@ of magnitude >= 1e-6 of the scale in f64). The JAX package computes these
 outside any Pallas kernel, so they are ``torch.matmul`` here; TF32 is off
 on CUDA (``device.resolve_device``), the counterpart of
 ``Precision.HIGHEST``.
+
+Over a rank mesh (``mesh=``) each product is split by rows, as XLA
+partitions the JAX filter's GEMMs when parallel/mesh.py shards a block's
+row axis: a rank computes its rows of X @ Y and one masked all_reduce
+rebuilds X @ Y on every rank for the next product. A step's three products
+take three all_reduces (two where c = 0), and the final product one more:
+40 a projection with the f64 schedule, 28 with the f32 one.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from cuadmm_tpu_torch.parallel.mesh import Mesh, shard_bounds
 
 # Schedules: tuples of (a, b, c) with p(y) = a y + b y^3 + c y^5.
 # Spectrum is assumed scaled into [-1, 1] (see psd_project_poly).
@@ -59,26 +68,38 @@ def _sym(y: torch.Tensor) -> torch.Tensor:
     return 0.5 * (y + y.transpose(-1, -2))
 
 
+def _product(x: torch.Tensor, y: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """x @ y; over a mesh, this rank's rows of it and one masked all_reduce."""
+    if mesh is None or mesh.size <= 1:
+        return x @ y
+    lo, hi = shard_bounds(x.shape[-2], mesh)
+    out = x.new_zeros(x.shape[:-1] + y.shape[-1:])
+    out[..., lo:hi, :] = x[..., lo:hi, :] @ y
+    return mesh.all_reduce(out)
+
+
 def matrix_sign(
     mats: torch.Tensor,
     schedule: Optional[Sequence[Tuple[float, float, float]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Approximate sign(X) for symmetric X with spectrum in [-1, 1].
 
     Each step evaluates p(Y) = Y (a I + b A + c A^2), A = Y^2: three batched
-    matmuls. Symmetry is restored after every step.
+    matmuls, split by rows over ``mesh``. Symmetry is restored after every
+    step.
     """
     if schedule is None:
         schedule = default_schedule(mats.dtype)
     eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device)
     y = mats
     for a, b, c in schedule:
-        a2 = y @ y
+        a2 = _product(y, y, mesh)
         if c == 0.0:
             poly = a * eye + b * a2
         else:
-            poly = a * eye + b * a2 + c * (a2 @ a2)
-        y = _sym(y @ poly)
+            poly = a * eye + b * a2 + c * _product(a2, a2, mesh)
+        y = _sym(_product(y, poly, mesh))
     return y
 
 
@@ -94,14 +115,17 @@ def spectral_scale(mats: torch.Tensor) -> torch.Tensor:
 def psd_project_poly(
     mats: torch.Tensor,
     schedule: Optional[Sequence[Tuple[float, float, float]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Project a batch of symmetric matrices onto the PSD cone, matmul-only.
 
     Exact blockwise for block-diagonal inputs, so it composes with packed
     super-matrices; zero padding stays zero (every filter polynomial is
-    odd). A non-finite matrix comes out non-finite.
+    odd). A non-finite matrix comes out non-finite. With ``mesh`` every rank
+    passes the whole batch and gets the whole projection; the products are
+    split by rows over the ranks.
     """
     s = spectral_scale(mats)[..., None, None]
     y0 = mats / s
-    z = matrix_sign(y0, schedule)
-    return 0.5 * s * _sym(y0 + z @ y0)
+    z = matrix_sign(y0, schedule, mesh)
+    return 0.5 * s * _sym(y0 + _product(z, y0, mesh))

@@ -12,10 +12,19 @@ methods, per bucket when ``method`` is a dict:
 - "poly": the matmul-only polynomial filter of ops/polyfilter.py.
 
 1x1 buckets are clamped.
+
+Over a rank mesh (``mesh=``, parallel/mesh.py) a bucket with at least one
+block per rank is split along its batch axis: each rank projects its
+contiguous share with the bucket's method and one masked all_reduce
+rebuilds the bucket on every rank. Under "poly" a bucket with fewer blocks
+than ranks (QUASAR's single 2004 block) is split by rows inside the
+filter. Every other bucket, the 1x1 buckets and the free entries are
+projected whole on every rank.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Union
 
 import torch
@@ -23,6 +32,7 @@ import torch
 from cuadmm_tpu_torch.ops.dispatch import bucket_method
 from cuadmm_tpu_torch.ops.jacobi import jacobi_eigh
 from cuadmm_tpu_torch.ops.polyfilter import psd_project_poly
+from cuadmm_tpu_torch.parallel.mesh import Mesh, shard_axis, shard_blocks
 
 
 def reconstruct_clamped(
@@ -51,6 +61,7 @@ def psd_project_pool(
     maps: Dict[str, Any],
     eig_rank: Optional[int] = None,
     method: Union[str, Dict[int, str]] = "eigh",
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Project a pool-coordinate vector (..., pool_len) onto the product
     cone, each leading index (an instance of a batch) on its own.
@@ -61,8 +72,12 @@ def psd_project_pool(
     never leaks into padded positions. Free entries pass through unchanged.
     ``method`` is one method for every bucket, or a dict from bucket index
     to method (the calibrated dispatch of ops/dispatch.py, ``bucket_method``).
+    ``mesh`` splits the buckets over its ranks (module docstring); every
+    rank passes the same ``P`` (one instance) and gets the whole result.
     """
     lead = P.shape[:-1]
+    if mesh is not None and mesh.size > 1 and lead:
+        raise ValueError("psd_project_pool: a mesh splits one instance's buckets; P must be 1-D")
     parts = []
     for i, bm in enumerate(maps["buckets"]):
         count, n, base = bm["count"], bm["n"], bm["base"]
@@ -72,13 +87,20 @@ def psd_project_pool(
             continue
         meth = bucket_method(method, i)
         bt = seg.reshape(-1, n, n)
+        mask = bm["pad_mask"].reshape(count, n, n)
+        gid = bm["diag_group"]  # (count, n), padding -> n_groups
+        # Over a mesh: this rank's share of the blocks and the gather that
+        # rebuilds the bucket (the bucket itself and the identity when it is
+        # not split by blocks; "poly" splits a single big block's rows itself).
+        row_mesh = mesh if shard_axis(bt.shape, mesh, inner_if_few=meth == "poly") == 1 else None
+        bt, share, gather = shard_blocks(bt, mesh)
+        mask, gid = mask[share], gid[share]
         packed = bm["packed"]
         if packed:
             # Norm-equalize each real block of a packed super-matrix
             # (projection is positively homogeneous), so small-norm packmates
             # keep relative accuracy.
-            gid = bm["diag_group"]  # (count, n), padding -> n_groups
-            n_inst = bt.shape[0] // count
+            n_inst = math.prod(lead)
             if n_inst > 1:  # each instance's groups take their own slots
                 step = bm["n_groups"] + 1
                 gid = (gid + step * torch.arange(n_inst, device=gid.device)[:, None, None]).reshape(-1, n)
@@ -89,7 +111,7 @@ def psd_project_pool(
             s_blk = torch.where(ok, 1.0 / torch.where(ok, norms, 1.0), 1.0)
             bt = bt * s_blk[gid][:, :, None]
         if meth == "poly":
-            proj = psd_project_poly(bt)
+            proj = psd_project_poly(bt, mesh=row_mesh)
         elif meth == "jacobi":
             proj = reconstruct_clamped(*jacobi_eigh(bt), eig_rank)
         elif meth == "eigh":
@@ -98,7 +120,8 @@ def psd_project_pool(
             raise ValueError(f"unknown projection method {meth!r} for bucket {i}")
         if packed:
             proj = proj * torch.where(ok, norms, 1.0)[gid][:, :, None]
-        parts.append((proj.reshape(lead + (count, n, n)) * bm["pad_mask"]).reshape(lead + (-1,)))
+        proj = gather(proj * mask) if not lead else proj.reshape(lead + (count, n, n)) * mask
+        parts.append(proj.reshape(lead + (-1,)))
     if maps["free_pos"].shape[0]:
         fb = maps["free_base"]
         parts.append(P[..., fb : fb + maps["free_pos"].shape[0]])

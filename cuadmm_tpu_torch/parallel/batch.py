@@ -15,6 +15,15 @@ convergence iteration and ``SDPResult``.
 
 As in the JAX package the step projects with "eigh" and has no divergence
 recovery and no rp_hp; ``config.dtype`` sets the state dtype.
+
+Over a rank mesh (``mesh=``, parallel/mesh.py) the instance axis is split
+(cuadmm_tpu/parallel/batch.py:138-175): rank r solves its contiguous share
+of the instances (``shard_bounds``) in lockstep with the others, its own
+copy of the normal solver's factor serving them (K1 once per local
+instance and sweep). The iteration itself needs no collective. After
+each chunk one masked all_reduce gives every rank every instance's info
+rows, so all ranks take the same stopping decision, and at the end one
+more gives every rank every instance's result.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.ops.svec import pool_from_svec, svec_from_pool
+from cuadmm_tpu_torch.parallel.mesh import Mesh, mesh_device, shard_bounds
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
 from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver
@@ -47,18 +57,16 @@ def _same_pattern(p0: Problem, p: Problem) -> bool:
 
 
 class BatchedSDPSolver:
-    """Lockstep batch solver over instances sharing (blk, A), on one device.
-
-    ``mesh`` (the JAX package's instance axis over several devices) raises
-    ``NotImplementedError``.
+    """Lockstep batch solver over instances sharing (blk, A), on one device
+    or with the instances split over a rank mesh (``mesh``; the device is
+    the mesh's, and every rank of it constructs the solver with the same
+    problems). Each rank must get at least one instance.
     """
 
-    def __init__(self, problems: List[Problem], config: SolverConfig = SolverConfig(), mesh=None,
-                 device="cuda"):
+    def __init__(self, problems: List[Problem], config: SolverConfig = SolverConfig(),
+                 mesh: Optional[Mesh] = None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "BatchedSDPSolver(mesh=) is not ported yet (ROADMAP.md queue 1: 'Several devices')"
-            )
+            device = mesh_device(mesh, device)
         if not problems:
             raise ValueError("empty problem batch")
         base = problems[0]
@@ -67,6 +75,12 @@ class BatchedSDPSolver:
                 raise ValueError("batched solve requires identical blk and At across instances")
         self.problems = problems
         self.config = config
+        self.mesh = mesh
+        # This rank's instances [lo, hi).
+        self._lo, self._hi = (0, len(problems)) if mesh is None else shard_bounds(len(problems), mesh)
+        if self._hi <= self._lo:
+            raise ValueError(f"{len(problems)} instances leave rank {mesh.rank} of {mesh.size} none")
+        # The factor is built on every rank, for its own instances.
         self._base = SDPSolver(base, config, device=device)
         self.dtype = self._base.dtype
         self.device = self._base.device
@@ -74,7 +88,7 @@ class BatchedSDPSolver:
         # Per-instance scaling; normA depends only on A, so it is shared.
         normA = self._base.scaling.normA
         self._scalings, b_list, C_list, self._init_list = [], [], [], []
-        for p in problems:
+        for p in problems[self._lo:self._hi]:
             sc, b_s, C_s, X_s, y_s, S_s = scaling_mod.scale_problem(
                 normA, p.dense_b(), p.dense_C(), p.X0, p.y0, p.S0
             )
@@ -111,6 +125,19 @@ class BatchedSDPSolver:
             f.name: torch.stack([getattr(s, f.name) for s in states]) for f in dataclasses.fields(SolverState)
         })
 
+    def _gather(self, local: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every instance's entries of ``local``, which holds this rank's
+        instances along ``dim``, on every rank: one masked all_reduce over a
+        mesh (an exact sum of one rank's part and zeros), ``local`` itself
+        without one."""
+        if self.mesh is None:
+            return local
+        shape = list(local.shape)
+        shape[dim] = len(self.problems)
+        full = local.new_zeros(shape)
+        full.narrow(dim, self._lo, self._hi - self._lo).copy_(local)
+        return self.mesh.all_reduce(full)
+
     def solve(self, max_iter: Optional[int] = None, stop_tol: Optional[float] = None,
               sig: Optional[float] = None) -> List[SDPResult]:
         """Run every instance from its own starting point; one SDPResult per
@@ -138,7 +165,7 @@ class BatchedSDPSolver:
         while it_done < max_iter:
             chunk = min(cfg.check_every, max_iter - it_done)
             state, info = run_chunk(step, state, self.params, it_done, chunk)
-            info_np = info.cpu().numpy().astype(np.float64)  # (chunk, B, 8)
+            info_np = self._gather(info, 1).cpu().numpy().astype(np.float64)  # (chunk, B, 8)
             kkt = np.maximum(np.maximum(info_np[:, :, 2], info_np[:, :, 3]), info_np[:, :, 4])
             for b in range(B):
                 if conv_iter[b] < 0:
@@ -152,18 +179,24 @@ class BatchedSDPSolver:
         total_time = time.perf_counter() - t0
 
         info_mat = np.concatenate(info_rows, axis=0) if info_rows else np.empty((0, B, len(INFO_FIELDS)))
+        # This rank's instances unscaled, one row each: X, y, S and the
+        # scalars; then every instance's rows on every rank.
         maps = self.params.maps
         host = lambda t: t.cpu().numpy()
-        X_all = [host(svec_from_pool(x, maps)) for x in state.X]
-        S_all = [host(svec_from_pool(s, maps)) for s in state.S]
-        y_all = host(state.y)
-        scalars = {k: host(getattr(state, k)).astype(np.float64)
-                   for k in ("pobj", "dobj", "errRp", "errRd", "relgap", "sig")}
+        names = ("pobj", "dobj", "errRp", "errRd", "relgap", "sig")
+        rows = []
+        for b, sc in enumerate(self._scalings):
+            X, y, S = scaling_mod.unscale_solution(
+                sc, host(svec_from_pool(state.X[b], maps)), host(state.y[b]), host(svec_from_pool(state.S[b], maps)))
+            rows.append(np.concatenate([X, y, S, [float(getattr(state, k)[b]) for k in names]]).astype(X.dtype))
+        every = host(self._gather(torch.as_tensor(np.stack(rows), device=self.device), 0))
+        vec_len, con_num = self._base.problem.vec_len, self._base.problem.con_num
+        scalars = {k: every[:, 2 * vec_len + con_num + i].astype(np.float64) for i, k in enumerate(names)}
         results = []
         for b in range(B):
             converged = bool(conv_iter[b] >= 0)
             iters = int(conv_iter[b]) if converged else it_done
-            X, y, S = scaling_mod.unscale_solution(self._scalings[b], X_all[b], y_all[b], S_all[b])
+            X, y, S = np.split(every[b, :2 * vec_len + con_num], [vec_len, vec_len + con_num])
             info_b = info_mat[:iters, b, :]
             info = {name: info_b[:, i] for i, name in enumerate(INFO_FIELDS)}
             info["iter_num"] = np.asarray(iters)

@@ -1,7 +1,7 @@
 """SDPSolver: the user-facing solve driver, and solve_escalated.
 
-Port of cuadmm_tpu/solver/driver.py for float64 and float32 state and every
-normal solver but ``sharded``. The iteration runs in chunks of
+Port of cuadmm_tpu/solver/driver.py for float64 and float32 state, every
+normal solver, and one device or a rank mesh. The iteration runs in chunks of
 ``config.check_every`` steps between host-side convergence checks; a chunk
 queues its work on the device and its info rows come back in one copy at
 the chunk's end.
@@ -13,6 +13,12 @@ boundary, the precision-stall detector (``precision_stall``) whose first
 stall switches the step to f64 primal residuals (``rp_hp``) and whose
 second ends the solve, and ``solve_escalated``, an f32 solve with an f64
 tail.
+
+Over a rank mesh (``mesh=``, parallel/mesh.py) every rank of the mesh
+constructs the same SDPSolver and calls the same methods: the projection's
+buckets and the ``sharded`` normal solver's factor are split over the
+ranks, the rest runs whole on each, and the info rows, decisions and
+results are the same on every rank. Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from cuadmm_tpu_torch.ops import sparse as sparse_ops
 from cuadmm_tpu_torch.ops.dispatch import choose_methods
 from cuadmm_tpu_torch.ops.sparse import spmv_a
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
+from cuadmm_tpu_torch.parallel.mesh import Mesh, mesh_device
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
 from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
@@ -94,18 +101,26 @@ def precision_stall(trail: List[float], chunk_kkt: np.ndarray, last_row: np.ndar
 
 
 class SDPSolver:
-    """sGS-ADMM solver for one problem on one device.
+    """sGS-ADMM solver for one problem on one device or a rank mesh.
 
     ``device`` defaults to "cuda" and is never replaced: a CUDA device that
     is absent raises (``device.resolve_device``, which also turns TF32 off).
-    ``config.dtype`` is the state's dtype, "float64" or "float32".
+    With a ``mesh`` (parallel/mesh.py::make_mesh) the device is the mesh's,
+    and a ``device`` that names another raises. ``config.dtype`` is the
+    state's dtype, "float64" or "float32".
     """
 
-    def __init__(self, problem: Problem, config: SolverConfig = SolverConfig(), device="cuda"):
+    def __init__(self, problem: Problem, config: SolverConfig = SolverConfig(), device=None,
+                 mesh: Optional[Mesh] = None):
         self.problem = problem
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh_device(mesh, device)
+        self.device = resolve_device("cuda" if device is None else device)
         self.dtype = getattr(torch, config.dtype)
+        # Over a mesh only rank 0 prints; every rank computes the same rows.
+        self._verbose = config.verbose and (mesh is None or mesh.rank == 0)
         self._init()
 
     def _tensor(self, x) -> torch.Tensor:
@@ -140,7 +155,7 @@ class SDPSolver:
                 [(bk.n, bk.count) for bk in self.structure.buckets], self.device.type, cfg.dtype
             )
             self._projection = "eigh" if per_bucket is None else per_bucket
-            if per_bucket is None and cfg.verbose:
+            if per_bucket is None and self._verbose:
                 print(
                     f"projection='auto': no calibration table for {self.device.type}/{cfg.dtype} "
                     "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
@@ -205,7 +220,7 @@ class SDPSolver:
             self._rp_hp = (sa_hp, as64(b_s), as64(normA))
         mark("params")
         self.init_time = time.perf_counter() - t0
-        if cfg.verbose:
+        if self._verbose:
             print(f"init {self.init_time:.1f}s: {self.init_breakdown}")
 
     def _normal_solver(self, mode: str, cg_max_iter: int, timings=None):
@@ -235,6 +250,7 @@ class SDPSolver:
             fsai_cap=cfg.fsai_cap,
             fsai_pattern_power=cfg.fsai_pattern_power,
             calibrate_target=target,
+            mesh=self.mesh,
         )
 
     def _true_errRp(self, X_pool: torch.Tensor) -> float:
@@ -376,13 +392,14 @@ class SDPSolver:
                 eig_rank=cfg.eig_rank,
                 projection=projection,
                 rp_hp=self._rp_hp if rp_hp else None,
+                mesh=self.mesh,
             )
 
         projection = self._projection
         rp_hp_on = False  # f64 primal residuals, engaged by a precision stall
         step = mk_step(projection, rp_hp_on)
 
-        log = IterLogger(enabled=cfg.verbose)
+        log = IterLogger(enabled=self._verbose)
         log.header(self.scaling.norm_Corg, self.scaling.norm_borg)
         log.row(0, state)
 
@@ -418,7 +435,8 @@ class SDPSolver:
                     state, info = run_chunk(step, state, self.params, it_host, chunk)
                     synchronize(self.device)
                 os.makedirs(cfg.profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(cfg.profile_dir, "chunk1.trace.json"))
+                rank = "" if self.mesh is None else f".rank{self.mesh.rank}"
+                prof.export_chrome_trace(os.path.join(cfg.profile_dir, f"chunk1{rank}.trace.json"))
                 profiled = True
             else:
                 state, info = run_chunk(step, state, self.params, it_host, chunk)
@@ -435,7 +453,7 @@ class SDPSolver:
                 it_done += keep
                 if cfg.divergence_recovery and recoveries < 2:
                     recoveries += 1
-                    if cfg.verbose:
+                    if self._verbose:
                         print(
                             f"  [recovery {recoveries}] non-finite residuals at "
                             f"iteration {it_done}; restarting from best iterate "
@@ -480,7 +498,7 @@ class SDPSolver:
                     rp_hp_on = True
                     step = mk_step(projection, rp_hp_on)
                     kkt_trail.clear()
-                    if cfg.verbose:
+                    if self._verbose:
                         print("  [precision] errRp floor stall: switching to f64 primal residuals")
             info_rows.append(info_np)
             log.maybe_row(it_done, info_np[-1], time.perf_counter() - t0)
@@ -555,9 +573,10 @@ class SDPSolver:
         return result
 
 
-def solve(problem: Problem, config: SolverConfig = SolverConfig(), device="cuda", **kw) -> SDPResult:
+def solve(problem: Problem, config: SolverConfig = SolverConfig(), device=None, mesh: Optional[Mesh] = None,
+          **kw) -> SDPResult:
     """One-shot convenience wrapper."""
-    return SDPSolver(problem, config, device=device).solve(**kw)
+    return SDPSolver(problem, config, device=device, mesh=mesh).solve(**kw)
 
 
 def solve_escalated(
@@ -565,7 +584,8 @@ def solve_escalated(
     config: SolverConfig = SolverConfig(),
     max_iter: Optional[int] = None,
     stop_tol: Optional[float] = None,
-    device="cuda",
+    device=None,
+    mesh: Optional[Mesh] = None,
 ) -> SDPResult:
     """An f32 solve, then an f64 tail when the f32 precision floor blocks
     convergence (cuadmm_tpu/solver/driver.py:752-815).
@@ -581,18 +601,21 @@ def solve_escalated(
     runs it to ``stop_tol``, which an f32 state that neither diverges nor
     reaches feasibility never meets: it spends all of ``max_iter`` and
     leaves the f64 tail one iteration. That defect is not copied.
+
+    ``mesh`` runs both phases over the rank mesh (cuadmm_tpu/solver/
+    driver.py:757, 782, 801).
     """
     cfg32 = config.replace(dtype="float32")
     max_iter = cfg32.max_iter if max_iter is None else int(max_iter)
     stop_tol = cfg32.stop_tol if stop_tol is None else float(stop_tol)
     tol32 = max(stop_tol, F32_CERT_TOL)
-    res = SDPSolver(problem, cfg32, device=device).solve(max_iter=max_iter, stop_tol=tol32)
+    res = SDPSolver(problem, cfg32, device=device, mesh=mesh).solve(max_iter=max_iter, stop_tol=tol32)
     floor_hit = bool(np.isfinite(res.relgap)) and (
         max(res.errRp, res.errRd) < stop_tol or stop_tol <= F32_CERT_TOL
     )
     if (res.converged and tol32 == stop_tol) or not (floor_hit or res.diverged):
         return res
-    s64 = SDPSolver(problem, config.replace(dtype="float64"), device=device)
+    s64 = SDPSolver(problem, config.replace(dtype="float64"), device=device, mesh=mesh)
     warm = {} if res.diverged else dict(X0=res.X, y0=res.y, S0=res.S, sig=res.sig)
     res64 = s64.solve(max_iter=max(max_iter - res.iterations, 1), stop_tol=stop_tol, **warm)
     return dataclasses.replace(

@@ -18,6 +18,11 @@ fields (B, length), scalars (B,), the parameters b and C per instance and
 the scalings (B,). Reductions run over the last axis and per-instance
 scalars broadcast through ``_col``; with no instance axis every op is the
 one-instance op.
+
+Over a rank mesh (``mesh``) the projection splits its buckets over the
+ranks (ops/projection.py); everything else runs whole on every rank, on
+identical inputs, so the ranks' states stay bitwise equal
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from cuadmm_tpu_torch.ops.projection import psd_project_pool
 from cuadmm_tpu_torch.ops.sparse import SparseA, spmv_a, spmv_at
+from cuadmm_tpu_torch.parallel.mesh import Mesh
 from cuadmm_tpu_torch.solver.state import SolveParams, SolverState
 
 TAU_SGS = 1.95  # reference: src/solver.cu:748
@@ -78,6 +84,7 @@ def make_step(
     eig_rank: Optional[int] = None,
     projection: Union[str, Dict[int, str]] = "eigh",
     rp_hp: Optional[Tuple[SparseA, torch.Tensor, torch.Tensor]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Build ``step(state, params, it_host) -> (state, info_row)``.
 
@@ -89,6 +96,11 @@ def make_step(
     rounded to the state dtype (cuadmm_tpu/solver/step.py:60-85, 148-163):
     in f32 state the measured errRp floors near 1e-7 ||A|| ||X|| and biases
     the sigma vote, so the driver switches it on after a precision stall.
+
+    ``mesh``: the rank mesh the projection's buckets are split over (None:
+    one device). The pool vectors stay whole on every rank, where the JAX
+    step places them on the mesh (cuadmm_tpu/solver/step.py:109-110, 145;
+    parallel/mesh.py says why).
 
     ``it_host`` is the host's count of the iterations ``state`` has
     completed. It picks the sGS or ADMM branch on the host, where the JAX
@@ -110,7 +122,7 @@ def make_step(
         # -- Step 2: PSD projection --------------------------------------
         Rd1 = spmv_at(sa, y_half) - params.C
         Xb = state.X + sig_c * Rd1
-        Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection)
+        Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection, mesh=mesh)
         S = (Xproj - state.X) / sig_c - Rd1
         SmC = S - params.C
 

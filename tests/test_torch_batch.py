@@ -110,7 +110,9 @@ def test_batch_rejects_mismatched_pattern_and_mesh():
     cfg = cuadmm_tpu_torch.SolverConfig(verbose=False)
     with pytest.raises(ValueError):
         BatchedSDPSolver([p1, p2], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Several devices"):
+    # mesh= takes a rank mesh (parallel/mesh.py::make_mesh); tests/
+    # test_torch_parallel.py runs the batch over 2 and 4 ranks.
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedSDPSolver([p1, p1], cfg, mesh=object(), device="cpu")
 
 

@@ -210,10 +210,12 @@ def test_convert_keeps_only_the_lower_triangle(mode, build, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["sharded"])
 def test_unported_modes_raise(mode):
+    """Every mode is ported; ``sharded`` needs a mesh, and without one
+    raises as the JAX package's does (cuadmm_tpu/ops/chol.py:1189)."""
     r, c, v, _ = _semidefinite_at()
     st = BlockStructure([("u", 10)], "pow2", 64, 0)
     sa = tsparse.build_sparse_a_pool(r, c, v, 4, st, torch.float64, CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a device mesh"):
         tchol.build_normal_solver(r, c, v, 4, 10, sa, mode, torch.float64, CPU)
 
 

@@ -95,10 +95,12 @@ def test_admm_from_start_and_warm_restart():
 
 
 def test_unported_configurations_raise():
-    """Only ``sharded`` (queue item "Several devices") is left to raise;
-    float32 state builds (tests/test_torch_f32.py runs it)."""
+    """Nothing is left unported: ``sharded`` without a mesh raises as the
+    JAX package's does (cuadmm_tpu/ops/chol.py:1189; tests/
+    test_torch_parallel.py runs it over ranks); float32 state builds
+    (tests/test_torch_f32.py runs it)."""
     prob = _certified()
-    with pytest.raises(NotImplementedError, match="Several devices"):
+    with pytest.raises(ValueError, match="requires a device mesh"):
         cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(normal_solver="sharded"), device="cpu")
     s32 = cuadmm_tpu_torch.SDPSolver(prob, cuadmm_tpu_torch.SolverConfig(dtype="float32"), device="cpu")
     assert s32.params.C.dtype == torch.float32
@@ -204,9 +206,9 @@ def test_probation_window_after_recovery(monkeypatch):
     methods = []
     project = step_mod.psd_project_pool
 
-    def recording(P, maps, eig_rank=None, method="eigh"):
+    def recording(P, maps, eig_rank=None, method="eigh", **kw):
         methods.append(method)
-        return project(P, maps, eig_rank=eig_rank, method=method)
+        return project(P, maps, eig_rank=eig_rank, method=method, **kw)
 
     monkeypatch.setattr(step_mod, "psd_project_pool", recording)
     res = s.solve(max_iter=1 + 7 * check_every, stop_tol=0.0)
