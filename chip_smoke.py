@@ -118,6 +118,18 @@ Phases, in order; any failure raises and exits non-zero:
    within 1e-9 (relative) of its own SDPSolver(projection="eigh") run of
    100 iterations; instance-iterations per second beside the single runs'
    it/s;
+16b. graphs: every path of the phases above through the chunk runner's
+   CUDA graphs and through the eager loop (``run_chunk``) in this process,
+   100 iterations each from one state, in the order eager, graph, graph,
+   eager: the stand-in f64 ADMM and sGS (K1, K4), the stand-in f32 with
+   rp_hp, the grid with "jacobi" (K1, K4) and "auto" (an eigh segment),
+   the large grid banded with "jacobi" (K3, K4) and "auto", packed (K2),
+   QUASAR-500 split "poly" (K1) and the 8 batched stand-ins (eigh); all
+   end states and info rows bitwise equal (else within 1e-12 relative),
+   it/s of each run, device ms, busy share, device ops and kernel
+   launches per iteration (a graph run's counters held to the profiler's
+   kernel counts), host syncs per iteration (0 without an eigh bucket; the
+   eigh's own with one), capture seconds and peak memory;
 17. front ends, with files under build/frontends (removed at the end): the
    stand-in and the grid written as a TXT directory, SDPA (plain and .gz),
    SeDuMi, MOSEK and cuADMM .mat by this script's writers (the exact
@@ -161,6 +173,13 @@ Phases, in order; any failure raises and exits non-zero:
    1e-9 of one rank) and the 8 batched stand-ins (4 a rank, K1 4 times a
    sweep on each, every instance within 1e-9 of its single run from
    phase 16); every rank's X, y, S and info rows bitwise equal.
+
+Every solve above runs its chunks through the chunk runner
+(cuadmm_tpu_torch/solver/step.py): CUDA graphs, checked per run by
+``solver.chunk_runner``, except cg, host and the mesh, which run eagerly.
+The launch counts the gates read are replay-aware, and every profiled
+window of a graphed run holds them to the profiler's count of each
+kernel (an eager window's counts print beside the profiler's).
 
 The next-to-last line is the kernel table as JSON (each kernel's bound_ms
 is the least time for its work on the card: bytes at 3.35 TB/s or flops at
@@ -206,6 +225,7 @@ from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
 from cuadmm_tpu_torch.ops import chol, jacobi, precond_apply, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
+from cuadmm_tpu_torch.ops.launches import LAUNCHES, reset as reset_launches
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.parallel import rank_jobs
@@ -213,6 +233,8 @@ from cuadmm_tpu_torch.parallel.dryrun import dryrun_multichip
 from cuadmm_tpu_torch.parallel.launch import run_ranks
 from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
 from cuadmm_tpu_torch.problem import Problem
+from cuadmm_tpu_torch.solver import step as step_mod
+from cuadmm_tpu_torch.solver.step import make_chunk_runner, run_chunk
 from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 # 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
@@ -536,6 +558,48 @@ KERNEL_OPS = {  # device-op names of each hand-written kernel
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
+# The device op one launch of each wrapper makes exactly once (K2/K3: twice,
+# one sweep kernel per sweep), which the profiler counts.
+KERNEL_EVENT = {"k1": "fused_spd_apply_kernel", "k4": "jacobi_eigh_kernel", "k2k3": "tri_sweep_kernel"}
+
+
+def _profiler_launches(dev_events) -> dict:
+    return {k: sum(e.count for e in dev_events if name in e.key) for k, name in KERNEL_EVENT.items()}
+
+
+# The profiler drops a kernel event now and then (1-2 of 1,600 K1 launches
+# in the eager batched window on an H100): a graphed window that disagrees
+# with the counters is traced again over half the iterations, up to
+# PROFILE_TRIES times.
+PROFILE_TRIES = 3
+
+
+def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
+    """Run ``fn(iters)`` under torch.profiler: (device events, wall us, the
+    wrappers' launches, the profiler's kernel counts, iterations traced).
+    In a ``graphed`` window the replay-aware counters (a replay adds what
+    its capture counted) must equal the profiler's counts of each kernel in
+    one of PROFILE_TRIES traces (``iters``, then half as many each time).
+    An eager window's counters are the wrappers' own counts, one per call
+    that launched; its one trace is returned as it is, the profiler's
+    counts beside them."""
+    act = torch.profiler.ProfilerActivity
+    for _ in range(PROFILE_TRIES if graphed else 1):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(iters)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        counted = {k: v - before[k] for k, v in LAUNCHES.items()}
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _profiler_launches(dev)
+        want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]))
+        if events == want or not graphed:
+            return dev, wall_us, counted, events, iters
+        iters = max(iters // 2, 1)
+    check(False, f"{what}: launch counters {want} against the profiler's {events} in {PROFILE_TRIES} traces")
 
 
 def profile_window(solver, timed_ms_per_it: float) -> dict:
@@ -544,25 +608,22 @@ def profile_window(solver, timed_ms_per_it: float) -> dict:
     tracer slows the host, so the busy share is the traced device time per
     iteration over ``timed_ms_per_it`` from the untraced run, and
     ``busy_share_traced`` is the same over the traced wall time."""
-    act = torch.profiler.ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.solve(max_iter=PROFILE_ITERS, stop_tol=0.0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = sorted(
-        (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: -e.self_device_time_total,
-    )
+    dev, wall_us, launches, events, iters = profiled(lambda n: solver.solve(max_iter=n, stop_tol=0.0),
+                                                     PROFILE_ITERS, "profile window",
+                                                     graphed=solver.chunk_runner == "graphs")
+    dev.sort(key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in dev)
-    per_it = lambda us: us / 1e3 / PROFILE_ITERS
+    per_it = lambda us: us / 1e3 / iters
     out = dict(
         wall_ms_per_it=per_it(wall_us),
         device_ms_per_it=per_it(dev_us),
         busy_share=per_it(dev_us) / timed_ms_per_it,  # 0.0 where the profiler saw no device time
         busy_share_traced=dev_us / wall_us,
-        device_ops_per_it=sum(e.count for e in dev) / PROFILE_ITERS,
+        device_ops_per_it=sum(e.count for e in dev) / iters,
+        chunk_runner=solver.chunk_runner,
+        kernel_launches=events,  # the wrappers' counters, checked equal when graphed
+        launches=launches,
+        iterations_traced=iters,
     )
     for k, names in KERNEL_OPS.items():
         k_us = sum(e.self_device_time_total for e in dev if any(m in e.key for m in names))
@@ -572,7 +633,7 @@ def profile_window(solver, timed_ms_per_it: float) -> dict:
         out,
         top_device_ops=[  # [op, self ms per iteration, launches per iteration]
             [e.key.replace("(anonymous namespace)::", "")[:60],
-             per_it(e.self_device_time_total), e.count / PROFILE_ITERS]
+             per_it(e.self_device_time_total), e.count / iters]
             for e in dev[:PROFILE_TOP]
         ],
     )
@@ -585,18 +646,19 @@ def _methods(solver) -> list:
 
 def timed_run(solver, iters: int, warm: int = 100):
     """``warm`` untimed iterations, then ``iters`` timed ones with every
-    kernel's launch count set to 0 just before and read just after."""
+    kernel's launch count set to 0 just before and read just after (the
+    counters are replay-aware: ops/launches.py), run as CUDA graphs (one
+    replay an iteration, split at each eigh bucket)."""
     solver.solve(max_iter=warm, stop_tol=0.0)
     torch.cuda.synchronize()
-    precond_apply.LAUNCHES = jacobi.LAUNCHES = jacobi.LAUNCHES_F32 = 0
-    tri_stream.LAUNCHES.update(packed_solve=0, band_solve=0)
+    reset_launches()
     t0 = time.perf_counter()
     res = solver.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES, k4_f32=jacobi.LAUNCHES_F32,
-                  k2=tri_stream.LAUNCHES["packed_solve"], k3=tri_stream.LAUNCHES["band_solve"])
+    counts = dict(LAUNCHES)
     check(res.iterations == iters, f"ran {res.iterations} of {iters} iterations")
+    check(solver.chunk_runner == "graphs", f"the chunks ran {solver.chunk_runner!r}, not as graphs")
     return res, elapsed, counts
 
 
@@ -1073,6 +1135,7 @@ def standin_cg(prob: Problem) -> None:
     elapsed = time.perf_counter() - t0
     st = dict(chol.CG_STATS)
     check(res.iterations == CG_ITERS, f"stand-in cg: ran {res.iterations} of {CG_ITERS} iterations")
+    check(solver.chunk_runner == "eager", f"stand-in cg: chunks ran {solver.chunk_runner!r}, not eagerly")
     _gates(res, prob.vec_len, "stand-in cg")
     emit("stand-in normal_solver=cg", dict(
         it_per_s=CG_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
@@ -1111,7 +1174,10 @@ def certified() -> None:
         if mode == "host":
             check(any("host" in str(w.message) for w in caught), "certified host: no warning on CUDA")
         res = solver.solve(max_iter=6000, stop_tol=1e-6)
-        out[mode] = dict(_certified_gates(res, opt, f"certified {mode}"), mode=resolved)
+        want = "eager" if mode in ("cg", "host") else "graphs"
+        check(solver.chunk_runner == want, f"certified {mode}: chunks ran {solver.chunk_runner!r}, not {want!r}")
+        out[mode] = dict(_certified_gates(res, opt, f"certified {mode}"), mode=resolved,
+                         chunk_runner=solver.chunk_runner)
     solver = SDPSolver(prob, base.replace(normal_solver="dense"), device="cuda")
     neq = solver.params.neq
     solver.params = dataclasses.replace(solver.params, neq=dataclasses.replace(
@@ -1324,14 +1390,15 @@ def batched() -> tuple:
     check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD, f"batched: {neq.mode!r}")
     batch.solve(max_iter=BIG_BLOCK_WARM, stop_tol=0.0)
     torch.cuda.synchronize()
-    precond_apply.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     results = batch.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = precond_apply.LAUNCHES
+    k1 = LAUNCHES["k1"]
+    check(batch.chunk_runner == "graphs", f"batched: chunks ran {batch.chunk_runner!r}, not as graphs")
     sweeps = BATCH * iters * neq.applies
-    check(launches == sweeps, f"batched: K1 launched {launches} times, not {BATCH} x {iters} x {neq.applies}")
+    check(k1 == sweeps, f"batched: K1 launched {k1} times, not {BATCH} x {iters} x {neq.applies}")
     single_rates, rel, single_errrp = [], [], []
     for i, (prob, rb) in enumerate(zip(probs, results)):
         _gates(rb, prob.vec_len, f"batched instance {i}")
@@ -1346,12 +1413,206 @@ def batched() -> tuple:
               f"batched instance {i}: errRp {rb.errRp!r} against single {rs.errRp!r} (rel {rel[-1]:.2e})")
         del single
     emit("batched", dict(instances=BATCH, host_build_s=host_s, init_s=init_s, applies=neq.applies,
-                         k1_launches=launches, instance_it_per_s=BATCH * iters / elapsed,
+                         k1_launches=k1, instance_it_per_s=BATCH * iters / elapsed,
                          batch_it_per_s=iters / elapsed, single_it_per_s=single_rates,
                          single_it_per_s_mean=float(np.mean(single_rates)), errRp_rel_to_single=rel))
     del batch
     torch.cuda.empty_cache()
-    return launches, probs, single_errrp
+    return k1, probs, single_errrp
+
+
+# ---------------------------------------------------------------------------
+# The chunk runner: CUDA graphs against the eager loop on every path.
+
+GRAPH_ITERS = 100  # iterations of each path, from one state, in each of the four runs
+GRAPH_SYNC_ITERS = 5
+GRAPH_REL_TOL = 1e-12  # allowed only where a captured cuBLAS call sums in another order than eager
+
+
+def _step_for(solver, projection=None, switch_admm=None, rp_hp=False):
+    """The step SDPSolver.solve makes at stop_tol 0, with the projection,
+    switch_admm and rp_hp given."""
+    cfg = solver.config
+    return step_mod.make_step(
+        stop_tol=0.0, switch_admm=cfg.switch_admm if switch_admm is None else switch_admm,
+        sig_update_threshold=cfg.sig_update_threshold, sig_update_stage_1=cfg.sig_update_stage_1,
+        sig_min=cfg.sig_min, sig_max=cfg.sig_max, eig_rank=cfg.eig_rank,
+        projection=solver._projection if projection is None else projection,
+        rp_hp=solver._rp_hp if rp_hp else None,
+    )
+
+
+def _eigh_buckets(structure, projection) -> int:
+    return sum(bucket_method(projection, i) == "eigh" and bk.n > 1 for i, bk in enumerate(structure.buckets))
+
+
+def _window(fn, iters: int, what: str, graphed: bool) -> dict:
+    """``fn(iters)`` under torch.profiler (``profiled``): device ms and ops
+    per iteration, and the wrappers' launches per iteration beside the
+    profiler's kernel counts (held equal when ``graphed``)."""
+    dev, _, launches, events, iters = profiled(fn, iters, what, graphed)
+    return dict(device_ms_per_it=sum(e.self_device_time_total for e in dev) / 1e3 / iters,
+                device_ops_per_it=sum(e.count for e in dev) / iters, kernel_events=events,
+                launches_per_it={k: v / iters for k, v in launches.items()}, iterations_traced=iters)
+
+
+def _syncs_per_it(fn) -> float:
+    """Synchronizing calls per iteration (torch's sync debug mode), from
+    runs of k and 2k iterations: the difference drops a run's fixed cost."""
+    counts = []
+    for iters in (GRAPH_SYNC_ITERS, 2 * GRAPH_SYNC_ITERS):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(iters)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    return (counts[1] - counts[0]) / GRAPH_SYNC_ITERS
+
+
+def _state_diff(a, b) -> float:
+    """The largest difference of two states' fields, relative to each
+    field's largest magnitude (0.0 when bitwise equal)."""
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if torch.equal(x, y):
+            continue
+        if not x.is_floating_point():
+            return float("inf")
+        scale = max(float(y.abs().max()), 1e-300)
+        worst = max(worst, float((x - y).abs().max()) / scale)
+    return worst
+
+
+def graph_path(name: str, step, params, state0, kernels: tuple, syncs: int) -> dict:
+    """One path GRAPH_ITERS iterations from ``state0`` through the eager
+    loop and the graph runner, in the order eager, graph, graph, eager:
+    all four end states and info rows equal bit for bit (else within
+    GRAPH_REL_TOL); rates from the pairs; a profiled window of each (device
+    ms and ops per iteration, counters against the profiler's kernel
+    counts, ``kernels`` launched on every iteration); host syncs per
+    iteration (``syncs``: one an eigh bucket, 0 without); capture seconds
+    and each run's peak memory."""
+    eager = lambda n: run_chunk(step, state0, params, 0, n)
+    runner = make_chunk_runner(step, params)
+    graphed = lambda n: runner(state0, 0, n)
+    eager(1)  # builds every kernel, plan and handle of the path
+    torch.cuda.synchronize()
+    graphed(2)  # one eager iteration and the capture, then a replay
+    torch.cuda.synchronize()
+    capture_s = runner.capture_s
+    seconds, peak, ends = {"eager": [], "graph": []}, {}, {}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = eager if kind == "eager" else graphed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, rows = fn(GRAPH_ITERS)
+        torch.cuda.synchronize()
+        seconds[kind].append(time.perf_counter() - t0)
+        peak[kind] = torch.cuda.max_memory_allocated() / 1e9
+        ends.setdefault(kind, []).append((state, rows))
+    ref_state, ref_rows = ends["eager"][0]
+    bitwise, rel = True, 0.0
+    for state, rows in ends["eager"][1:] + ends["graph"]:
+        same_rows = torch.equal(rows, ref_rows)
+        bitwise &= same_rows and _state_diff(state, ref_state) == 0.0
+        rel = max(rel, _state_diff(state, ref_state),
+                  0.0 if same_rows else float((rows - ref_rows).abs().max() / ref_rows.abs().max()))
+    check(bool(torch.isfinite(ref_rows).all()), f"graphs {name}: non-finite info rows")
+    check(bitwise or rel <= GRAPH_REL_TOL, f"graphs {name}: graph and eager states differ by {rel:.3e}")
+    del ends
+    out = dict(iterations=GRAPH_ITERS, bitwise_equal=bitwise, max_rel_diff=rel, capture_s=capture_s,
+               recordings=len(runner.recordings), segments=[len(r.parts) for r in runner.recordings.values()])
+    for kind, fn in (("eager", eager), ("graph", graphed)):
+        ms = 1e3 * float(np.mean(seconds[kind])) / GRAPH_ITERS
+        prof = _window(fn, PROFILE_ITERS, f"graphs {name} {kind}", graphed=kind == "graph")
+        for k in kernels:
+            check(prof["launches_per_it"][k] >= 1, f"graphs {name} {kind}: {k} launched "
+                                                   f"{prof['launches_per_it'][k]} times an iteration")
+        out[kind] = dict(it_per_s=[GRAPH_ITERS / t for t in seconds[kind]], ms_per_it=ms,
+                         device_ms_per_it=prof["device_ms_per_it"], busy_share=prof["device_ms_per_it"] / ms,
+                         device_ops_per_it=prof["device_ops_per_it"], launches_per_it=prof["launches_per_it"],
+                         host_syncs_per_it=_syncs_per_it(fn), peak_mem_gb=peak[kind],
+                         kernel_events=prof["kernel_events"], iterations_traced=prof["iterations_traced"])
+    got, eager_syncs = out["graph"]["host_syncs_per_it"], out["eager"]["host_syncs_per_it"]
+    if syncs == 0:
+        check(got == 0, f"graphs {name}: {got} host syncs an iteration without an eigh bucket")
+    else:  # eigh's status checks, and nothing more than the eager loop's
+        check(0 < got <= eager_syncs, f"graphs {name}: {got} host syncs an iteration for {syncs} eigh "
+                                      f"buckets (eager: {eager_syncs})")
+    out["eigh_buckets"] = syncs
+    out["graph_over_eager_it_per_s"] = float(np.mean(out["graph"]["it_per_s"]) / np.mean(out["eager"]["it_per_s"]))
+    emit(f"graphs {name}", out)
+    runner.free()
+    return out
+
+
+def graphs(standin_prob: Problem, large: Problem, quasar_prob: Problem, family: list) -> None:
+    """Every main path through the graph runner and the eager loop in one
+    process (``graph_path``): the stand-in f64 in ADMM and sGS (K1, K4),
+    the grid with "jacobi" (K1, K4) and "auto" (an eigh segment), the large
+    grid banded under "jacobi" (K3, K4) and "auto" (eigh segment) and
+    packed (K2), QUASAR-500 split with "poly" (K1), the stand-in in f32
+    with rp_hp (K1), and the 8 batched stand-ins (eigh: one segment)."""
+    admm = dict(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0)
+    out = {}
+
+    def run(name, solver, step, kernels, projection=None, state0=None):
+        if state0 is None:
+            state0 = solver._initial_state(*solver._initial_scaled, solver.config.sig)
+        proj = solver._projection if projection is None else projection
+        structure = solver.structure
+        out[name] = graph_path(name, step, solver.params, state0, kernels, _eigh_buckets(structure, proj))
+
+    solver = SDPSolver(standin_prob, SolverConfig(**admm), device="cuda")
+    k4 = ("k4",) if "jacobi" in _methods(solver) else ()
+    run("stand-in f64 admm", solver, _step_for(solver), ("k1",) + k4)
+    run("stand-in f64 sgs", solver, _step_for(solver, switch_admm=10**9), ("k1",) + k4)
+    solver = SDPSolver(standin_prob, SolverConfig(dtype="float32", **admm), device="cuda")
+    _no_tf32()
+    run("stand-in f32 rp_hp", solver, _step_for(solver, rp_hp=True), ("k1",))
+    del solver
+    solver = SDPSolver(grid_problem(), SolverConfig(projection="auto", **admm), device="cuda")
+    run("grid jacobi", solver, _step_for(solver, projection="jacobi"), ("k1", "k4"), projection="jacobi")
+    run("grid auto", solver, _step_for(solver), ("k1",))
+    del solver
+    torch.cuda.empty_cache()
+    solver = SDPSolver(large, SolverConfig(projection="auto", **admm), device="cuda")
+    check(solver.params.neq.mode == "banded", f"graphs large grid: {solver.params.neq.mode!r}")
+    run("large grid banded jacobi", solver, _step_for(solver, projection="jacobi"), ("k3", "k4"),
+        projection="jacobi")
+    run("large grid banded auto", solver, _step_for(solver), ("k3",))
+    del solver
+    torch.cuda.empty_cache()
+    solver = SDPSolver(large, SolverConfig(projection="jacobi", normal_solver="packed", **admm), device="cuda")
+    run("large grid packed jacobi", solver, _step_for(solver), ("k2", "k4"))
+    del solver
+    torch.cuda.empty_cache()
+    solver = SDPSolver(quasar_prob, SolverConfig(projection="poly", **admm), device="cuda")
+    check(solver.params.neq.mode == "split", f"graphs quasar: {solver.params.neq.mode!r}")
+    run("quasar-500 split poly", solver, _step_for(solver), ("k1",))
+    del solver
+    torch.cuda.empty_cache()
+    batch = BatchedSDPSolver(family, SolverConfig(**admm))
+    cfg = batch.config
+    step = step_mod.make_step(stop_tol=0.0, switch_admm=0, sig_update_threshold=cfg.sig_update_threshold,
+                              sig_update_stage_1=cfg.sig_update_stage_1, sig_min=cfg.sig_min, sig_max=cfg.sig_max)
+    out["batched 8 stand-ins"] = graph_path("batched 8 stand-ins", step, batch.params, batch._initial_states(cfg.sig),
+                                            ("k1",), _eigh_buckets(batch._base.structure, "eigh"))
+    del batch
+    torch.cuda.empty_cache()
+    emit("graphs", {name: dict(
+        graph_it_per_s=float(np.mean(o["graph"]["it_per_s"])), eager_it_per_s=float(np.mean(o["eager"]["it_per_s"])),
+        graph_busy=o["graph"]["busy_share"], eager_busy=o["eager"]["busy_share"],
+        graph_device_ms=o["graph"]["device_ms_per_it"], eager_device_ms=o["eager"]["device_ms_per_it"],
+        graph_ops=o["graph"]["device_ops_per_it"], eager_ops=o["eager"]["device_ops_per_it"],
+        graph_syncs=o["graph"]["host_syncs_per_it"], eager_syncs=o["eager"]["host_syncs_per_it"],
+        bitwise=o["bitwise_equal"], capture_s=o["capture_s"], card=report["card"]) for name, o in out.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1668,7 +1929,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
     """The grid imported from SeDuMi through ``cuadmm`` (jacobi, plain ADMM,
     stop_tol 0): gated as the grid phase gates. Returns (line, launches)."""
     prob = load_sedumi_mat(str(grid_sedumi))
-    precond_apply.LAUNCHES = jacobi.LAUNCHES = jacobi.LAUNCHES_F32 = 0
+    reset_launches()
     t0 = time.perf_counter()
     with _observe_solvers() as made:
         X, y, S, info = cuadmm(0, FE_GRID_ITERS, 0.0, _at(prob), prob.dense_b(), prob.dense_C(),
@@ -1676,7 +1937,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
                                check_every=100, switch_admm=0, projection="jacobi")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    counts = dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES, k4_f32=jacobi.LAUNCHES_F32, k2=0, k3=0)
+    counts = dict(LAUNCHES)
     (solver,) = made
     neq = solver.params.neq
     what = "front ends: grid through cuadmm"
@@ -2016,6 +2277,7 @@ def main() -> None:
     timed_phase(quasar_f32, quasar_prob)
     timed_phase(certified_f32)
     k1_batched, family, single_errrp = timed_phase(batched)
+    timed_phase(graphs, prob, large, quasar_prob, family)
     fe = timed_phase(frontends, prob)
     ms = timed_phase(mesh, large, quasar_prob, family, single_errrp)
     del large, quasar_prob, family

@@ -34,8 +34,13 @@
 //   epoch. No counter, no fence, no atomic: the data comes with its signal
 //   in one L2 round trip, where a counter costs the producer a fence and an
 //   atomic and the consumer a second load after the acquire.
-//   The wrapper passes a new epoch for every sweep, so the scratch needs no
-//   reset between solves.
+//   The epoch lives in one device word beside the scratch: every CTA reads
+//   it at entry, and ``epoch_bump_kernel``, one thread launched after each
+//   sweep on the same stream, advances it (wrapping past 0, the scratch's
+//   initial tag). So the scratch needs no reset between solves, and a sweep
+//   captured into a CUDA graph takes a new epoch on every replay: a host
+//   counter passed by value would be frozen at capture, and the second
+//   replay would accept the first one's words without waiting.
 // - Bytes off the chain: as soon as a CTA finishes an item it copies the
 //   tile slab (8 x B floats, 32 KB at B = 1024) of its next one into shared
 //   memory with cp.async, and a diagonal item's rhs block (written before
@@ -158,8 +163,10 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
     tri_sweep_kernel(const float* __restrict__ tiles, int B, const int4* __restrict__ items,
                      int n_items, const int* __restrict__ steps, const int* __restrict__ row_blk,
                      const float* __restrict__ rhs, float* __restrict__ out,
-                     unsigned long long* solved, unsigned long long* parts, unsigned epoch) {
+                     unsigned long long* solved, unsigned long long* parts,
+                     const unsigned* __restrict__ epoch_word) {
   extern __shared__ float4 smem4[];
+  const unsigned epoch = *epoch_word;  // fixed for the sweep: the bump runs after it
   float* slab = reinterpret_cast<float*>(smem4);
   float* acc = slab + kSlab * B;
   float* vin = acc + B;  // the solved block an off-diagonal item reads
@@ -274,6 +281,12 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
   }
 }
 
+// Advance the sweep epoch by one, skipping 0 (the tag of fresh scratch).
+__global__ void epoch_bump_kernel(unsigned* epoch_word) {
+  const unsigned next = *epoch_word + 1u;
+  *epoch_word = next != 0u ? next : 1u;
+}
+
 template <bool kTrans>
 int capacity(int B, int* ctas) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -290,20 +303,24 @@ int capacity(int B, int* ctas) {
 template <bool kTrans>
 int sweep(const float* tiles, int B, const int* items, int n_items, const int* steps,
           const int* row_blk, const float* rhs, float* out, void* solved, void* parts,
-          unsigned epoch, int ctas, void* stream) {
-  if (B < 128 || B > kMaxBlock || B % 128 != 0 || n_items <= 0 || ctas <= 0) {
+          unsigned* epoch, int ctas, void* stream) {
+  if (B < 128 || B > kMaxBlock || B % 128 != 0 || n_items <= 0 || ctas <= 0 || epoch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int4* items4 = reinterpret_cast<const int4*>(items);
   auto* solved_w = static_cast<unsigned long long*>(solved);
   auto* parts_w = static_cast<unsigned long long*>(parts);
+  const unsigned* epoch_r = epoch;
   void* args[] = {&tiles, &B,   &items4, &n_items,  &steps,   &row_blk,
-                  &rhs,   &out, &solved_w, &parts_w, &epoch};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tri_sweep_kernel<kTrans>), dim3(ctas), dim3(kThreads), args,
-      smem_bytes(B), static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
-  return static_cast<int>(err != cudaSuccess ? err : last);
+                  &rhs,   &out, &solved_w, &parts_w, &epoch_r};
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(tri_sweep_kernel<kTrans>),
+                                                dim3(ctas), dim3(kThreads), args, smem_bytes(B), s);
+  cudaError_t last = cudaGetLastError();  // clears a refused launch's error
+  if (err != cudaSuccess || last != cudaSuccess) return static_cast<int>(err != cudaSuccess ? err : last);
+  // Only a sweep that launched spends its epoch.
+  epoch_bump_kernel<<<1, 1, 0, s>>>(epoch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -323,13 +340,13 @@ int cuadmm_tri_stream_capacity(int B, int* ctas) {
 // Forward sweep L x = r (rhs = r, out = x) over the work table on the
 // device: ``items`` (n_items x 4 ints), ``steps`` (nb x 3 ints) and
 // ``row_blk`` (one int per partial row). ``solved`` (n_pad) and ``parts``
-// (partial rows x B) are 64-bit scratch words whose tags differ from
-// ``epoch`` (zero, or an earlier sweep's). ``ctas`` CTAs are launched
-// cooperatively on ``stream`` without synchronizing; returns the launch's
-// error.
+// (partial rows x B) are 64-bit scratch words whose tags differ from the
+// device word ``*epoch`` (zero, or an earlier sweep's). ``ctas`` CTAs are
+// launched cooperatively on ``stream`` without synchronizing, then one
+// thread that advances ``*epoch``; returns the first launch error.
 int cuadmm_tri_stream_fwd(const float* tiles, int B, const int* items, int n_items,
                           const int* steps, const int* row_blk, const float* rhs, float* out,
-                          void* solved, void* parts, unsigned epoch, int ctas, void* stream) {
+                          void* solved, void* parts, unsigned* epoch, int ctas, void* stream) {
   return sweep<false>(tiles, B, items, n_items, steps, row_blk, rhs, out, solved, parts, epoch, ctas,
                       stream);
 }
@@ -337,7 +354,7 @@ int cuadmm_tri_stream_fwd(const float* tiles, int B, const int* items, int n_ite
 // Backward sweep L^T y = x (rhs = x, out = y), the same contract.
 int cuadmm_tri_stream_bwd(const float* tiles, int B, const int* items, int n_items,
                           const int* steps, const int* row_blk, const float* rhs, float* out,
-                          void* solved, void* parts, unsigned epoch, int ctas, void* stream) {
+                          void* solved, void* parts, unsigned* epoch, int ctas, void* stream) {
   return sweep<true>(tiles, B, items, n_items, steps, row_blk, rhs, out, solved, parts, epoch, ctas,
                      stream);
 }

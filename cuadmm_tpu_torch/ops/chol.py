@@ -254,11 +254,15 @@ class NormalEqSolver:
     def _apply_prefix(self, r: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
         """The dense factor applied to the f64 vector ``r`` (all of it in
         dense mode, the coupled prefix in split mode): through ``r_pad`` and
-        K1 for an f32 inverse factor, else an f64 cholesky_solve."""
+        K1 for an f32 inverse factor, else an f64 cholesky_solve, one per
+        instance of a batch (a batched right-hand side takes MAGMA's batched
+        solve on CUDA, which a CUDA graph cannot capture)."""
         if self.inv_l is not None:
             p = r.shape[-1]
             r_pad[..., :p] = r
             return self._apply_factor(r_pad)[..., :p]
+        if r.dim() > 1:
+            return torch.stack([self._apply_prefix(row, None) for row in r])
         return torch.cholesky_solve(r.unsqueeze(-1), self.chol_l).squeeze(-1)
 
     def _sweep(self, rhs: torch.Tensor, y: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:

@@ -23,11 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from cuadmm_tpu_torch import _build
-
-# Kernel launches so far (one per jacobi_eigh call on a CUDA tensor), and
-# those of the f32 instantiation among them.
-LAUNCHES = 0
-LAUNCHES_F32 = 0
+from cuadmm_tpu_torch.ops import launches
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
 _READY: set = set()  # device indices whose shared-memory attribute is set
@@ -130,7 +126,6 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None) -> Tuple[torch
     v. On CUDA the kernel is launched on the current stream without
     synchronizing. Any n >= 1, as ``jacobi_eigh_jnp`` takes.
     """
-    global LAUNCHES, LAUNCHES_F32
     if mats.dim() != 3 or mats.shape[1] != mats.shape[2]:
         raise ValueError(f"need mats (B, n, n), got {tuple(mats.shape)}")
     if mats.dtype not in (torch.float32, torch.float64):
@@ -162,6 +157,6 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None) -> Tuple[torch
         err = fn(mats.data_ptr(), w.data_ptr(), v.data_ptr(), work.data_ptr() if work is not None else None,
                  b, n, sweeps, stream)
     _check(lib, err, "kernel launch")
-    LAUNCHES += 1
-    LAUNCHES_F32 += mats.dtype == torch.float32
+    launches.LAUNCHES["k4"] += 1
+    launches.LAUNCHES["k4_f32"] += mats.dtype == torch.float32
     return w, v

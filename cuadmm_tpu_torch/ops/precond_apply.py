@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 
 from cuadmm_tpu_torch import _build
+from cuadmm_tpu_torch.ops import launches
 
 LANE = 128  # n_pad granularity and the kernel's column chunk
 # The kernel's constants (csrc/precond_apply.cu).
@@ -37,9 +38,6 @@ MAX_SMEM = 444 * SLOT_BYTES  # dynamic shared memory of one CTA, 222 KB
 # The largest member slice: three stages of one row fit (one in flight).
 MAX_MEMBER_CHUNKS = MAX_SMEM // (3 * SLOT_BYTES)
 MAX_N_PAD = CLUSTER_SIZES[-1] * MAX_MEMBER_CHUNKS * LANE  # 303,104: a 367 GB square
-
-# Kernel launches so far (one per fused_spd_apply call on a CUDA tensor).
-LAUNCHES = 0
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
 _READY: set = set()  # devices whose kernel attributes are set
@@ -146,7 +144,6 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     refinement sweeps call it several times an iteration, so the host work
     of a call is kept to one allocation and one foreign call.
     """
-    global LAUNCHES
     if m.dim() != 2 or m.shape[0] != m.shape[1] or tuple(r.shape) != (m.shape[0],):
         raise ValueError(f"need m (n, n) and r (n,), got {tuple(m.shape)} and {tuple(r.shape)}")
     if m.dtype != torch.float32 or r.dtype != torch.float32:
@@ -183,7 +180,7 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(idx):
             err = lib.cuadmm_fused_spd_apply(*args, stream)
     _check(lib, err, "kernel launch")
-    LAUNCHES += 1
+    launches.LAUNCHES["k1"] += 1
     return out[k * n_pad:]
 
 

@@ -6,7 +6,9 @@ methods, per bucket when ``method`` is a dict:
 
 - "eigh": batched ``torch.linalg.eigh`` (cuSOLVER on the card), then one
   batched V diag(max(w, 0)) V^T product. eigh checks its solver's status
-  on the host, so on CUDA each call waits for the device.
+  on the host, so on CUDA each call waits for the device, and a CUDA graph
+  cannot hold it: the chunk runner (solver/step.py) passes ``eigh=``, which
+  runs each eigh call between two graphs.
 - "jacobi": the batched Jacobi eigh of ops/jacobi.py (the CUDA kernel K4 on
   the card; no host wait), then the same product.
 - "poly": the matmul-only polynomial filter of ops/polyfilter.py.
@@ -25,7 +27,7 @@ projected whole on every rank.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -46,12 +48,12 @@ def reconstruct_clamped(
     return (v * wc.unsqueeze(-2)) @ v.transpose(-1, -2)
 
 
-def _eigh_project(bt: torch.Tensor, eig_rank: Optional[int]) -> torch.Tensor:
+def _eigh_project(bt: torch.Tensor, eig_rank: Optional[int], eigh: Callable) -> torch.Tensor:
     # eigh raises on non-finite input where XLA returns NaN. Project a
     # zeroed copy and put NaN back on those blocks, so a diverging iterate
     # reaches the driver's divergence guard as it does in JAX.
     finite = torch.isfinite(bt)
-    w, v = torch.linalg.eigh(torch.where(finite, bt, 0.0))
+    w, v = eigh(torch.where(finite, bt, 0.0))
     proj = reconstruct_clamped(w, v, eig_rank)
     return torch.where(finite.all(dim=-1).all(dim=-1)[:, None, None], proj, torch.nan)
 
@@ -62,6 +64,7 @@ def psd_project_pool(
     eig_rank: Optional[int] = None,
     method: Union[str, Dict[int, str]] = "eigh",
     mesh: Optional[Mesh] = None,
+    eigh: Callable = torch.linalg.eigh,
 ) -> torch.Tensor:
     """Project a pool-coordinate vector (..., pool_len) onto the product
     cone, each leading index (an instance of a batch) on its own.
@@ -74,6 +77,8 @@ def psd_project_pool(
     to method (the calibrated dispatch of ops/dispatch.py, ``bucket_method``).
     ``mesh`` splits the buckets over its ranks (module docstring); every
     rank passes the same ``P`` (one instance) and gets the whole result.
+    ``eigh(x) -> (w, v)`` computes the "eigh" method's decompositions (the
+    chunk runner's segment boundaries).
     """
     lead = P.shape[:-1]
     if mesh is not None and mesh.size > 1 and lead:
@@ -115,7 +120,7 @@ def psd_project_pool(
         elif meth == "jacobi":
             proj = reconstruct_clamped(*jacobi_eigh(bt), eig_rank)
         elif meth == "eigh":
-            proj = _eigh_project(bt, eig_rank)
+            proj = _eigh_project(bt, eig_rank, eigh)
         else:
             raise ValueError(f"unknown projection method {meth!r} for bucket {i}")
         if packed:

@@ -35,19 +35,19 @@ never writes it.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from cuadmm_tpu_torch import _build
+from cuadmm_tpu_torch.ops import launches
 
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
-# Kernel launches so far, one per wrapper call on CUDA tensors (each call
-# queues the forward and the backward sweep of csrc/tri_stream.cu, one
-# persistent launch each).
-LAUNCHES: Dict[str, int] = {"packed_solve": 0, "band_solve": 0}
+# Each wrapper's entry in ops/launches.py (a call queues the forward and
+# the backward sweep of csrc/tri_stream.cu, one persistent launch each).
+COUNTER = {"packed_solve": "k2", "band_solve": "k3"}
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
 _CTAS: dict = {}  # (device index, block) -> co-resident CTAs of one sweep
@@ -406,7 +406,9 @@ def _work_table(st: dict, B: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 def _device_steps(lay, device: torch.device) -> dict:
     """Both sweeps' work tables on ``device`` (built once per layout), the
     tagged scratch they share (solved vector and partial rows, 64-bit words
-    {value, epoch}), and the epoch of the last sweep on it."""
+    {value, epoch}), and the device word holding the next sweep's epoch
+    (the kernel advances it after each sweep, so a CUDA graph replaying a
+    solve tags each replay anew)."""
     key = (type(lay).__name__, tuple(lay), str(device))
     if key not in _STEPS:
         sweeps, rows = [], 1
@@ -420,7 +422,7 @@ def _device_steps(lay, device: torch.device) -> dict:
             sweeps=sweeps,
             solved=torch.zeros(lay.n_pad, dtype=torch.int64, device=device),
             parts=torch.zeros(rows * lay.block, dtype=torch.int64, device=device),
-            epoch=0,
+            epoch=torch.ones(1, dtype=torch.int32, device=device),  # read as unsigned; fresh scratch tags 0
         )
     return _STEPS[key]
 
@@ -439,7 +441,7 @@ def _load() -> ctypes.CDLL:
             fn.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
                 + [ctypes.c_void_p] * 6
-                + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
         lib.cuadmm_tri_stream_capacity.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -489,16 +491,16 @@ def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor
         stream = torch.cuda.current_stream(idx).cuda_stream
         fns = (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd)
         for fn, sw, rhs, out in zip(fns, tab["sweeps"], (rp, x), (x, y)):
-            # A new tag for every sweep, spent even by a refused launch, so
-            # the scratch never needs a reset (wraps after 2^32 sweeps).
-            tab["epoch"] = epoch = (tab["epoch"] + 1) & 0xFFFFFFFF or 1
+            # Each launched sweep reads the epoch from its device word and
+            # advances it after itself (wrapping past 0 after 2^32 sweeps),
+            # so the scratch never needs a reset.
             err = fn(
                 tiles.data_ptr(), B, sw["items"].data_ptr(), sw["n_items"], sw["steps"].data_ptr(),
                 sw["row_blk"].data_ptr(), rhs.data_ptr(), out.data_ptr(), tab["solved"].data_ptr(),
-                tab["parts"].data_ptr(), epoch, ctas, stream,
+                tab["parts"].data_ptr(), tab["epoch"].data_ptr(), ctas, stream,
             )
             _check(lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
+    launches.LAUNCHES[COUNTER[name]] += 1
     return y[: r.shape[0]].to(r.dtype)
 
 

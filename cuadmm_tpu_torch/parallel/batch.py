@@ -14,7 +14,10 @@ that converges is frozen by its own done guard and keeps its own
 convergence iteration and ``SDPResult``.
 
 As in the JAX package the step projects with "eigh" and has no divergence
-recovery and no rp_hp; ``config.dtype`` sets the state dtype.
+recovery and no rp_hp; ``config.dtype`` sets the state dtype. Chunks run
+through the chunk runner as ``SDPSolver``'s do (CUDA graphs split at each
+eigh bucket on the card; eager over a mesh or with cg or host);
+``chunk_runner`` says which ran last.
 
 Over a rank mesh (``mesh=``, parallel/mesh.py) the instance axis is split
 (cuadmm_tpu/parallel/batch.py:138-175): rank r solves its contiguous share
@@ -42,7 +45,7 @@ from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
 from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver
 from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
-from cuadmm_tpu_torch.solver.step import make_step, run_chunk
+from cuadmm_tpu_torch.solver.step import ChunkRunners, make_step
 
 
 def _same_pattern(p0: Problem, p: Problem) -> bool:
@@ -98,6 +101,7 @@ class BatchedSDPSolver:
             self._init_list.append((X_s, y_s, S_s))
         self._b_stack = np.stack(b_list)
         self._C_stack = np.stack(C_list)
+        self._runners = ChunkRunners()
 
         bp, dev = self._base.params, self._base._tensor
         scal = lambda name: dev([getattr(sc, name) for sc in self._scalings])
@@ -114,6 +118,11 @@ class BatchedSDPSolver:
             norm_borg=scal("norm_borg"),
             norm_Corg=scal("norm_Corg"),
         )
+
+    @property
+    def chunk_runner(self) -> Optional[str]:
+        """How the last chunk ran: "graphs", "plain" or "eager"."""
+        return self._runners.kind
 
     def _initial_states(self, sig: float) -> SolverState:
         states = [
@@ -164,7 +173,7 @@ class BatchedSDPSolver:
         conv_iter = np.full(B, -1, dtype=np.int64)
         while it_done < max_iter:
             chunk = min(cfg.check_every, max_iter - it_done)
-            state, info = run_chunk(step, state, self.params, it_done, chunk)
+            state, info = self._runners.run(step, state, self.params, it_done, chunk, self.mesh)
             info_np = self._gather(info, 1).cpu().numpy().astype(np.float64)  # (chunk, B, 8)
             kkt = np.maximum(np.maximum(info_np[:, :, 2], info_np[:, :, 3]), info_np[:, :, 4])
             for b in range(B):

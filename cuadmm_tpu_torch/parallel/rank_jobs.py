@@ -24,7 +24,7 @@ import torch
 
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import synchronize
-from cuadmm_tpu_torch.ops import jacobi, precond_apply
+from cuadmm_tpu_torch.ops import launches
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.ops.projection import psd_project_pool
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
@@ -135,19 +135,19 @@ def grid_buckets_k4(mesh: Mesh, prob: Problem, svec: np.ndarray) -> Dict[str, An
     st = BlockStructure(prob.blk, "pow2", 64, 0)
     maps = device_maps(st, torch.float64, mesh.device)
     P = pool_from_svec(torch.as_tensor(svec, device=mesh.device), maps)
-    jacobi.LAUNCHES = 0
+    launches.reset()
     out = svec_from_pool(psd_project_pool(P, maps, method="jacobi", mesh=mesh), maps)
     synchronize(mesh.device)
-    return dict(svec=out.cpu().numpy(), k4=jacobi.LAUNCHES)
+    return dict(svec=out.cpu().numpy(), k4=launches.LAUNCHES["k4"])
 
 
 def _reset_counts() -> None:
-    precond_apply.LAUNCHES = jacobi.LAUNCHES = jacobi.LAUNCHES_F32 = 0
+    launches.reset()
     COLLECTIVES.update(all_reduce=0, broadcast=0)
 
 
 def _counts() -> Dict[str, int]:
-    return dict(k1=precond_apply.LAUNCHES, k4=jacobi.LAUNCHES, k4_f32=jacobi.LAUNCHES_F32, **COLLECTIVES)
+    return dict(k1=launches.LAUNCHES["k1"], k4=launches.LAUNCHES["k4"], k4_f32=launches.LAUNCHES["k4_f32"], **COLLECTIVES)
 
 
 def continued_run(solver, warm: int, iters: int) -> Tuple[SDPResult, float, Dict[str, int]]:

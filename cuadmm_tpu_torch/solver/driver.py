@@ -4,7 +4,11 @@ Port of cuadmm_tpu/solver/driver.py for float64 and float32 state, every
 normal solver, and one device or a rank mesh. The iteration runs in chunks of
 ``config.check_every`` steps between host-side convergence checks; a chunk
 queues its work on the device and its info rows come back in one copy at
-the chunk's end.
+the chunk's end. A chunk runs through the chunk runner (solver/step.py):
+on CUDA one replayed CUDA graph an iteration (split at each eigh bucket),
+on the CPU its plain replay; cg, host and any mesh run it eagerly
+(``step.eager_reason``). ``SDPSolver.chunk_runner`` says which ran last:
+"graphs", "plain" or "eager".
 
 In float32 state the driver carries the JAX package's precision machinery:
 an f64 copy of A's tables beside the f32 one (the normal solver's
@@ -44,7 +48,7 @@ from cuadmm_tpu_torch.parallel.mesh import Mesh, mesh_device
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
 from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
-from cuadmm_tpu_torch.solver.step import make_step, run_chunk
+from cuadmm_tpu_torch.solver.step import ChunkRunners, make_step
 from cuadmm_tpu_torch.structure import BlockStructure
 from cuadmm_tpu_torch.utils.logging import IterLogger
 
@@ -122,6 +126,12 @@ class SDPSolver:
         # Over a mesh only rank 0 prints; every rank computes the same rows.
         self._verbose = config.verbose and (mesh is None or mesh.rank == 0)
         self._init()
+        self._runners = ChunkRunners()
+
+    @property
+    def chunk_runner(self) -> Optional[str]:
+        """How the last chunk ran: "graphs", "plain" or "eager"."""
+        return self._runners.kind
 
     def _tensor(self, x) -> torch.Tensor:
         """A host array on the device in the state dtype (rounded once from f64)."""
@@ -432,14 +442,14 @@ class SDPSolver:
                     + ([torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
                 )
                 with prof:
-                    state, info = run_chunk(step, state, self.params, it_host, chunk)
+                    state, info = self._runners.run(step, state, self.params, it_host, chunk, self.mesh)
                     synchronize(self.device)
                 os.makedirs(cfg.profile_dir, exist_ok=True)
                 rank = "" if self.mesh is None else f".rank{self.mesh.rank}"
                 prof.export_chrome_trace(os.path.join(cfg.profile_dir, f"chunk1{rank}.trace.json"))
                 profiled = True
             else:
-                state, info = run_chunk(step, state, self.params, it_host, chunk)
+                state, info = self._runners.run(step, state, self.params, it_host, chunk, self.mesh)
             it_host += chunk
             chunk_idx += 1
             info_np = info.cpu().numpy().astype(np.float64)  # (chunk, 8)

@@ -27,15 +27,18 @@ identical inputs, so the ranks' states stay bitwise equal
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import time
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from cuadmm_tpu_torch.ops.launches import LAUNCHES, add as add_launches
 from cuadmm_tpu_torch.ops.projection import psd_project_pool
 from cuadmm_tpu_torch.ops.sparse import SparseA, spmv_a, spmv_at
 from cuadmm_tpu_torch.parallel.mesh import Mesh
-from cuadmm_tpu_torch.solver.state import SolveParams, SolverState
+from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
 
 TAU_SGS = 1.95  # reference: src/solver.cu:748
 TAU_ADMM = 1.618  # reference: src/solver.cu:750
@@ -64,14 +67,18 @@ def _col(t: torch.Tensor) -> torch.Tensor:
     return t.unsqueeze(-1) if t.dim() else t
 
 
-def _select(cond: torch.Tensor, a: SolverState, b: SolverState) -> SolverState:
-    """Field-wise ``torch.where(cond, a, b)``; ``cond`` per instance."""
-    out = {}
+def _select(cond: torch.Tensor, a: SolverState, b: SolverState, out: Optional[SolverState] = None) -> SolverState:
+    """Field-wise ``torch.where(cond, a, b)``; ``cond`` per instance. With
+    ``out`` each field is written into ``out``'s tensor (the same values)."""
+    res = {}
     for f in dataclasses.fields(SolverState):
         x = getattr(a, f.name)
         c = cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim()))
-        out[f.name] = torch.where(c, x, getattr(b, f.name))
-    return SolverState(**out)
+        if out is None:
+            res[f.name] = torch.where(c, x, getattr(b, f.name))
+        else:
+            res[f.name] = torch.where(c, x, getattr(b, f.name), out=getattr(out, f.name))
+    return SolverState(**res)
 
 
 def make_step(
@@ -86,7 +93,8 @@ def make_step(
     rp_hp: Optional[Tuple[SparseA, torch.Tensor, torch.Tensor]] = None,
     mesh: Optional[Mesh] = None,
 ):
-    """Build ``step(state, params, it_host) -> (state, info_row)``.
+    """Build ``step(state, params, it_host, out=None, eigh=torch.linalg.eigh)
+    -> (state, info_row)``.
 
     ``projection`` is one method for every bucket or the per-bucket dict of
     the calibrated dispatch; it goes to ``psd_project_pool`` unchanged.
@@ -106,10 +114,25 @@ def make_step(
     completed. It picks the sGS or ADMM branch on the host, where the JAX
     package has a device-side cond. That is exact: the count equals
     ``state.it`` until the done guard engages, and from then on the guard
-    returns the old state whichever branch ran.
+    returns the old state whichever branch ran. ``step.in_sgs(it_host)``
+    is that choice (the chunk runner keys its graphs on it).
+
+    ``step.key`` is every argument of this call, tensors and the mesh by
+    identity: two steps with equal keys compute the same function, so the
+    chunk runner's cache replays one step's graphs for the other.
+
+    ``out``: a state whose tensors receive the new state in place (the
+    chunk runner's static buffers; ``out`` may be ``state`` itself, since
+    the done guard's select is the step's last read of it). The values are
+    those of the step without ``out``. ``eigh`` computes the "eigh"
+    buckets' decompositions (the chunk runner runs them between graphs).
     """
 
-    def step(state: SolverState, params: SolveParams, it_host: int) -> Tuple[SolverState, torch.Tensor]:
+    def in_sgs(it_host: int) -> bool:
+        return it_host + 1 < switch_admm
+
+    def step(state: SolverState, params: SolveParams, it_host: int, out: Optional[SolverState] = None,
+             eigh: Callable = torch.linalg.eigh) -> Tuple[SolverState, torch.Tensor]:
         sa = params.sparse_a
         it = state.it + 1  # 1-based iteration number
         sig = state.sig
@@ -122,13 +145,13 @@ def make_step(
         # -- Step 2: PSD projection --------------------------------------
         Rd1 = spmv_at(sa, y_half) - params.C
         Xb = state.X + sig_c * Rd1
-        Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection, mesh=mesh)
+        Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection, mesh=mesh, eigh=eigh)
         S = (Xproj - state.X) / sig_c - Rd1
         SmC = S - params.C
 
         # -- Step 3: sGS second solve / best tracking --------------------
-        in_sgs = it_host + 1 < switch_admm
-        if in_sgs:
+        sgs = in_sgs(it_host)
+        if sgs:
             rhsy2 = state.Rp / sig_c - spmv_a(sa, SmC)
             y_new = params.neq.solve(rhsy2, warm=y_half)
             Rd1_new = spmv_at(sa, y_new) - params.C
@@ -150,7 +173,7 @@ def make_step(
 
         # -- Step 4: primal update ---------------------------------------
         Rd = Rd1_new + S
-        tau0 = TAU_SGS if in_sgs else TAU_ADMM
+        tau0 = TAU_SGS if sgs else TAU_ADMM
         tau = torch.where(
             state.errRd < stop_tol, sig.new_full((), max(TAU_ADMM, tau0 / 1.1)), tau0
         )
@@ -213,7 +236,7 @@ def make_step(
             S_best=S_best,
         )
         done = torch.maximum(state.maxfeas, state.relgap) < stop_tol
-        new_state = _select(done, state, new_state)
+        new_state = _select(done, state, new_state, out)
         info_row = torch.stack(
             [
                 new_state.pobj,
@@ -229,15 +252,281 @@ def make_step(
         )
         return new_state, info_row
 
+    step.in_sgs = in_sgs
+    step.key = (
+        stop_tol, switch_admm, sig_update_threshold, sig_update_stage_1, sig_min, sig_max, eig_rank,
+        tuple(sorted(projection.items())) if isinstance(projection, dict) else projection,
+        None if rp_hp is None else tuple(id(t) for t in rp_hp),
+        None if mesh is None else id(mesh),
+    )
     return step
 
 
 def run_chunk(step, state: SolverState, params: SolveParams, it_host: int, chunk: int):
     """Run ``chunk`` steps from ``state`` (which has completed ``it_host``
-    iterations); returns the new state and the (chunk, 8) info rows
-    ((chunk, B, 8) for a batch), both still on the device."""
+    iterations), each op launched from the host; returns the new state and
+    the (chunk, 8) info rows ((chunk, B, 8) for a batch), both still on the
+    device. The eager counterpart of ``make_chunk_runner``."""
     rows = []
     for k in range(chunk):
         state, row = step(state, params, it_host + k)
         rows.append(row)
     return state, torch.stack(rows)
+
+
+# ----------------------------------------------------------------------
+# The chunk runner: one recorded iteration per branch, replayed.
+# ----------------------------------------------------------------------
+
+
+def eager_reason(params: SolveParams, mesh: Optional[Mesh]) -> Optional[str]:
+    """Why a chunk must run eagerly (``run_chunk``), or None when the chunk
+    runner can record it: cg reads the host between its queued steps, host
+    solves in numpy, and a mesh's collectives (gloo) cannot be captured (a
+    one-card NCCL world has one rank)."""
+    if mesh is not None:
+        return "mesh: collectives between ranks are not captured"
+    if params.neq.mode == "cg":
+        return "cg: reads the host once per 16 queued CG steps"
+    if params.neq.mode == "host":
+        return "host: the normal solve runs in numpy"
+    return None
+
+
+@dataclasses.dataclass
+class _EighSegment:
+    """An eigh between two graphs: reads ``x`` (written by the graph before
+    it) and writes the static ``w``, ``v`` (read by the graph after it), in
+    eigh's own layout (``v`` batched column-major), so the graph after it
+    sees the tensors an eager step sees."""
+
+    x: Optional[torch.Tensor]
+    w: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def outputs_for(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        w = x.new_empty(x.shape[:-1])
+        v = x.new_empty(x.shape).mT  # each matrix column-major, as eigh returns it
+        return w, v
+
+    def run(self) -> None:
+        torch.linalg.eigh(self.x, out=(self.w, self.v))
+
+
+@dataclasses.dataclass
+class _Recording:
+    """One iteration of one (step, branch), recorded over the runner's
+    static state. ``parts``: on CUDA the captured graphs, with an
+    ``_EighSegment`` between two of them for each eigh bucket; on the CPU
+    the eigh segments alone, which ``plain`` (the recorded step run on the
+    static state) fills in order. ``row``: the static info row a replay
+    writes. ``launches``: the kernel launches one replay makes, which it
+    adds to ops/launches.py's counts (no wrapper runs on a replay)."""
+
+    parts: List[Union["torch.cuda.CUDAGraph", _EighSegment]] = dataclasses.field(default_factory=list)
+    row: Optional[torch.Tensor] = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=lambda: dict.fromkeys(LAUNCHES, 0))
+    plain: Optional[Callable[[], torch.Tensor]] = None
+
+    def replay(self) -> None:
+        if self.plain is not None:
+            self.row = self.plain()
+        else:
+            for part in self.parts:
+                if isinstance(part, _EighSegment):
+                    part.run()  # eigh checks its status on the host: one wait a bucket
+                else:
+                    part.replay()
+        add_launches(self.launches)
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream per device for every runner's eager first
+    iterations and captures: the library handles and the cuBLAS workspace
+    that an eager iteration sets up on a stream are then set up once."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _clone(state: SolverState) -> SolverState:
+    return SolverState(**{f.name: getattr(state, f.name).clone() for f in dataclasses.fields(SolverState)})
+
+
+class ChunkRunner:
+    """``make_chunk_runner``'s runner: ``runner(state, it_host, chunk)``
+    does what ``run_chunk(step, state, params, it_host, chunk)`` does, bit
+    for bit, by replaying one recorded iteration per branch.
+
+    The state lives in static buffers that the step updates in place
+    (``out=``). The first iteration of each branch (``step.in_sgs``) runs
+    eagerly on them as a real iteration, which builds every kernel, plan,
+    work table and library handle; then that iteration is recorded: on
+    CUDA captured into CUDA graphs (one, or one before, between and after
+    each eigh bucket, whose eigh runs eagerly between replays), drawn from
+    ``pool`` (a ``graph_pool_handle`` the solver's live graphs share); on
+    the CPU kept as the step itself, the plain version. Every
+    later iteration of that branch is one replay and one copy of its info
+    row into the chunk's (chunk, 8) rows, so a chunk that crosses
+    ``switch_admm`` or ends short needs no other recording. A capture that
+    fails raises; nothing falls back to ``run_chunk``.
+
+    The state returned is a copy: the next chunk's replays do not overwrite
+    it. Passed back in, it is not copied again.
+    """
+
+    def __init__(self, step, params: SolveParams, pool=None):
+        self.step, self.params = step, params
+        self.device = params.b.device
+        self.graphs = self.device.type == "cuda"
+        self.pool = (pool if pool is not None else torch.cuda.graph_pool_handle()) if self.graphs else None
+        self.stream = _capture_stream(self.device) if self.graphs else None
+        self.recordings: Dict[bool, _Recording] = {}
+        self.static: Optional[SolverState] = None
+        self.capture_s = 0.0  # host seconds spent capturing (the eager iterations excluded)
+        self._last: Optional[SolverState] = None
+
+    @contextlib.contextmanager
+    def _side_stream(self):
+        """The capture stream, ordered after and before the current one (on
+        the CPU, nothing)."""
+        if not self.graphs:
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            yield
+        cur.wait_stream(self.stream)
+
+    def _record(self, it_host: int) -> _Recording:
+        rec = _Recording()
+        step, params, static = self.step, self.params, self.static
+        if not self.graphs:
+            def eigh(x):  # the k-th eigh of a replay, into the k-th static outputs
+                k = eigh.calls
+                eigh.calls += 1
+                if k == len(rec.parts):
+                    rec.parts.append(_EighSegment(None, *_EighSegment.outputs_for(x)))
+                seg = rec.parts[k]
+                seg.x = x
+                seg.run()
+                return seg.w, seg.v
+
+            def plain():
+                eigh.calls = 0
+                return step(static, params, it_host, out=static, eigh=eigh)[1]
+
+            rec.plain = plain
+            return rec
+        t0 = time.perf_counter()
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize(self.device)
+        graph = [torch.cuda.CUDAGraph()]
+
+        def eigh(x):  # end the graph, run eigh between replays, start the next
+            graph[0].capture_end()
+            rec.parts.append(graph[0])
+            seg = _EighSegment(x, *_EighSegment.outputs_for(x))
+            rec.parts.append(seg)
+            graph[0] = torch.cuda.CUDAGraph()
+            graph[0].capture_begin(pool=self.pool)
+            return seg.w, seg.v
+
+        with self._side_stream():
+            graph[0].capture_begin(pool=self.pool)
+            rec.row = step(static, params, it_host, out=static, eigh=eigh)[1]
+            graph[0].capture_end()
+            rec.parts.append(graph[0])
+        rec.launches = {k: v - before[k] for k, v in LAUNCHES.items()}
+        add_launches(rec.launches, -1)  # nothing ran while capturing
+        torch.cuda.synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+        return rec
+
+    def __call__(self, state: SolverState, it_host: int, chunk: int):
+        if self.static is None:
+            self.static = _clone(state)
+        elif state is not self._last:
+            for f in dataclasses.fields(SolverState):
+                getattr(self.static, f.name).copy_(getattr(state, f.name))
+        static = self.static
+        rows = torch.empty((chunk,) + tuple(static.sig.shape) + (len(INFO_FIELDS),),
+                           dtype=static.sig.dtype, device=self.device)
+        for k in range(chunk):
+            branch = self.step.in_sgs(it_host + k)
+            rec = self.recordings.get(branch)
+            if rec is None:
+                with self._side_stream():
+                    rows[k] = self.step(static, self.params, it_host + k, out=static)[1]
+                self.recordings[branch] = self._record(it_host + k)
+                continue
+            rec.replay()
+            rows[k].copy_(rec.row)
+        self._last = _clone(static)
+        return self._last, rows
+
+    def free(self) -> None:
+        """Drop the recordings (their graphs release the pool) and the
+        static state."""
+        self.recordings.clear()
+        self.static = self._last = None
+
+
+def make_chunk_runner(step, params: SolveParams, pool=None) -> ChunkRunner:
+    """The counterpart of ``cuadmm_tpu.solver.step.make_chunk_runner``
+    (``jax.jit`` of a ``lax.scan`` over ``chunk`` steps, state donated):
+    a ``ChunkRunner`` over ``step`` and ``params``, whose graphs draw from
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``; a new one when None).
+    The chunk length is an argument of each call."""
+    return ChunkRunner(step, params, pool)
+
+
+class ChunkRunners:
+    """A solver's chunk runner cache, keyed as the JAX driver's ``_runner``
+    (cuadmm_tpu/solver/driver.py:333-340) by stop_tol and the step (the
+    runner keys its recordings on the branch): here by ``step.key``, which
+    holds stop_tol and every other argument of ``make_step``, and by the
+    parameters the graphs read. So a later solve whose step is made from
+    the same arguments replays the recordings of an earlier one. The cache
+    holds one runner: another key frees it, so one set of graphs is alive
+    at a time, drawn from the solver's graph pool. ``kind`` says how the
+    last chunk ran: "graphs" (CUDA), "plain" (the runner's CPU replay) or
+    "eager" (``run_chunk``, for ``eager_reason``).
+    """
+
+    def __init__(self):
+        self.runner: Optional[ChunkRunner] = None
+        self._pool = None
+        self.kind: Optional[str] = None
+        self.reason: Optional[str] = None
+
+    def run(self, step, state: SolverState, params: SolveParams, it_host: int, chunk: int,
+            mesh: Optional[Mesh] = None):
+        """``run_chunk(step, state, params, it_host, chunk)``, through the
+        runner of ``step.key`` and ``params`` or eagerly."""
+        self.reason = eager_reason(params, mesh)
+        if self.reason is not None:
+            self.kind = "eager"
+            return run_chunk(step, state, params, it_host, chunk)
+        runner = self.runner
+        if runner is None or runner.step.key != step.key or runner.params is not params:
+            self.free()
+            if params.b.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            runner = self.runner = make_chunk_runner(step, params, self._pool)
+        self.kind = "graphs" if runner.graphs else "plain"
+        return runner(state, it_host, chunk)
+
+    def free(self) -> None:
+        """Free the runner's graphs. Their pool is not used again: the
+        caching allocator keeps a pool whose graphs are all gone until its
+        blocks are released, and refuses a new capture into it, so the
+        next runner takes a new pool."""
+        if self.runner is not None:
+            self.runner.free()
+            self.runner = self._pool = None

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from cuadmm_tpu_torch.ops import precond_apply as tpa
+from cuadmm_tpu_torch.ops.launches import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -52,9 +53,9 @@ def test_plain_matches_pallas_interpret_and_dot_pair(n):
 
 def test_cpu_tensors_launch_nothing():
     M, r = _factor(128, 1)
-    before = tpa.LAUNCHES
+    before = LAUNCHES["k1"]
     y = tpa.fused_spd_apply(torch.as_tensor(M), torch.as_tensor(r))
-    assert tpa.LAUNCHES == before
+    assert LAUNCHES["k1"] == before
     torch.testing.assert_close(y, tpa.fused_spd_apply_ref(torch.as_tensor(M), torch.as_tensor(r)))
 
 
@@ -76,10 +77,10 @@ def test_cpu_tensors_launch_nothing():
          "mixed_devices", "meta_device"],
 )
 def test_wrapper_rejects(m, r, err):
-    before = tpa.LAUNCHES
+    before = LAUNCHES["k1"]
     with pytest.raises(err):
         tpa.fused_spd_apply(m, r)
-    assert tpa.LAUNCHES == before
+    assert LAUNCHES["k1"] == before
 
 
 @pytest.mark.parametrize("n", [128, 130, 517])
@@ -189,10 +190,10 @@ def _needs_card():
 def test_kernel_matches_plain_on_card(n):
     _needs_card()
     m, rv = _card_operands(n, 5)
-    before = tpa.LAUNCHES
+    before = LAUNCHES["k1"]
     y = tpa.fused_spd_apply(m, rv)
     torch.cuda.synchronize()
-    assert tpa.LAUNCHES == before + 1
+    assert LAUNCHES["k1"] == before + 1
     ref = tpa.fused_spd_apply_ref(m.double(), rv.double())
     assert _rel(y.cpu(), ref.cpu()) < REL_TOL
     # Deterministic: partials are summed in a fixed order.

@@ -16,6 +16,7 @@ import scipy.sparse as sp
 import torch
 
 from cuadmm_tpu_torch.ops import tri_stream as tts
+from cuadmm_tpu_torch.ops.launches import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -234,10 +235,10 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing(kind):
     lay, tiles, _, r, _ = _solve_case(kind, torch.float64)
     wrapper, ref = ((tts.packed_solve, tts.packed_solve_ref) if kind == "packed"
                     else (tts.band_solve, tts.band_solve_ref))
-    before = dict(tts.LAUNCHES)
+    before = dict(LAUNCHES)
     rt = torch.as_tensor(r)
     torch.testing.assert_close(wrapper(tiles, rt, lay), ref(tiles, rt, lay), rtol=0, atol=0)
-    assert tts.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 def test_kernel_step_tables_cover_every_tile_once():
@@ -340,10 +341,10 @@ def test_work_table_walk_matches_plain(lay):
 )
 def test_wrapper_rejects(tiles, r, err):
     lay = tts.make_layout(200, 64)
-    before = dict(tts.LAUNCHES)
+    before = dict(LAUNCHES)
     with pytest.raises(err):
         tts.packed_solve(tiles, r, lay)
-    assert tts.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 def _synthetic_factor(lay, seed, device):
@@ -374,10 +375,10 @@ def test_kernel_matches_plain_on_card(lay):
     packed = isinstance(lay, tts.PackedLayout)
     wrapper, ref = (tts.packed_solve, tts.packed_solve_ref) if packed else (tts.band_solve, tts.band_solve_ref)
     name = "packed_solve" if packed else "band_solve"
-    before = tts.LAUNCHES[name]
+    before = LAUNCHES[tts.COUNTER[name]]
     y = wrapper(tiles, r, lay)
     torch.cuda.synchronize()
-    assert tts.LAUNCHES[name] == before + 1
+    assert LAUNCHES[tts.COUNTER[name]] == before + 1
     plain = ref(tiles.double(), r.double(), lay)
     assert float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < KERNEL_REL_TOL
     # Deterministic: partials are summed in the tables' fixed order.
@@ -410,10 +411,10 @@ def test_kernel_grid_past_co_residency_raises_on_card(monkeypatch):
     y = tts.band_solve(tiles, r, lay)
     key = (torch.cuda.current_device(), lay.block)
     monkeypatch.setitem(tts._CTAS, key, 2 * tts._CTAS[key])
-    before = tts.LAUNCHES["band_solve"]
+    before = LAUNCHES["k3"]
     with pytest.raises(RuntimeError, match="launch"):
         tts.band_solve(tiles, r, lay)
-    assert tts.LAUNCHES["band_solve"] == before
+    assert LAUNCHES["k3"] == before
     monkeypatch.undo()
     assert torch.equal(tts.band_solve(tiles, r, lay), y)
 
@@ -434,3 +435,36 @@ def test_kernel_is_two_launches_per_solve_on_card():
         torch.cuda.synchronize()
     sweeps = [e for e in prof.key_averages() if "tri_sweep_kernel" in e.key]
     assert sum(e.count for e in sweeps) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lay", [tts.make_layout(3000, 1024), tts.make_band_layout(5000, 1500, 1024)],
+                         ids=["packed", "band"])
+def test_captured_solve_replays_on_a_new_epoch_on_card(lay):
+    """A solve captured into a CUDA graph and replayed 3 times in a row,
+    each with a new right-hand side copied in: every replay equals an eager
+    solve of its rhs bit for bit. The epoch lives in a device word that
+    each sweep advances; a host epoch frozen at capture would let the
+    second replay accept the first one's tagged words without waiting."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    packed = isinstance(lay, tts.PackedLayout)
+    kernel = tts.packed_solve if packed else tts.band_solve
+    tiles = _synthetic_factor(lay, 7, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    r_static = torch.randn(lay.n, device="cuda", generator=gen)
+    kernel(tiles, r_static, lay)  # builds the kernel, its work tables and scratch before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_static = kernel(tiles, r_static, lay)
+    rhs, replays = [], []
+    for _ in range(3):
+        rhs.append(torch.randn(lay.n, device="cuda", generator=gen))
+        r_static.copy_(rhs[-1])
+        graph.replay()
+        replays.append(y_static.clone())
+    torch.cuda.synchronize()
+    for r, y in zip(rhs, replays):
+        assert torch.equal(y, kernel(tiles, r, lay))
+    assert not torch.equal(replays[0], replays[1])
