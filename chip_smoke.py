@@ -15,7 +15,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernel runs: finite, bitwise equal over two calls, and within 1e-5
    (relative) of the plain version on the lower triangle; both times from
    CUDA events, one torch.linalg.multi_dot call (two cuBLAS matvecs) as
-   library_ms, the bound over the triangle;
+   library_ms, the bound over the triangle; then ``apply_padded`` at n =
+   1,000 and 5,001 (no multiples of 128): one K1 launch each, within 1e-5
+   of the plain version on the same padded operands;
 4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
    8, 13, 16, 32, 45, 64, 80, 128 with the batch of the grid problem's
    bucket each n falls in (80, 598, 182, 49, 11; 56 at n = 128, the
@@ -45,7 +47,10 @@ Phases, in order; any failure raises and exits non-zero:
    every iteration; host syncs per iteration of each method; a profile of
    "jacobi" and "eigh"; "auto" again with pack_to=128; "jacobi" with
    pack_to=128 (one 128x56 bucket: 20 warm, 50 timed iterations, gated on
-   K4 on that bucket every iteration);
+   K4 on that bucket every iteration); then ``psd_project`` on the grid's
+   structure under "eigh", "jacobi" (K4 once a bucket, counted) and
+   "poly", within 1e-10 (f64, of the largest |entry|) of the pool route
+   svec_from_pool(psd_project_pool(pool_from_svec(x)));
 7. hold K2 (packed_solve) and K3 (band_solve) against their plain versions
    on synthetic factors made on the card (diagonal tiles near the
    identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at six layouts,
@@ -63,7 +68,7 @@ Phases, in order; any failure raises and exits non-zero:
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
    normal_solver "auto" (resolves to banded: RCM bandwidth 4, B 1024,
-   nb 67, nbw 1) and "packed", each gated on the probe rhs residual, finite
+   nb 67, nbw 1 by the card's band model) and "packed", each gated on the probe rhs residual, finite
    and decreasing residuals and K3 (resp. K2) on every refinement sweep;
    the two runs' last errRp agree to 1e-6; host syncs per iteration of
    each, a profile of the banded run (device ops per iteration, busy
@@ -80,11 +85,25 @@ Phases, in order; any failure raises and exits non-zero:
 10. run the 20x80 grid (max-cut, chordally decomposed, 44,312
    constraints) with dense_chol_max=45_056 and normal_solver "auto", which
    must resolve to precond at n_pad 44,416 (K1 past the first design's
-   32,768 cap), and with "banded": projection "auto", 20 warm and 100
+   32,768 cap) with AA^T formed from dense A on the card (the card's
+   dense-A budget), and with "banded": projection "auto", 20 warm and 100
    timed plain-ADMM iterations, gated on the probe rhs residual, finite and
    decreasing residuals and (precond) K1 on exactly every refinement
    sweep; the two runs' last errRp agree to 1e-6; init breakdown, peak
    memory after init and after the run, and a profile of the precond run;
+10b. the card's limits (cuadmm_tpu_torch/ops/limits.py): the card line,
+   its memory and every derived limit; the build peaks the limits were
+   fitted to, measured again with cuadmm_tpu_torch/card_fit.py (packed and
+   banded on the 20x60 and 20x120 grids, precond on the 20x60 and 20x80
+   grids, band_cholesky on a synthetic PushBox N=30 band), each within 2%
+   (or 64 MiB) of its committed line; K3 at B 1024, 512 and 256 on the
+   20x120 grid's, a mid, pendulum N=80's and PushBox N=30's bands beside
+   the band model's prediction, the model's pick the fastest measured on
+   each or within 3% of it (the grid band's B 1024 and 512 tie); the
+   20x60 grid through "banded" (gated as the grid runs) beside phase 6's
+   precond rate, and the 20x80 pair of phase 10; precond on QUASAR-500
+   (756,501 rows, past the card's n_pad) raising with
+   max_memory_allocated unchanged;
 11. run a plain max-cut SDP at the G-set's G22 size (2,000 nodes, edge
    probability 0.01: ~19,990 edges) the same way with projection "auto":
    split with no coupled row (an elementwise solve), and no K1 launch;
@@ -209,7 +228,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, compat, solve_escalated
+from cuadmm_tpu_torch import BatchedSDPSolver, SDPSolver, SolverConfig, _build, card_fit, compat, solve_escalated
 from cuadmm_tpu_torch.compat import cuadmm
 from cuadmm_tpu_torch.device import card_line
 from cuadmm_tpu_torch.io import txt as txtio
@@ -223,11 +242,12 @@ from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops import chol, jacobi, precond_apply, tri_stream
+from cuadmm_tpu_torch.ops import chol, jacobi, limits, precond_apply, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.launches import LAUNCHES, reset as reset_launches
-from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
-from cuadmm_tpu_torch.ops.sparse import aat_matvec
+from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool, reconstruct_clamped
+from cuadmm_tpu_torch.ops.sparse import aat_matvec, build_sparse_a, normalize_rows
+from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.parallel import rank_jobs
 from cuadmm_tpu_torch.parallel.dryrun import dryrun_multichip
 from cuadmm_tpu_torch.parallel.launch import run_ranks
@@ -235,6 +255,7 @@ from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import step as step_mod
 from cuadmm_tpu_torch.solver.step import make_chunk_runner, run_chunk
+from cuadmm_tpu_torch.structure import BlockStructure
 from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 # 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
@@ -242,6 +263,7 @@ K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768, 44416, 65536)
 K1_SOLVE_MAX = 32768  # past it the test M is made directly, not as inv(L)
 K1_REL_TOL = 1e-5  # f32 sums taken in another order than cuBLAS's
 K1_REPS = 20
+APPLY_PADDED_SIZES = (1000, 5001)  # apply_padded's r: not multiples of 128
 STANDIN_N_PAD = 17152  # the stand-in's padded factor: the main path's K1 shape
 PROFILE_ITERS = 50
 PROFILE_TOP = 10  # device ops listed per mode, by self time
@@ -260,6 +282,7 @@ GRID = (20, 60)
 GRID_BUCKETS = ((4, 80), (8, 598), (16, 182), (32, 49), (64, 11))
 GRID_N_PAD = 32512
 GRID_WARM, GRID_ITERS, SYNC_ITERS = 100, 200, 10
+PSD_PROJECT_TOL = 1e-10  # psd_project against the pool route, relative to the largest |entry| (f64)
 # K2/K3's layouts, (label, layout); "grid" are the large grid's own.
 TRI_LAYOUTS = (
     ("packed probe", tri_stream.make_layout(256, 128)),
@@ -273,6 +296,10 @@ TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain versio
 TRI_REPS = 5
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
+# The large grid's band (RCM bandwidth 4) as the card's band model picks it
+# (ops/limits.py), as the JAX package's TPU model did (PRs 3-10): B 1024,
+# nb 67, nbw 1. K3 runs B 512 there within 3% of it (a tie, PERF.md).
+LARGE_GRID_BAND = (1024, 67, 1)
 ERRRP_AGREE = 1e-6  # two normal solvers: same iteration, another f32 factor
 # QUASAR-500 (cuadmm_tpu_torch/models/quasar.py): constraints, A^T
 # nonzeros, block size, coupled rows and K1's padded prefix.
@@ -288,6 +315,12 @@ CERT_MODES = ("precond", "auto", "dense", "cg", "host")
 CERT_MODES_F32 = CERT_MODES + ("packed", "banded")  # every normal solver that needs no mesh
 PROBE_TOL = {"float64": 1e-6, "float32": 1e-5}  # the f32 calibration target is 1e-6 to 1e-5
 BATCH = 8  # stand-ins in the batched phase
+# A build's measured peak against its committed line (ops/limits.py): 2%,
+# or 64 MiB for small factors, whose fixed overhead differs by layout (the
+# 20x60 grid's band peaks 29 MB above its tiles at B 1024, 9 MB at B 512;
+# the limits concern factors of tens of GB).
+PEAK_SLACK, PEAK_SLACK_BYTES = 1.02, 64 * 2**20
+QUASAR_PRECOND_DENSE_CHOL_MAX = 10**6  # lets precond take QUASAR-500's 756,501 rows: past the card
 REPORT = Path("chiprun_out") / "chip_smoke.json"
 report: dict = {}  # everything printed, written to REPORT at the end
 
@@ -406,7 +439,31 @@ def compare_k1() -> dict:
                                  bound_by="bytes", library_ms=l_ms)
         del m, r, y, ref
         torch.cuda.empty_cache()
+    compare_apply_padded()
     return at_main_shape
+
+
+def compare_apply_padded() -> None:
+    """``apply_padded`` on an r that is no multiple of 128: one K1 launch on
+    the padded factor, held to the plain version on the same padded operands
+    within K1_REL_TOL."""
+    for i, n in enumerate(APPLY_PADDED_SIZES):
+        m, r = _k1_operands(n, seed=50 + i)
+        mp = precond_apply.pad_factor(m)  # the lower triangle, zero-padded
+        del m
+        before = LAUNCHES["k1"]
+        y = precond_apply.apply_padded(mp, r)
+        torch.cuda.synchronize()
+        check(LAUNCHES["k1"] == before + 1, f"apply_padded n={n}: {LAUNCHES['k1'] - before} K1 launches, not 1")
+        ref = precond_apply.fused_spd_apply_ref(mp, torch.nn.functional.pad(r, (0, mp.shape[0] - n)))[:n]
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+        check(y.shape == (n,) and bool(torch.isfinite(y).all()) and rel <= K1_REL_TOL,
+              f"apply_padded n={n}: rel err {rel:.3e}")
+        row = dict(n=n, n_pad=mp.shape[0], rel_err=rel, max_abs_err=float((y - ref).abs().max()))
+        print("K1 apply_padded " + json.dumps(row), flush=True)
+        report.setdefault("k1_apply_padded", []).append(row)
+        del mp, r, y, ref
+        torch.cuda.empty_cache()
 
 
 def k4_tol(n: int, dtype) -> float:
@@ -735,10 +792,7 @@ def standin(prob: Problem) -> int:
 
 
 def grid_problem(shape=GRID):
-    rows, cols = shape
-    path = lambda k: sp.diags([np.ones(k - 1)], [1], shape=(k, k))
-    W = sp.kron(sp.eye(rows), path(cols)) + sp.kron(path(rows), sp.eye(cols))
-    return maxcut_chordal((W + W.T).tocsr())[0]
+    return card_fit.grid_problem(shape)
 
 
 def host_syncs_per_iteration(solver) -> dict:
@@ -809,7 +863,32 @@ def grid() -> int:
         del solver, neq, res
         torch.cuda.empty_cache()
     emit("grid auto it/s by pack_to", {str(k[1]): v for k, v in rates.items() if k[0] == "auto"})
+    compare_psd_project(prob)
     return launches
+
+
+def compare_psd_project(prob: Problem) -> None:
+    """``psd_project`` (svec -> blocks -> each method -> svec) on the grid's
+    structure under "eigh", "jacobi" (K4 once a bucket) and "poly", held to
+    the pool route svec_from_pool(psd_project_pool(pool_from_svec(x))) in
+    f64 within PSD_PROJECT_TOL of the largest |entry|."""
+    st = BlockStructure(prob.blk, "pow2", 64, 0)
+    check(tuple((bk.n, bk.count) for bk in st.buckets) == GRID_BUCKETS, "psd_project: grid buckets")
+    maps = device_maps(st, torch.float64, "cuda")
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(st.vec_len), device="cuda")
+    out = {}
+    for method in ("eigh", "jacobi", "poly"):
+        reset_launches()
+        y = psd_project(x, maps, method=method)
+        torch.cuda.synchronize()
+        k4 = LAUNCHES["k4"]
+        ref = svec_from_pool(psd_project_pool(pool_from_svec(x, maps), maps, method=method), maps)
+        rel = float((y - ref).abs().max() / ref.abs().max())
+        want_k4 = len(GRID_BUCKETS) if method == "jacobi" else 0
+        check(k4 == want_k4, f"psd_project {method}: K4 launched {k4} times, not {want_k4}")
+        check(bool(torch.isfinite(y).all()) and rel <= PSD_PROJECT_TOL, f"psd_project {method}: rel err {rel:.3e}")
+        out[method] = dict(rel_err=rel, k4_launches=k4)
+    emit("grid psd_project", out)
 
 
 def _synthetic_factor(lay, seed: int) -> torch.Tensor:
@@ -951,7 +1030,7 @@ def large_grid(prob: Problem) -> dict:
         check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
         if mode == "banded":
             lay = tri_stream.BandLayout(*neq.band_layout)
-            check((lay.block, lay.nb, lay.nbw) == (1024, 67, 1), f"{what}: band layout {lay}")
+            check((lay.block, lay.nb, lay.nbw) == LARGE_GRID_BAND, f"{what}: band layout {lay}")
         else:
             lay = tri_stream.PackedLayout(*neq.packed_layout)
             check((lay.nb, lay.T) == (67, 2278), f"{what}: packed layout {lay}")
@@ -1054,10 +1133,12 @@ def quasar(prob: Problem) -> None:
         big_block_run(prob, proj, QUASAR_P, f"quasar-500 projection={proj}")
 
 
-def grid_past_cap() -> None:
+def grid_past_cap() -> Problem:
     """The 20x80 grid with dense_chol_max raised past 32,768: "auto" must
     resolve to precond with K1 at n_pad 44,416 on exactly every refinement
-    sweep; "banded" on the same problem is the yardstick for errRp."""
+    sweep, AA^T formed from dense A on the card (its 10.9 GB fit the card's
+    dense-A budget); "banded" on the same problem is the yardstick for
+    errRp. Returns the problem."""
     t0 = time.perf_counter()
     prob = grid_problem(PAST_CAP_GRID)
     emit("20x80 grid problem", dict(
@@ -1078,6 +1159,8 @@ def grid_past_cap() -> None:
         check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
         if mode == "precond":
             check(neq.inv_l.shape[0] == PAST_CAP_N_PAD, f"{what}: factor n_pad {neq.inv_l.shape[0]}")
+            check(solver.init_breakdown.get("neq.aat") == "device",
+                  f"{what}: AA^T formed on the {solver.init_breakdown.get('neq.aat')}, not from dense A on the card")
         resid = _probe_normal_solve(solver, prob.con_num)
         res, elapsed, counts = timed_run(solver, BIG_BLOCK_ITERS, BIG_BLOCK_WARM)
         _gates(res, prob.vec_len, what)
@@ -1101,6 +1184,92 @@ def grid_past_cap() -> None:
     agree = abs(last["auto"] - last["banded"]) / abs(last["banded"])
     emit("20x80 grid errRp agreement", dict(precond=last["auto"], banded=last["banded"], rel=agree))
     check(agree <= ERRRP_AGREE, f"20x80 grid: precond and banded errRp differ by {agree:.3e}")
+    return prob
+
+
+def limits_phase(large: Problem, cap: Problem, quasar_prob: Problem) -> None:
+    """The card's limits (ops/limits.py): the derived limits; the build
+    peaks they were fitted to, measured again (card_fit.py) and held to the
+    committed lines within PEAK_SLACK; K3 at B 1024, 512 and 256 on four
+    bands beside the band model's prediction, its pick the fastest measured
+    on each; the 20x60 grid through "banded" beside its precond run of the
+    grid phase (projection "auto" both); the 20x80 grid's precond init of
+    the previous phase (dense A on the card); and precond past the card's
+    n_pad (QUASAR-500's 756,501 rows) raising before it allocates."""
+    dev = torch.device("cuda")
+    lim = limits.card_limits(dev)
+    out = dict(card=report["card"], total_bytes=lim.total_bytes, available_bytes=limits.available(lim.total_bytes),
+               headroom=limits.HEADROOM, limits=dataclasses.asdict(lim))
+    print("limits " + json.dumps(out), flush=True)
+    grid = grid_problem()
+    measured = card_fit.measure({GRID: grid, PAST_CAP_GRID: cap, LARGE_GRID: large}, dev)
+    lines = {"packed": limits.PACKED_PEAK, "banded": limits.BAND_PEAK, "precond": limits.PRECOND_PEAK}
+    for p in measured["peaks"]:
+        p["line_bytes"] = lines[p["mode"]](p["factor_bytes"])
+        print("limits peak " + json.dumps(p), flush=True)
+        check(p["peak_bytes"] <= max(p["line_bytes"] * PEAK_SLACK, p["line_bytes"] + PEAK_SLACK_BYTES),
+              f"limits: {p['mode']} {p['grid']} build peaked at {p['peak_bytes']} bytes, "
+              f"past its line's {p['line_bytes']:.0f}")
+    check(measured["peaks"][-1]["factored"], "limits: the synthetic PushBox band did not factor")
+    ranking = card_fit.band_ranking(measured["k3"], limits.BAND_MODEL)
+    for row in measured["k3"]:
+        row["model_ms"] = limits.BAND_MODEL(row["T"], row["B"], row["nb"]) * 1e3
+        print("limits K3 " + json.dumps(row), flush=True)
+    for r in ranking:
+        print("limits K3 ranking " + json.dumps(r), flush=True)
+        check(r["pick_is_fastest"], f"limits: the band model picks B {r['model'][0]} on {r['band']}, "
+                                    f"more than {card_fit.K3_TIE:.0%} slower than the fastest, B {r['measured'][0]}")
+    out.update(peaks=measured["peaks"], k3=measured["k3"], k3_ranking=ranking,
+               refit=card_fit.fit(measured))
+
+    what = "grid normal_solver=banded"
+    cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection="auto",
+                       normal_solver="banded")
+    t0 = time.perf_counter()
+    solver = SDPSolver(grid, cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    neq = solver.params.neq
+    check(neq.mode == "banded", f"{what}: resolved to {neq.mode!r}")
+    resid = _probe_normal_solve(solver, grid.con_num)
+    res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
+    _gates(res, grid.vec_len, what)
+    _gate_launches(solver, counts, GRID_ITERS, 1, what)
+    precond = report["grid auto pack_to=0"]
+    out["grid precond and banded"] = dict(
+        con_num=grid.con_num, precond_it_per_s=precond["it_per_s"], precond_applies=precond["applies"],
+        banded_it_per_s=GRID_ITERS / elapsed, banded_applies=neq.applies, banded_init_s=init_s,
+        band_layout=tri_stream.BandLayout(*neq.band_layout)._asdict(), banded_launches=counts,
+        banded_residual_norm=resid, banded_errRp_last=float(res.info["errRp"][-1]),
+        precond_errRp_last=precond["errRp_last"])
+    del solver, neq, res
+    torch.cuda.empty_cache()
+    pc, bd = report["20x80 grid normal_solver=auto"], report["20x80 grid normal_solver=banded"]
+    out["20x80 grid precond and banded"] = dict(
+        precond_it_per_s=pc["it_per_s"], banded_it_per_s=bd["it_per_s"], precond_init_s=pc["init_s"],
+        precond_factorize_s=pc["init_breakdown"].get("neq.factorize"), aat=pc["init_breakdown"].get("neq.aat"),
+        precond_peak_mem_gb_init=pc["peak_mem_gb_init"], banded_init_s=bd["init_s"])
+
+    _, vals = normalize_rows(quasar_prob.At_rows, quasar_prob.At_cols, quasar_prob.At_vals, quasar_prob.con_num)
+    args = (quasar_prob.At_rows, quasar_prob.At_cols, vals, quasar_prob.con_num, quasar_prob.vec_len)
+    sa = build_sparse_a(*args, torch.float64, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        chol.build_normal_solver(*args, sa, "precond", torch.float64, dev,
+                                 dense_chol_max=QUASAR_PRECOND_DENSE_CHOL_MAX)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(raised is not None and "precond" in raised, "limits: precond past precond_max_n_pad did not raise")
+    check(peak == before, f"limits: precond past its n_pad allocated {peak - before} bytes before raising")
+    out["precond past its n_pad"] = dict(con_num=quasar_prob.con_num, precond_max_n_pad=lim.precond_max_n_pad,
+                                         raised=raised, bytes_allocated=peak - before)
+    del sa
+    torch.cuda.empty_cache()
+    emit("limits", out)
 
 
 def g22_maxcut() -> None:
@@ -2267,7 +2436,9 @@ def main() -> None:
     tri_launches = timed_phase(large_grid, large)
     quasar_prob = quasar_500()
     timed_phase(quasar, quasar_prob)
-    timed_phase(grid_past_cap)
+    cap = timed_phase(grid_past_cap)
+    timed_phase(limits_phase, large, cap, quasar_prob)
+    del cap
     timed_phase(g22_maxcut)
     timed_phase(standin_cg, prob)
     timed_phase(certified)

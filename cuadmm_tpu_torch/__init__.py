@@ -9,9 +9,11 @@ every normal solver: ``precond`` and ``split`` (whose
 inverse factor, or coupled prefix's, runs the hand-written CUDA kernel K1,
 ops/precond_apply.py), ``packed`` and ``banded`` (K2/K3,
 ops/tri_stream.py), ``dense``, ``cg``, ``host`` and ``sharded`` (over a
-rank mesh, parallel/tri_shard.py), with ``auto`` resolving among them; divergence recovery at both levels; the PSD
+rank mesh, parallel/tri_shard.py), with ``auto`` resolving among them
+(on CUDA by the card's own limits, ops/limits.py); divergence recovery at both levels; the PSD
 projection with its "eigh", "poly", "jacobi" and calibrated "auto"
-methods ("jacobi" runs the hand-written CUDA kernel K4, ops/jacobi.py);
+methods ("jacobi" runs the hand-written CUDA kernel K4, ops/jacobi.py),
+in pool and in svec coordinates (``psd_project``);
 ``solve_escalated``; the batched multi-instance solver; and several
 devices: a rank mesh over torch.distributed (parallel/mesh.py, one
 process per rank; ``parallel.launch.run_ranks`` starts ranks on one host,

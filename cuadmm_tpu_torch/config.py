@@ -33,17 +33,19 @@ class SolverConfig:
       with best-iterate tracking (reference: src/solver.cu:681-690). Set to 0
       for plain ADMM from the start, or a huge value for pure sGS.
 
-    TPU-execution parameters (no reference equivalent; they replace CUDA
-    streams / cuSOLVER workspace machinery):
+    Execution parameters (no reference equivalent; the port's counterparts
+    of the reference's CUDA streams and cuSOLVER workspaces):
 
     - ``dtype``: "float64" (reference parity; the default) or "float32"
       (f32 state with f64 tables for the refinement and the true-residual
       probe; see ``solve_escalated``).
-    - ``check_every``: the jitted iteration loop runs in chunks of this many
-      iterations between host-side convergence checks. The reference checks
-      every iteration on the host; on TPU that would serialize the pipeline.
+    - ``check_every``: the iteration loop runs in chunks of this many
+      iterations between host-side convergence checks (on the card a chunk
+      is replayed CUDA graphs, solver/step.py). The reference checks every
+      iteration on the host; here that would make the host wait for the
+      card every iteration.
     - ``bucket_rounding``: "pow2" pads each PSD block bucket up to the next
-      power of two (fewer XLA kernels, aligned shapes), "exact" keeps one
+      power of two (fewer batched calls, aligned shapes), "exact" keeps one
       bucket per distinct block size (reference behaviour: one
       syevjBatched/Xsyevd call per size class, src/solver.cu:540-592).
     - ``exact_above``: with "pow2" rounding, block sizes above this are
@@ -51,31 +53,43 @@ class SolverConfig:
     - ``pack_to``: pack PSD blocks of size <= pack_to/2 along the diagonals
       of pack_to x pack_to super-matrices before eigh (exact: spectral
       functions respect block-diagonal structure). Turns thousands of tiny
-      eigh problems into a few MXU-shaped ones. None = auto (128 on TPU,
-      off elsewhere), 0 = off. Ignored when ``eig_rank`` is set (top-k
-      per block is not preserved under packing).
+      eigh problems into a few large batched ones. None = auto: off in the
+      port (the JAX package packs to 128 on a TPU only), 0 = off. Ignored
+      when ``eig_rank`` is set (top-k per block is not preserved under
+      packing).
     - ``normal_solver``: how (AA^T) y = rhs is solved each iteration.
       "precond" = one-time f32 device Cholesky of the *regularized*
       AA^T + precond_eps*I inverted into an explicit dense M^-1
-      (MXU matvec per application), plus ``precond_applies`` f64
+      (one pass of K1 over its triangle per application), plus ``precond_applies`` f64
       refinement sweeps against the exact sparse AA^T per solve --
       correct even on the numerically singular AA^T of moment SDPs
       because ADMM right-hand sides are consistent (see ops/chol.py).
       "dense" = f64 Cholesky + cho_solve + the same refinement (CPU
-      parity path). "packed" = packed block-triangular tiles + Pallas
-      streaming sweeps (32k..73k cons). "banded" = block-band factor
+      parity path). "packed" = packed block-triangular tiles + K2's
+      streaming sweeps (past dense_chol_max, up to the card's packed
+      ceiling, ops/limits.py). "banded" = block-band factor
       under an RCM row permutation for chain/trajectory SDPs with
       banded AA^T (pendulum N=80, PushBox N=30) -- far fewer bytes per
-      solve and coverage past the packed HBM ceiling. "split" = exact
+      solve (K3) and coverage past the packed ceiling. "split" = exact
       direct solve when AA^T is block-diagonal under a permutation.
       "sharded" = distributed blocked Cholesky + triangular solves over
       a rank mesh (``SDPSolver(mesh=)``, parallel/tri_shard.py) for
       problems no single device can factor. "cg" = device preconditioned conjugate
       gradient (FSAI / block-Jacobi). "host" = scipy sparse
-      factorization with a host callback per solve (reference-style; CPU
-      backend only -- TPU PJRT here rejects callbacks). "auto" picks by
-      structural probes (split coupling, RCM bandwidth) and an HBM
-      model: split -> precond/dense -> banded/packed -> sharded -> cg.
+      factorization; every solve copies rhs to the host and the answer
+      back (reference-style). "auto" picks by structural probes (split
+      coupling, RCM bandwidth) and, past dense_chol_max on the card, the
+      card's memory and K3's measured band model (ops/limits.py):
+      split -> precond/dense -> banded/packed -> sharded -> cg.
+    - ``dense_chol_max``: the largest con_num ``auto`` gives an explicit
+      inverse factor (precond on the card) and the largest split prefix;
+      past it ``auto`` takes the packed or banded factor. At 32,768 (the
+      JAX package's default) the inverse factor is a 4.3 GB f32 square and
+      its build holds three of them, 12.8 GB of the H100's 85.0 GB. The
+      card allows an inverse factor up to
+      ``card_limits(device).precond_max_n_pad`` (ops/limits.py: n_pad
+      79,872 on an NVIDIA H100 80GB HBM3, a 76.3 GB build); raised past
+      it, a precond or split build raises before it allocates.
     - ``precond_eps``: relative diagonal regularization of the f32
       preconditioner factor (escalates x10 on Cholesky failure).
     - ``precond_applies``: refinement sweeps per solve. Each sweep costs
@@ -105,7 +119,7 @@ class SolverConfig:
     # sGS -> ADMM switch.
     switch_admm: int = 50_000  # reference default 5e4, src/solver.cu:332
 
-    # TPU execution.
+    # Execution.
     dtype: str = "float64"
     check_every: int = 50
     bucket_rounding: str = "pow2"
@@ -115,7 +129,8 @@ class SolverConfig:
     # "poly" (matmul-only composite polynomial sign filter,
     # ops/polyfilter.py), "jacobi" (batched cyclic Jacobi, ops/jacobi.py),
     # or "auto" (calibrated per-bucket dispatch from the committed sweep
-    # tables when available, else poly on TPU / eigh elsewhere).
+    # tables when available, else eigh; the JAX package takes poly on a
+    # TPU).
     # eig_rank forces eigh.
     projection: str = "auto"
     normal_solver: str = "auto"
@@ -126,7 +141,7 @@ class SolverConfig:
     # CG preconditioner family: "auto" (FSAI, falling back to block-Jacobi
     # if the build fails), "fsai", "block_jacobi", or "jacobi". FSAI
     # (ops/fsai.py) is a sparse approximate inverse Cholesky factor applied
-    # as two sparse matvecs -- the TPU-native analog of the reference's
+    # as two sparse matvecs -- the matvec-shaped analog of the reference's
     # CHOLMOD triangular solves (cholesky_cpu.h:62-155); measured 3.5-5.6x
     # fewer CG iterations than (block-)Jacobi on PlanarHand N=1.
     cg_precond: str = "auto"

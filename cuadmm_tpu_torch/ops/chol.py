@@ -40,7 +40,10 @@ AA^T + eps I; each solve copies rhs to the host and the answer back).
 The JAX package takes the f32 routes only on an accelerator (on the CPU it
 keeps precond's and split's factors in the state dtype); the port takes
 them on every device, so the CPU tests run the card's code except the
-kernels. ``auto`` resolves as the JAX package does, on the CPU as there.
+kernels. ``auto`` resolves by the JAX package's rule, on the CPU as there;
+on CUDA the numbers that rule reads past dense_chol_max (the packed and
+band ceilings, the band's block) are the card's own (ops/limits.py), as
+are the dense-A budget and the inverse factor's largest n_pad.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ import torch
 from cuadmm_tpu_torch.device import synchronize
 from cuadmm_tpu_torch.ops import tri_stream
 from cuadmm_tpu_torch.ops.fsai import build_fsai, fsai_tables
-from cuadmm_tpu_torch.ops.precond_apply import fused_spd_apply, pad_factor
+from cuadmm_tpu_torch.ops.limits import CardLimits, card_limits
+from cuadmm_tpu_torch.ops.precond_apply import LANE, fused_spd_apply, pad_factor
 from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA, _build_ell, _ell_matvec, aat_matvec
 from cuadmm_tpu_torch.parallel import tri_shard
 from cuadmm_tpu_torch.parallel.mesh import Mesh
@@ -75,14 +79,6 @@ CG_BLOCK = 16
 # Totals over cg solves (steps taken, host waits), for reports; callers
 # reset them.
 CG_STATS = {"solves": 0, "steps": 0, "waits": 0}
-
-# The JAX package's thresholds past dense_chol_max (cuadmm_tpu/ops/chol.py:
-# 99-109), sized there for a 16 GB chip and kept so that ``auto`` picks what
-# the JAX package picks. Largest con_num auto routes to the packed factor:
-PACKED_MAX_CON = 73_000
-# Largest f32 band factor auto places:
-BAND_MAX_BYTES = int(14.2 * 2**30)
-
 
 def _rcm_bandwidth(aat) -> tuple:
     """(bandwidth, permutation) of AA^T under reverse Cuthill-McKee; the
@@ -101,22 +97,26 @@ def _rcm_bandwidth(aat) -> tuple:
     return bw_rcm, perm
 
 
-def past_ceiling_mode(con_num: int, bw: Optional[int], on_accel: bool, n_devices: int = 1) -> str:
-    """The mode ``auto`` picks past dense_chol_max (cuadmm_tpu/ops/chol.py:
-    802-842). On an accelerator: the packed triangle if it streams at most
-    15% more bytes than the band factor at RCM bandwidth ``bw``, else the
-    band if it fits BAND_MAX_BYTES, else packed if con_num allows, else
-    sharded over ``n_devices`` > 1 ranks, else cg. Off an accelerator: cg."""
+def past_ceiling_mode(con_num: int, bw: Optional[int], on_accel: bool, n_devices: int,
+                      limits: Optional[CardLimits]) -> str:
+    """The mode ``auto`` picks past dense_chol_max, by the JAX package's rule
+    (cuadmm_tpu/ops/chol.py:802-842) over ``limits``' numbers. On an
+    accelerator: the packed triangle if it streams at most 15% more bytes
+    than the band factor at RCM bandwidth ``bw`` (its block picked by
+    ``limits.band_model``), else the band if it fits
+    ``limits.band_max_bytes``, else packed if con_num is within
+    ``limits.packed_max_con``, else sharded over ``n_devices`` > 1 ranks,
+    else cg. Off an accelerator: cg (``limits`` unread)."""
     if not on_accel:
         return "cg"
-    blay = tri_stream.make_band_layout(con_num, bw)
+    blay = tri_stream.make_band_layout(con_num, bw, model=limits.band_model)
     band_bytes = blay.T * blay.block * blay.block * 4
     packed_bytes = (
-        tri_stream.make_layout(con_num).T * 1024 * 1024 * 4 if con_num <= PACKED_MAX_CON else None
+        tri_stream.make_layout(con_num).T * 1024 * 1024 * 4 if con_num <= limits.packed_max_con else None
     )
     if packed_bytes is not None and packed_bytes <= band_bytes * 1.15:
         return "packed"
-    if band_bytes <= BAND_MAX_BYTES:
+    if band_bytes <= limits.band_max_bytes:
         return "banded"
     if packed_bytes is not None:
         return "packed"
@@ -379,6 +379,15 @@ def _jitter_cholesky(aat: torch.Tensor, scale, eps: float, what: str):
             raise RuntimeError(f"{what}Cholesky failed even with jitter 1e-1")
 
 
+def dense_a_fits(con_num: int, vec_len: int, itemsize: int, dense_a_budget: Optional[int]) -> bool:
+    """Whether ``_device_factorize`` builds A dense on its device: A beside
+    AA^T and its jitter clone fit ``dense_a_budget`` bytes
+    (``CardLimits.dense_a_budget``). None (the CPU): always, since the host
+    route would hold AA^T densely in the same memory."""
+    need = (con_num * vec_len + 2 * con_num * con_num) * itemsize
+    return dense_a_budget is None or need <= dense_a_budget
+
+
 def _device_factorize(
     at_svec_idx,
     at_con_idx,
@@ -388,17 +397,22 @@ def _device_factorize(
     eps: float,
     device: torch.device,
     dtype: torch.dtype = torch.float32,
-    dense_a_build_limit: int = 6 * 1024**3,
+    dense_a_budget: Optional[int] = None,
+    timings: Optional[Dict[str, object]] = None,
 ):
     """Cholesky factor of AA^T + eps*scale*I on ``device`` in ``dtype``.
 
     Scatters A dense on the device (duplicate COO entries add) and forms
-    AA^T with one matmul; past ``dense_a_build_limit`` bytes of dense A the
-    sparse product is formed on the host and shipped dense instead. Returns
+    AA^T with one matmul when ``dense_a_fits``; otherwise the sparse product
+    is formed on the host and shipped dense. ``timings``, when given,
+    receives ``aat``: where AA^T was formed ("device" or "host"). Returns
     (L, eps), eps as the jitter ladder left it (``_jitter_cholesky``).
     """
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    if con_num * vec_len * np.dtype(np_dtype).itemsize <= dense_a_build_limit:
+    on_device = dense_a_fits(con_num, vec_len, np.dtype(np_dtype).itemsize, dense_a_budget)
+    if timings is not None:
+        timings["aat"] = "device" if on_device else "host"
+    if on_device:
         rows = torch.as_tensor(np.asarray(at_con_idx, np.int64), device=device)
         cols = torch.as_tensor(np.asarray(at_svec_idx, np.int64), device=device)
         v = torch.as_tensor(np.asarray(vals, np_dtype), device=device)
@@ -434,12 +448,13 @@ def _tri_inv(l: torch.Tensor) -> torch.Tensor:
     """Explicit inverse of a lower-triangular factor.
 
     Error ~ cond(L) * eps = sqrt(cond(P)) * eps, enough for a refined
-    preconditioner. The JAX package blocks this by hand only to dodge an
-    XLA temporary blow-up on a 16 GB chip; a triangular solve against the
-    identity needs two n^2 f32 buffers beside L (and ``pad_factor``'s copy
-    one more after the identity is freed: 23.6 GB at n = 44,312), which the
-    H100's 80 GB holds. Callers pass the result through ``pad_factor``,
-    which keeps only its lower triangle.
+    preconditioner. The JAX package blocks this by hand to bound XLA's
+    temporaries (cuadmm_tpu/ops/chol.py); here a triangular solve against
+    the identity needs two n^2 f32 buffers beside L (and ``pad_factor``'s
+    copy one more after the identity is freed: 23.6 GB at n = 44,312), the
+    three squares that ``CardLimits.precond_max_n_pad`` bounds. Callers
+    pass the result through ``pad_factor``, which keeps only its lower
+    triangle.
     """
     eye = torch.eye(l.shape[0], dtype=l.dtype, device=l.device)
     return torch.linalg.solve_triangular(l, eye, upper=False)
@@ -519,11 +534,12 @@ def _block_jacobi_inv(aat: sp.csr_matrix, con_num: int, block: int, eps: float, 
 
 
 def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max,
-                  n_devices: int = 1):
+                  n_devices: int = 1, limits: Optional[CardLimits] = None):
     """``auto`` as the JAX package resolves it (cuadmm_tpu/ops/chol.py:
-    781-847), ``n_devices`` the mesh's size. Returns (mode, AA^T on the
-    host or None, RCM probe or None); the last two are only computed past
-    dense_chol_max on an accelerator."""
+    781-847), ``n_devices`` the mesh's size, past dense_chol_max on an
+    accelerator with ``limits``' numbers (``past_ceiling_mode``). Returns
+    (mode, AA^T on the host or None, RCM probe or None); the last two are
+    only computed past dense_chol_max on an accelerator."""
     cpu_max_factor_bytes = 2**31 - 1
     # Coupled rows: constraints sharing an svec column with another.
     col_mult = np.bincount(at_svec_idx, minlength=vec_len)
@@ -539,7 +555,7 @@ def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_acc
         if on_accel:
             aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
             band_probe = _rcm_bandwidth(aat)
-        mode = past_ceiling_mode(con_num, band_probe[0] if band_probe else None, on_accel, n_devices)
+        mode = past_ceiling_mode(con_num, band_probe[0] if band_probe else None, on_accel, n_devices, limits)
     if not on_accel:  # the JAX package's CPU factor-size guards
         if mode == "dense" and con_num * con_num * 8 > cpu_max_factor_bytes:
             mode = "precond"
@@ -548,8 +564,24 @@ def _resolve_auto(at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_acc
     return mode, aat, band_probe
 
 
+def _check_precond_fits(n: int, limits: Optional[CardLimits], mode: str) -> None:
+    """Raise, before anything is allocated, when an inverse factor of ``n``
+    rows (precond's, or split's prefix) passes ``limits.precond_max_n_pad``:
+    its build holds three f32 squares of n_pad. No limits (the CPU): no
+    check."""
+    n_pad = -(-n // LANE) * LANE
+    if limits is not None and n_pad > limits.precond_max_n_pad:
+        square = 4.0 * n_pad * n_pad
+        raise ValueError(
+            f"normal_solver={mode!r}: the inverse factor's build holds three f32 squares of n_pad "
+            f"{n_pad} ({3 * square / 1e9:.2f} GB), past the n_pad {limits.precond_max_n_pad} that "
+            f"its device's {limits.total_bytes / 1e9:.2f} GB allow; lower dense_chol_max or use "
+            "normal_solver='banded', 'packed' or 'cg'"
+        )
+
+
 def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, dense_chol_max,
-                  precond_eps, applies, device) -> NormalEqSolver:
+                  precond_eps, applies, device, limits) -> NormalEqSolver:
     """split (cuadmm_tpu/ops/chol.py:922-1031): the coupled set S from the
     shared-column probe, the p x p prefix A_S A_S^T formed on the host and
     factored in f32 with the jitter ladder from max(precond_eps, 1e-5)
@@ -563,6 +595,7 @@ def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, den
         raise ValueError(
             f"normal_solver='split': coupled set is {p} rows, past dense_chol_max={dense_chol_max}"
         )
+    _check_precond_fits(p, limits, "split")
     diag = np.bincount(at_con_idx, weights=np.asarray(vals) ** 2, minlength=con_num)
     scale = max(float(diag.mean()), 1e-30)
     perm = np.concatenate([S, np.setdiff1d(np.arange(con_num), S)])
@@ -686,6 +719,7 @@ def build_normal_solver(
     fsai_pattern_power: int = 2,
     calibrate_target: Optional[float] = None,
     mesh: Optional[Mesh] = None,
+    limits: Optional[CardLimits] = None,
 ) -> NormalEqSolver:
     """Prepare the solve once at init and return a device-resident solver.
 
@@ -700,16 +734,22 @@ def build_normal_solver(
     count must reach in every mode with sweeps (None: ``CALIBRATE_TARGET``,
     the f64 state's).
     ``timings``, when given, receives the wall seconds of each stage (and
-    the band's bandwidth and layout, FSAI's nonzeros).
+    the band's bandwidth and layout, FSAI's nonzeros, where AA^T was formed).
+    ``limits`` are the device's (None: ``card_limits(device)`` on CUDA,
+    none on the CPU): ``auto``'s numbers past dense_chol_max, the dense-A
+    budget, and the inverse factor's largest n_pad, past which precond and
+    split raise before they allocate.
     """
     on_accel = device.type == "cuda"
+    if limits is None and on_accel and mode not in ("cg", "host"):
+        limits = card_limits(device)
     if mode == "inv":  # legacy alias
         mode = "precond"
     aat = band_probe = None
     if mode == "auto":
         mode, aat, band_probe = _resolve_auto(
             at_svec_idx, at_con_idx, vals, con_num, vec_len, dtype, on_accel, dense_chol_max,
-            1 if mesh is None else mesh.size,
+            1 if mesh is None else mesh.size, limits,
         )
     if mode not in ("precond", "dense", "split", "packed", "banded", "sharded", "cg", "host"):
         raise ValueError(f"unknown normal_solver {mode!r}")
@@ -718,6 +758,8 @@ def build_normal_solver(
             f"normal_solver='precond' needs con_num <= dense_chol_max={dense_chol_max}, "
             f"got {con_num}"
         )
+    if mode == "precond":
+        _check_precond_fits(con_num, limits, mode)
     if mode == "sharded" and mesh is None:
         raise ValueError("normal_solver='sharded' requires a device mesh (SDPSolver(mesh=...))")
     if cg_tol is None or cg_tol <= 0.0:
@@ -749,11 +791,11 @@ def build_normal_solver(
     f32 = torch.float32
     applies_0 = max(applies, 1)
     if mode in ("precond", "dense"):
-        if mode == "precond":
-            args = (max(precond_eps, 1e-5), device)
-        else:
-            args = (max(eps, 1e-14), device, torch.float64)
-        l, eps_used = _device_factorize(at_svec_idx, at_con_idx, vals, con_num, vec_len, *args)
+        jitter, fdt = (max(precond_eps, 1e-5), f32) if mode == "precond" else (max(eps, 1e-14), torch.float64)
+        l, eps_used = _device_factorize(
+            at_svec_idx, at_con_idx, vals, con_num, vec_len, jitter, device, fdt,
+            None if limits is None else limits.dense_a_budget, timings,
+        )
         mark("factorize")
         if mode == "precond":
             inv_l = pad_factor(_tri_inv(l))
@@ -768,7 +810,7 @@ def build_normal_solver(
             )
     elif mode == "split":
         neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
-                            dense_chol_max, precond_eps, applies_0, device)
+                            dense_chol_max, precond_eps, applies_0, device, limits)
         mark("split_factorize")
     elif mode == "sharded":
         neq = _sharded_solver(aat, con_num, sparse_a, mesh, precond_eps, applies_0, device, timings)
@@ -797,7 +839,7 @@ def build_normal_solver(
             bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
             pinv = np.empty_like(perm)
             pinv[perm] = np.arange(con_num)
-            lay = tri_stream.make_band_layout(con_num, bw)
+            lay = tri_stream.make_band_layout(con_num, bw, model=None if limits is None else limits.band_model)
             rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
             # The jitter ladder starts at 1e-5 rather than precond_eps: a
             # band factors fine there, and the looser 1e-4 costs a sweep.

@@ -12,7 +12,8 @@ sizes its launch for each n_pad.
 
 ``fused_spd_apply`` launches the kernel for CUDA tensors and runs the
 plain version ``fused_spd_apply_ref`` for CPU tensors. There is no
-fallback: on CUDA it launches or raises.
+fallback: on CUDA it launches or raises. ``apply_padded`` pads an
+unpadded right-hand side around it.
 """
 
 from __future__ import annotations
@@ -182,6 +183,16 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     _check(lib, err, "kernel launch")
     launches.LAUNCHES["k1"] += 1
     return out[k * n_pad:]
+
+
+def apply_padded(m_padded: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``fused_spd_apply`` on an unpadded ``r`` (n,) with n <= n_pad: r is
+    cast to m's dtype and zero-padded to n_pad, and y sliced back to n
+    (cuadmm_tpu/ops/precond_apply.py::apply_padded). One K1 launch on
+    CUDA."""
+    n, n_pad = r.shape[0], m_padded.shape[0]
+    rp = torch.nn.functional.pad(r.to(m_padded.dtype), (0, n_pad - n)).contiguous()
+    return fused_spd_apply(m_padded, rp)[:n]
 
 
 def pad_factor(inv_l: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,18 @@
-"""svec <-> pool conversion as gathers over the BlockStructure tables.
+"""svec <-> pool and svec <-> block conversion as gathers over the
+BlockStructure tables.
 
-Port of cuadmm_tpu/ops/svec.py (device_maps, pool_from_svec,
-svec_from_pool). The pool layout is the hot loop's representation: the
-flat concatenation of every bucket's (count, n, n) dense symmetric tensor
-plus the free entries, off-diagonals at x_svec/sqrt(2) in both mirrored
-slots. These converters run only at solve boundaries. Layout sizes that
-jit treated as static are plain Python ints here.
+Port of cuadmm_tpu/ops/svec.py (device_maps, svec_to_blocks,
+blocks_to_svec, pool_from_svec, svec_from_pool). The pool layout is the
+hot loop's representation: the flat concatenation of every bucket's
+(count, n, n) dense symmetric tensor plus the free entries, off-diagonals
+at x_svec/sqrt(2) in both mirrored slots. These converters run only at
+solve boundaries; the block form is ``projection.psd_project``'s. Layout
+sizes that jit treated as static are plain Python ints here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +53,24 @@ def device_maps(structure, dtype: torch.dtype, device) -> Dict[str, Any]:
         pool_len=int(structure.pool_len),
         vec_len=int(structure.vec_len),
     )
+
+
+def svec_to_blocks(X: torch.Tensor, maps: Dict[str, Any]) -> List[torch.Tensor]:
+    """svec ``X`` as per-bucket (count, n, n) symmetric tensors:
+    off-diagonals scaled by 1/sqrt(2), padding zero (the gather tables
+    point it at a trailing zero)."""
+    X_ext = torch.cat([X, X.new_zeros(1)])
+    return [X_ext[bm["gather_idx"]] * bm["gather_scale"] for bm in maps["buckets"]]
+
+
+def blocks_to_svec(blocks: Sequence[torch.Tensor], X: torch.Tensor, maps: Dict[str, Any]) -> torch.Tensor:
+    """Per-bucket tensors back to svec, off-diagonals scaled by sqrt(2); the
+    free entries are taken from ``X``."""
+    parts = [bt.reshape(-1)[bm["pool_pos"]] * bm["out_scale"] for bt, bm in zip(blocks, maps["buckets"])]
+    if maps["free_pos"].shape[0]:
+        parts.append(X[maps["free_pos"]])
+    all_vals = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return all_vals[maps["inv_perm"]]
 
 
 def pool_from_svec(X: torch.Tensor, maps: Dict[str, Any]) -> torch.Tensor:

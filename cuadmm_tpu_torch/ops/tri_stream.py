@@ -35,13 +35,14 @@ never writes it.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cuadmm_tpu_torch import _build
 from cuadmm_tpu_torch.ops import launches
+from cuadmm_tpu_torch.ops.limits import BAND_MODEL
 
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
@@ -85,18 +86,18 @@ class BandLayout(NamedTuple):
     T: int  # nb * (nbw + 1) allocated band slots (some top-left unused)
 
 
-def make_band_layout(n: int, bw: int, block: int = 0) -> BandLayout:
+def make_band_layout(n: int, bw: int, block: int = 0, model: Optional[Callable] = None) -> BandLayout:
     """Layout for scalar bandwidth ``bw``; ``block=0`` picks B in
-    {1024, 512, 256} by the JAX package's sweep-time model (tile bytes at
-    800 GB/s plus 3 us per grid step: a TPU model, kept so that ``auto``
-    picks what the JAX package picks)."""
+    {1024, 512, 256} by ``model(T, B, nb)``, the seconds of a solve over T
+    tiles of B^2 in nb block rows (None: K3's on the card,
+    ``ops/limits.py::BAND_MODEL``); the first B wins a tie."""
     if block <= 0:
+        model = BAND_MODEL if model is None else model
         best = None
         for B in (1024, 512, 256):
             nb = -(-n // B)
             nbw = min(nb - 1, (bw + B - 1) // B)
-            T = nb * (nbw + 1)
-            t_model = T * B * B * 4 / 800e9 + T * 3e-6
+            t_model = model(nb * (nbw + 1), B, nb)
             if best is None or t_model < best[0]:
                 best = (t_model, B)
         block = best[1]

@@ -26,7 +26,7 @@ from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import synchronize
 from cuadmm_tpu_torch.ops import launches
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
-from cuadmm_tpu_torch.ops.projection import psd_project_pool
+from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.parallel import tri_shard
 from cuadmm_tpu_torch.parallel.batch import BatchedSDPSolver
@@ -50,17 +50,21 @@ def run_checks(mesh: Mesh, checks: Sequence[Tuple[str, Callable[..., Any], dict]
 
 
 def project(mesh: Mesh, blk, svec: np.ndarray, method: str = "eigh", pack_to: int = 0) -> Dict[str, Any]:
-    """The projection of one svec vector over the mesh: the projected svec,
-    the all_reduces it took, and each PSD bucket's (count, n, split axis,
-    this rank's share)."""
+    """The projection of one svec vector over the mesh through the pool
+    (``psd_project_pool``) and in svec coordinates (``psd_project``): both
+    projected svecs, the all_reduces each took, and each PSD bucket's
+    (count, n, split axis, this rank's share)."""
     st = BlockStructure(blk, "pow2", 64, pack_to)
     maps = device_maps(st, torch.float64, mesh.device)
-    P = pool_from_svec(torch.as_tensor(svec, device=mesh.device), maps)
+    x = torch.as_tensor(svec, device=mesh.device)
     before = COLLECTIVES["all_reduce"]
-    out = svec_from_pool(psd_project_pool(P, maps, method=method, mesh=mesh), maps)
+    out = svec_from_pool(psd_project_pool(pool_from_svec(x, maps), maps, method=method, mesh=mesh), maps)
+    pooled = COLLECTIVES["all_reduce"] - before
+    direct = psd_project(x, maps, method=method, mesh=mesh)
     shares = [(bk.count, bk.n, shard_axis((bk.count, bk.n, bk.n), mesh, method == "poly"),
                shard_bounds(bk.count, mesh)) for bk in st.buckets if bk.n > 1]
-    return dict(svec=out.cpu().numpy(), all_reduces=COLLECTIVES["all_reduce"] - before, shares=shares)
+    return dict(svec=out.cpu().numpy(), all_reduces=pooled, svec_direct=direct.cpu().numpy(),
+                direct_all_reduces=COLLECTIVES["all_reduce"] - before - pooled, shares=shares)
 
 
 def solve(mesh: Mesh, prob: Problem, config: dict, runs: Sequence[Tuple[int, float]],

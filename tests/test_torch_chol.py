@@ -120,8 +120,10 @@ def _semidefinite_at():
 @pytest.mark.parametrize("dense_a", [True, False], ids=["device_dense_a", "host_aat"])
 def test_eps_escalation_on_semidefinite_aat(dense_a):
     r, c, v, A = _semidefinite_at()
-    limit = 6 * 1024**3 if dense_a else 0
-    l, eps_used = tchol._device_factorize(r, c, v, 4, 10, 1e-12, CPU, dense_a_build_limit=limit)
+    timings = {}
+    budget = jax_limits().dense_a_budget if dense_a else 0
+    l, eps_used = tchol._device_factorize(r, c, v, 4, 10, 1e-12, CPU, dense_a_budget=budget, timings=timings)
+    assert timings["aat"] == ("device" if dense_a else "host")
     assert eps_used > 1e-12  # f32 cannot see 1e-12 of jitter: it had to escalate
     assert torch.isfinite(l).all()
     aat = A @ A.T
@@ -364,6 +366,20 @@ def test_calibrated_packed_and_banded_reach_target(mode):
     assert float(neq.residual_norm(rhs, neq.solve(rhs))) < 1e-10
 
 
+def jax_limits():
+    """The JAX package's numbers as the port's CardLimits: its ceilings
+    (cuadmm_tpu/ops/chol.py:99-109), its dense-A limit (:496) and its band
+    block model (cuadmm_tpu/ops/tri_stream.py:463-478: tile bytes at 800
+    GB/s plus 3 us a tile step), all sized for a 16 GB TPU chip."""
+    from cuadmm_tpu_torch.ops.limits import CardLimits
+
+    return CardLimits(
+        total_bytes=16 * 10**9, packed_max_con=jchol.PACKED_MAX_CON, band_max_bytes=jchol.BAND_MAX_BYTES,
+        dense_a_budget=6 * 1024**3, precond_max_n_pad=32768,  # no such check: its dense_chol_max
+        band_model=lambda T, B, nb: T * B * B * 4 / 800e9 + T * 3e-6,
+    )
+
+
 def _jax_accelerator_rule(con_num, bw, n_mesh):
     """The JAX package's choice past dense_chol_max on an accelerator
     (cuadmm_tpu/ops/chol.py:809-840), with its own layouts and constants."""
@@ -393,10 +409,12 @@ def _jax_accelerator_rule(con_num, bw, n_mesh):
 )
 @pytest.mark.parametrize("n_devices", [1, 4])
 def test_past_ceiling_choice_matches_jax_rule(con_num, bw, n_devices):
-    assert (tchol.PACKED_MAX_CON, tchol.BAND_MAX_BYTES) == (jchol.PACKED_MAX_CON, jchol.BAND_MAX_BYTES)
+    """The port's rule, given the JAX package's numbers, picks what the JAX
+    package picks; the CPU takes cg whatever the numbers."""
     expect = _jax_accelerator_rule(con_num, bw, n_devices)
-    assert tchol.past_ceiling_mode(con_num, bw, True, n_devices) == expect
-    assert tchol.past_ceiling_mode(con_num, bw, False, n_devices) == "cg"
+    assert tchol.past_ceiling_mode(con_num, bw, True, n_devices, jax_limits()) == expect
+    assert tchol.past_ceiling_mode(con_num, bw, False, n_devices, jax_limits()) == "cg"
+    assert tchol.past_ceiling_mode(con_num, bw, False, n_devices, None) == "cg"
     if (con_num, bw) == (68350, 4):
         assert expect == "banded"
 

@@ -277,6 +277,19 @@ def test_sharded_projection_matches_single_device(ranks, refs, D, case):
 
 
 @pytest.mark.parametrize("D", WORLDS)
+@pytest.mark.parametrize("case", ["eigh", "jacobi", "packed", "poly64"])
+def test_sharded_psd_project_matches_jax(ranks, refs, D, case):
+    """psd_project (svec coordinates) over the ranks equals the JAX
+    psd_project on one device, to the tolerances of the pool route's tests
+    (1e-12; jacobi 1e-10; the row-split poly filter 1e-9), with the pool
+    route's collectives: one a split bucket, 40 for the 64 block's rows."""
+    got = _same_on_every_rank(ranks[D], f"proj_{case}")
+    tol = {"jacobi": 1e-10, "poly64": 1e-9}.get(case, 1e-12)
+    np.testing.assert_allclose(got["svec_direct"], refs[f"proj_{case}"][1], rtol=tol, atol=tol)
+    assert got["direct_all_reduces"] == got["all_reduces"] > 0
+
+
+@pytest.mark.parametrize("D", WORLDS)
 def test_shard_blocks_layout(ranks, D):
     """tests/test_parallel.py:40: a 16-block bucket over D ranks takes
     16 / D blocks a rank, contiguous, as XLA's batch sharding places them
@@ -411,13 +424,21 @@ def test_dryrun_multichip(ranks):
     [(68350, 4), (68350, 68349), (200000, 60000), (80000, 79999), (73001, 20000), (154256, 20512)],
 )
 def test_past_ceiling_mode_two_devices(con_num, bw):
-    """``past_ceiling_mode(..., n_devices=2)`` is the JAX rule
-    (cuadmm_tpu/ops/chol.py:809-840) at a mesh of 2: sharded where no
-    single-device factor fits, and only on an accelerator."""
+    """``past_ceiling_mode(..., n_devices=2)``, given the JAX package's
+    numbers, is the JAX rule (cuadmm_tpu/ops/chol.py:809-840) at a mesh of
+    2: sharded where no single-device factor fits, and only on an
+    accelerator."""
     _jax()
     from cuadmm_tpu.ops import chol as jchol
     from cuadmm_tpu.ops import tri_stream as jts
 
+    from cuadmm_tpu_torch.ops.limits import CardLimits
+
+    jax_limits = CardLimits(  # cuadmm_tpu/ops/chol.py:99-109, tri_stream.py:463-478
+        total_bytes=16 * 10**9, packed_max_con=jchol.PACKED_MAX_CON, band_max_bytes=jchol.BAND_MAX_BYTES,
+        dense_a_budget=6 * 1024**3, precond_max_n_pad=32768,
+        band_model=lambda T, B, nb: T * B * B * 4 / 800e9 + T * 3e-6,
+    )
     blay = jts.make_band_layout(con_num, bw)  # cuadmm_tpu/ops/chol.py:813-840, n_mesh 2
     band_bytes = blay.T * blay.block * blay.block * 4
     packed_bytes = jts.make_layout(con_num).T * 1024 * 1024 * 4 if con_num <= jchol.PACKED_MAX_CON else None
@@ -427,10 +448,10 @@ def test_past_ceiling_mode_two_devices(con_num, bw):
         want = "banded"
     else:
         want = "packed" if packed_bytes is not None else "sharded"
-    assert tchol.past_ceiling_mode(con_num, bw, True, 2) == want
-    assert tchol.past_ceiling_mode(con_num, bw, False, 2) == "cg"
+    assert tchol.past_ceiling_mode(con_num, bw, True, 2, jax_limits) == want
+    assert tchol.past_ceiling_mode(con_num, bw, False, 2, jax_limits) == "cg"
     if (con_num, bw) == (200000, 60000):
-        assert tchol.past_ceiling_mode(con_num, bw, True, 2) == "sharded"
+        assert tchol.past_ceiling_mode(con_num, bw, True, 2, jax_limits) == "sharded"
 
 
 @pytest.mark.parametrize("D", WORLDS)

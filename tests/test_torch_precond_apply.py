@@ -51,6 +51,28 @@ def test_plain_matches_pallas_interpret_and_dot_pair(n):
     assert _rel(y, pallas) < REL_TOL
 
 
+@pytest.mark.parametrize("n", [100, 130, 517, 1000])
+def test_apply_padded_matches_jax_interpret(n):
+    """apply_padded (pad r to n_pad, K1, slice back) against the JAX
+    apply_padded with its Pallas kernel in interpret mode, on an f64 r (cast
+    to the factor's f32 as there); on the CPU no K1 launch is counted."""
+    jpa = pytest.importorskip("cuadmm_tpu.ops.precond_apply")
+    import jax.numpy as jnp
+
+    M, _ = _factor(n, 4)
+    r = np.random.default_rng(5).standard_normal(n)
+    pallas = np.asarray(jpa.apply_padded(jpa.pad_factor(jnp.asarray(M)), jnp.asarray(r, jnp.float32), interpret=True))
+    mp = tpa.pad_factor(torch.as_tensor(M))
+    before = LAUNCHES["k1"]
+    y = tpa.apply_padded(mp, torch.as_tensor(r))
+    assert LAUNCHES["k1"] == before
+    assert y.shape == (n,) and y.dtype == torch.float32
+    assert _rel(y.numpy(), pallas) < REL_TOL
+    ref = tpa.fused_spd_apply_ref(mp, torch.nn.functional.pad(torch.as_tensor(r, dtype=torch.float32),
+                                                              (0, mp.shape[0] - n)))[:n]
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
 def test_cpu_tensors_launch_nothing():
     M, r = _factor(128, 1)
     before = LAUNCHES["k1"]
@@ -198,6 +220,23 @@ def test_kernel_matches_plain_on_card(n):
     assert _rel(y.cpu(), ref.cpu()) < REL_TOL
     # Deterministic: partials are summed in a fixed order.
     assert torch.equal(tpa.fused_spd_apply(m, rv), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 5001])
+def test_apply_padded_on_card(n):
+    """apply_padded on the card: one K1 launch on the padded factor, within
+    REL_TOL of the plain version on the same operands."""
+    _needs_card()
+    M, r = _factor(n, 6)
+    mp = tpa.pad_factor(torch.as_tensor(M, device="cuda"))
+    rv = torch.as_tensor(r, device="cuda")
+    before = LAUNCHES["k1"]
+    y = tpa.apply_padded(mp, rv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["k1"] == before + 1 and y.shape == (n,)
+    ref = tpa.fused_spd_apply_ref(mp.double(), torch.nn.functional.pad(rv.double(), (0, mp.shape[0] - n)))[:n]
+    assert _rel(y.cpu(), ref.cpu()) < REL_TOL
 
 
 @pytest.mark.cuda

@@ -56,3 +56,32 @@ def test_device_maps_tables_match_jax():
                 np.testing.assert_array_equal(bt[k].numpy(), np.asarray(v), err_msg=k)
                 if bt[k].dtype.is_floating_point is False:
                     assert bt[k].dtype == torch.int64, k
+
+
+@pytest.mark.parametrize("rounding,pack_to", [("pow2", 0), ("exact", 0), ("pow2", 8)])
+def test_blocks_match_jax(rounding, pack_to):
+    """svec_to_blocks and blocks_to_svec against the JAX functions, exactly:
+    off-diagonals / sqrt(2) in and * sqrt(2) out, padding zero, the free
+    entries taken from X; the round trip returns X."""
+    st = BlockStructure(MIXED_BLK, rounding, 64, pack_to)
+    x = np.random.default_rng(5).standard_normal(st.vec_len)
+    jm = jsvec.device_maps(st, jnp.float64)
+    tm = tsvec.device_maps(st, torch.float64, CPU)
+    bj = jsvec.svec_to_blocks(jnp.asarray(x), jm)
+    bt = tsvec.svec_to_blocks(torch.as_tensor(x), tm)
+    assert len(bt) == len(bj) == len(st.buckets)
+    for mine, theirs, bk in zip(bt, bj, st.buckets):
+        assert tuple(mine.shape) == (bk.count, bk.n, bk.n)
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
+        np.testing.assert_array_equal(mine.numpy(), np.swapaxes(mine.numpy(), 1, 2))  # symmetric
+    # back from other blocks (each bucket scaled), the free entries from another X
+    x2 = np.random.default_rng(6).standard_normal(st.vec_len)
+    scaled = [b * (k + 2.0) for k, b in enumerate(bt)]
+    got = tsvec.blocks_to_svec(scaled, torch.as_tensor(x2), tm).numpy()
+    want = np.asarray(jsvec.blocks_to_svec([jnp.asarray(b.numpy()) for b in scaled], jnp.asarray(x2), jm))
+    np.testing.assert_array_equal(got, want)
+    rt = tsvec.blocks_to_svec(bt, torch.as_tensor(x), tm).numpy()
+    np.testing.assert_array_equal(rt, np.asarray(jsvec.blocks_to_svec(bj, jnp.asarray(x), jm)))
+    np.testing.assert_allclose(rt, x, rtol=4e-16, atol=0)
+    free = np.asarray(st.free_pos)
+    assert len(free) and np.array_equal(got[free], x2[free])

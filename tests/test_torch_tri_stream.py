@@ -50,6 +50,11 @@ def _chain_aat(n, vec_len_per=6, coupling=30, seed=3):
     return (A @ A.T).tocsr()
 
 
+# The JAX package's block model (cuadmm_tpu/ops/tri_stream.py:463-478): tile
+# bytes at 800 GB/s plus 3 us a tile step, a TPU's.
+JAX_BAND_MODEL = lambda T, B, nb: T * B * B * 4 / 800e9 + T * 3e-6
+
+
 def _bw(aat):
     coo = aat.tocoo()
     return int(np.abs(coo.row - coo.col).max())
@@ -79,8 +84,10 @@ def test_packed_layout_and_tables_match_jax(n, block):
     ],
 )
 def test_band_layout_block_model_and_tables_match_jax(n, bw, block):
+    """Given the JAX package's block model, the port picks its block; the
+    layout's tables agree."""
     jts, _ = _jax()
-    lay, jlay = tts.make_band_layout(n, bw, block), jts.make_band_layout(n, bw, block)
+    lay, jlay = tts.make_band_layout(n, bw, block, model=JAX_BAND_MODEL), jts.make_band_layout(n, bw, block)
     assert tuple(lay) == tuple(jlay)
     for i in range(lay.nb):
         for j in range(max(0, i - lay.nbw), i + 1):
@@ -92,10 +99,17 @@ def test_band_layout_block_model_and_tables_match_jax(n, bw, block):
 
 
 def test_grid_layouts_are_the_ones_auto_sees():
-    """The 20x120 grid: band B 1024, nb 67, nbw 1 (134 slots, 0.56 GB f32);
-    packed nb 67, T 2,278 (9.55 GB)."""
-    band = tts.make_band_layout(68350, 4)
-    assert (band.block, band.nb, band.nbw, band.T) == (1024, 67, 1, 134)
+    """The 20x120 grid: band B 1024, nb 67, nbw 1 (134 slots, 0.56 GB f32)
+    under the card's model (the default) as under the JAX package's; the
+    20x80 grid's band B 512 under the card's (nb 87: less padding), 1024
+    under the JAX package's; packed nb 67, T 2,278 (9.55 GB)."""
+    from cuadmm_tpu_torch.ops.limits import BAND_MODEL
+
+    for model in (None, BAND_MODEL, JAX_BAND_MODEL):
+        band = tts.make_band_layout(68350, 4, model=model)
+        assert (band.block, band.nb, band.nbw, band.T) == (1024, 67, 1, 134)
+    assert tts.make_band_layout(44312, 4)[2:5] == (512, 87, 1)
+    assert tts.make_band_layout(44312, 4, model=JAX_BAND_MODEL)[2:5] == (1024, 44, 1)
     packed = tts.make_layout(68350)
     assert (packed.nb, packed.T) == (67, 2278)
 
