@@ -18,18 +18,26 @@ Phases, in order; any failure raises and exits non-zero:
    library_ms, the bound over the triangle; then ``apply_padded`` at n =
    1,000 and 5,001 (no multiples of 128): one K1 launch each, within 1e-5
    of the plain version on the same padded operands;
-4. hold K4 against its plain version ``jacobi_eigh_ref`` at n = 2, 3, 4, 5,
-   8, 13, 16, 32, 45, 64, 80, 128 with the batch of the grid problem's
-   bucket each n falls in (80, 598, 182, 49, 11; 56 at n = 128, the
-   bucket under pack_to=128), in f64 and f32, at full sweeps: sorted
-   eigenvalues, the projection V diag(w+) V^T and the orthogonality of V,
-   relative to the largest |entry|, within 1e-10 (f64) / 5e-5 (f32; 5e-5
-   n/32 past n = 64, see k4_tol); at n = 128 in f64 also against
-   torch.linalg.eigh; K4, the plain version, K4 + reconstruction, eigh +
-   reconstruction and eigh alone (library_ms) timed with CUDA events (the
-   plain version once a shape, one sweep of its rotations replayed from a
-   CUDA graph after a bitwise check against the eager plain version at
-   n = 8), and us per rotation;
+4. hold K4, in the launch plan ``k4_plan`` picks at each shape ("warp":
+   one warp a matrix in the reference's cyclic order, n = 2-5 here; "cta":
+   one thread block a matrix in the round-robin parallel order, n >= 8
+   here), against both plain versions
+   (``jacobi_eigh_ref``, the cyclic order, and ``jacobi_eigh_parallel_ref``,
+   the parallel one) at n = 2, 3, 4, 5, 8, 13, 16, 32, 45, 64, 80, 128
+   with the batch of the grid problem's bucket each n falls in (80, 598,
+   182, 49, 11; 56 at n = 128, the bucket under pack_to=128) and at the
+   stand-in's 8x1556, in f64 and f32, at full sweeps: sorted eigenvalues, the projection V diag(w+) V^T
+   and the orthogonality of V, relative to the largest |entry|, within
+   1e-10 (f64) / 5e-5 (f32; 5e-5 n/32 past n = 64, see k4_tol), bitwise
+   equal over two launches; the plan ("cta" at 32x49 and 64x11) named in
+   each row; at n = 128 in f64 also against torch.linalg.eigh; K4 and K4 +
+   reconstruction as
+   replayed CUDA graphs (as the chunk runner runs them), both plain
+   versions, eigh + reconstruction and eigh alone (library_ms) eagerly,
+   timed with CUDA events (each plain version once a shape; the cyclic one
+   as one sweep of its rotations replayed from a CUDA graph after a
+   bitwise check against the eager plain version at n = 8), us per
+   rotation and per parallel step;
 5. run the stand-in problem (max-cut, chordally decomposed, banded graph
    n=1560 with off-diagonals 1..4: 17,110 constraints, 1,556 5x5 blocks)
    through SDPSolver in float64 with normal_solver and projection "auto":
@@ -44,8 +52,10 @@ Phases, in order; any failure raises and exits non-zero:
    plain ADMM with each projection "jacobi", "poly", "eigh" and "auto"
    (the committed CUDA table): 100 warm and 200 timed iterations, gated as
    the stand-in and, for "jacobi", on K4 having run on every bucket of
-   every iteration; host syncs per iteration of each method; a profile of
-   "jacobi" and "eigh"; "auto" again with pack_to=128; "jacobi" with
+   every iteration (each jacobi bucket's K4 plan named); host syncs per
+   iteration of each method, 0 for "auto" where it gives no bucket to
+   eigh; a profile of "jacobi" and "eigh"; "auto" again with pack_to=128;
+   "jacobi" with
    pack_to=128 (one 128x56 bucket: 20 warm, 50 timed iterations, gated on
    K4 on that bucket every iteration); then ``psd_project`` on the grid's
    structure under "eigh", "jacobi" (K4 once a bucket, counted) and
@@ -238,6 +248,7 @@ from cuadmm_tpu_torch.io.mosek import load_mosek_mat
 from cuadmm_tpu_torch.io.sdpa import load_sdpa
 from cuadmm_tpu_torch.io.sedumi import load_sedumi_mat
 from cuadmm_tpu_torch.k1_ab import unit_lower
+from cuadmm_tpu_torch.k4_ab import graph_ms
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
@@ -267,11 +278,8 @@ APPLY_PADDED_SIZES = (1000, 5001)  # apply_padded's r: not multiples of 128
 STANDIN_N_PAD = 17152  # the stand-in's padded factor: the main path's K1 shape
 PROFILE_ITERS = 50
 PROFILE_TOP = 10  # device ops listed per mode, by self time
-# K4's shapes: (n, batch); the batch is that of the grid problem's pow2
-# bucket n falls in. The grid's own bucket shapes are GRID_BUCKETS.
-K4_SHAPES = ((2, 80), (3, 80), (4, 80), (5, 598), (8, 598), (13, 182), (16, 182),
-             (32, 49), (45, 11), (64, 11), (80, 11), (128, 56))  # 128x56: the grid under pack_to=128
 K4_REPS = 5
+K4_CTA_SHAPES = ((32, 49), (64, 11))  # the grid buckets the "cta" plan must take
 # Symmetric A: rows p, q and columns p, q coincide outside the 2x2 block,
 # so one pass of 6n flops; V's columns p, q another 6n.
 K4_FLOPS_PER_ROTATION_PER_N = 12
@@ -466,18 +474,6 @@ def compare_apply_padded() -> None:
         torch.cuda.empty_cache()
 
 
-def k4_tol(n: int, dtype) -> float:
-    """Kernel against plain version: 1e-10 in f64 and 5e-5 in f32
-    (tests/test_jacobi.py:67-73) up to n = 64; past that in f32 5e-5 n/32,
-    since the plain version's own f32 error grows with n (4.0e-5 at n = 64,
-    8.8e-5 at 128, relative to the f64 eigenvalues: tests/test_torch_jacobi
-    .py::test_plain_f32_error_grows_with_n) and two f32 runs that round
-    differently differ by up to twice that."""
-    if dtype == torch.float64:
-        return 1e-10
-    return 5e-5 if n <= 64 else 5e-5 * n / 32
-
-
 def k4_bound_ms(n: int, batch: int, dtype) -> tuple:
     """The least time for K4's work on the card: 12n flops a rotation at the
     f64 (f32) peak outside the tensor cores, or the bytes in (A) and out (w,
@@ -533,54 +529,69 @@ def _k4_errors(mats, w, v, wr, vr) -> tuple:
 
 
 def compare_k4() -> dict:
-    """K4 against jacobi_eigh_ref at every K4_SHAPES point, f64 and f32, at
-    full sweeps (after two sweeps the iteration is far from converged and
-    amplifies rounding: 1e-7 of input noise moves the plain version's sorted
-    f32 w by 4e-4 of the largest entry at n = 80, tests/test_torch_jacobi.py::
-    test_unconverged_sweeps_amplify_rounding); the plain version (its
-    rotations replayed from a CUDA graph, ``plain_k4``, first held to the
-    eager jacobi_eigh_ref bit for bit) runs once, then K4 twice, beside
-    eigh + reconstruction and eigh alone (library_ms). At n = 128 in f64
-    the kernel is also held against torch.linalg.eigh. Returns the f64
-    sums over the grid's bucket shapes for the kernel table."""
+    """K4 in the launch plan ``k4_plan`` picks against both plain versions
+    at every ``jacobi.K4_SHAPES`` point, f64 and f32, at full sweeps (after two sweeps the iteration is far from
+    converged and amplifies rounding: 1e-7 of input noise moves the plain
+    version's sorted f32 w by 4e-4 of the largest entry at n = 80,
+    tests/test_torch_jacobi.py::test_unconverged_sweeps_amplify_rounding):
+    jacobi_eigh_ref, the reference's cyclic order (its rotations replayed
+    from a CUDA graph, ``plain_k4``, first held to the eager jacobi_eigh_ref
+    bit for bit), and jacobi_eigh_parallel_ref, the "cta" plan's
+    round-robin order, each within k4_tol; bitwise equal over two
+    launches. Each row names the plan that ran ("cta" at K4_CTA_SHAPES)
+    and times K4 (as replayed CUDA graphs, ``k4_ab.graph_ms``) beside both
+    plain versions once, eigh + reconstruction and eigh alone (library_ms).
+    At n = 128 in f64 the kernel is also held against torch.linalg.eigh.
+    Returns the f64 sums over the grid's bucket shapes
+    for the kernel table."""
     at_grid = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     rows = []
+    smem = jacobi.card_smem(torch.cuda.current_device())
     for dtype in (torch.float64, torch.float32):
         mats = _sym_batch(8, 598, dtype, seed=0)
         eager, graphed = jacobi.jacobi_eigh_ref(mats), plain_k4(mats)
         check(all(torch.equal(x, y) for x, y in zip(eager, graphed)),
               f"K4 plain version replayed from a graph differs from jacobi_eigh_ref ({dtype})")
     for dtype in (torch.float64, torch.float32):
-        for n, batch in K4_SHAPES:
-            tol = k4_tol(n, dtype)
+        for n, batch in jacobi.K4_SHAPES:
+            tol = jacobi.k4_tol(n, dtype)
             mats = _sym_batch(n, batch, dtype, seed=n)
+            plan = jacobi.k4_plan(n, batch, dtype, smem)
+            if (n, batch) in K4_CTA_SHAPES:
+                check(plan == "cta", f"K4 n={n} batch={batch} {dtype}: plan {plan!r}, not the parallel 'cta'")
             k4 = lambda: jacobi.jacobi_eigh(mats)
             plain = lambda: plain_k4(mats)
             eigh = lambda: reconstruct_clamped(*torch.linalg.eigh(mats))
             k4_proj = lambda: reconstruct_clamped(*jacobi.jacobi_eigh(mats))
             library = lambda: torch.linalg.eigh(mats)
             w, v = k4()  # first launch, untimed
+            w2, v2 = k4()
             torch.cuda.synchronize()
-            ref = []
+            check(torch.equal(w, w2) and torch.equal(v, v2), f"K4 {plan} n={n} {dtype}: two launches differ")
+            finite = bool(torch.isfinite(w).all() and torch.isfinite(v).all())
+            ref, par = [], []
             p1 = _time_ms(lambda: ref.append(plain()), 1)
-            k_1 = _time_ms(k4, K4_REPS)
-            k_2 = _time_ms(k4, K4_REPS)
+            pp1 = _time_ms(lambda: par.append(jacobi.jacobi_eigh_parallel_ref(mats)), 1)
+            k_ms = graph_ms(k4)
             eigh()
             e_ms = _time_ms(eigh, K4_REPS)
-            kp_ms = _time_ms(k4_proj, K4_REPS)
+            kp_ms = graph_ms(k4_proj)
             l_ms = _time_ms(library, K4_REPS)
-            rel_w, rel_p, orth, max_abs = _k4_errors(mats, w, v, *ref[0])
-            ok = bool(torch.isfinite(w).all() and torch.isfinite(v).all())
-            check(ok and max(rel_w, rel_p, orth) <= tol,
-                  f"K4 n={n} batch={batch} {dtype}: rel w {rel_w:.2e} proj {rel_p:.2e} orth {orth:.2e}")
-            k_ms = (k_1 + k_2) / 2
+            against = {}
+            for name, plain_out in (("ref", ref[0]), ("parallel_ref", par[0])):
+                pw, pp, po, pa = _k4_errors(mats, w, v, *plain_out)
+                check(finite and max(pw, pp, po) <= tol,
+                      f"K4 {plan} n={n} batch={batch} {dtype} against {name}: "
+                      f"rel w {pw:.2e} proj {pp:.2e} orth {po:.2e}")
+                against[name] = dict(rel_err_w=pw, rel_err_proj=pp, orth_err=po, max_abs_err=pa)
+            max_abs = against["ref"]["max_abs_err"]
             rotations = jacobi.default_sweeps(n) * n * (n - 1) // 2
+            steps = jacobi.default_sweeps(n) * len(jacobi.parallel_schedule(n))
             bound_ms, bound_by = k4_bound_ms(n, batch, dtype)
-            row = dict(n=n, batch=batch, dtype=str(dtype).split(".")[-1], tol=tol, rel_err_w=rel_w,
-                       rel_err_proj=rel_p, orth_err=orth, k4_ms=k_ms, us_per_rotation=k_ms * 1e3 / rotations,
-                       plain_ms=p1, k4_proj_ms=kp_ms, eigh_ms=e_ms, library_ms=l_ms,
-                       bound_ms=bound_ms,
-                       bound_by=bound_by)
+            row = dict(n=n, batch=batch, dtype=str(dtype).split(".")[-1], plan=plan, tol=tol, **against["ref"],
+                       k4_ms=k_ms, us_per_rotation=k_ms * 1e3 / rotations,
+                       us_per_step=k_ms * 1e3 / steps, plain_ms=p1, parallel_plain_ms=pp1, k4_proj_ms=kp_ms,
+                       eigh_ms=e_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by, against=against)
             if n == 128 and dtype == torch.float64:  # converged: the kernel against eigh itself
                 we, ve = torch.linalg.eigh(mats)
                 rel_we, rel_pe, _, _ = _k4_errors(mats, w, v, we, ve)
@@ -610,18 +621,20 @@ def _gates(res, vec_len: int, what: str) -> None:
 
 KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
-    "k4": ("jacobi_eigh_kernel",),
+    "k4": ("jacobi_eigh_kernel", "jacobi_cta_kernel"),
     "k2k3": ("tri_sweep_kernel",),
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
 # The device op one launch of each wrapper makes exactly once (K2/K3: twice,
 # one sweep kernel per sweep), which the profiler counts.
-KERNEL_EVENT = {"k1": "fused_spd_apply_kernel", "k4": "jacobi_eigh_kernel", "k2k3": "tri_sweep_kernel"}
+# K4 launches one of its plans' kernels.
+KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": ("tri_sweep_kernel",)}
 
 
 def _profiler_launches(dev_events) -> dict:
-    return {k: sum(e.count for e in dev_events if name in e.key) for k, name in KERNEL_EVENT.items()}
+    return {k: sum(e.count for e in dev_events if any(name in e.key for name in names))
+            for k, names in KERNEL_EVENT.items()}
 
 
 # The profiler drops a kernel event now and then (1-2 of 1,600 K1 launches
@@ -699,6 +712,15 @@ def profile_window(solver, timed_ms_per_it: float) -> dict:
 def _methods(solver) -> list:
     """The projection method of each bucket, as the solver resolved it."""
     return [bucket_method(solver._projection, i) for i in range(len(solver.structure.buckets))]
+
+
+def _k4_plans(solver) -> list:
+    """The K4 plan of each jacobi bucket (``jacobi.k4_plan``), None for the
+    other methods."""
+    smem = jacobi.card_smem(torch.cuda.current_device())
+    dtype = getattr(torch, solver.config.dtype)
+    return [jacobi.k4_plan(bk.n, bk.count, dtype, smem) if m == "jacobi" and bk.n > 1 else None
+            for m, bk in zip(_methods(solver), solver.structure.buckets)]
 
 
 def timed_run(solver, iters: int, warm: int = 100):
@@ -855,8 +877,10 @@ def grid() -> int:
             methods=_methods(solver), applies=neq.applies, launches=counts,
             residual_norm=resid, errRp_first=float(res.info["errRp"][0]),
             errRp_last=float(res.info["errRp"][-1]), init_breakdown=solver.init_breakdown,
-            host_syncs=host_syncs_per_iteration(solver),
+            host_syncs=host_syncs_per_iteration(solver), k4_plans=_k4_plans(solver),
         )
+        if proj == "auto" and "eigh" not in out["methods"]:  # one graph an iteration: no host wait
+            check(out["host_syncs"]["per_it"] == 0, f"{what}: {out['host_syncs']} host syncs with no eigh bucket")
         if proj in ("jacobi", "eigh") and pack_to == 0:
             out["profile"] = profile_window(solver, elapsed * 1e3 / iters)
         emit(what, out)

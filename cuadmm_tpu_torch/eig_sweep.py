@@ -15,7 +15,11 @@ Timing: CUDA events around k passes, each on a fresh input (the batch
 scaled by 1 + 1e-6 i, which keeps the spectrum's shape), after one
 untimed pass that builds the kernel and warms the libraries. Feeding a
 projected, near-PSD output back in would flatter whichever method ran
-first (benchmarks/eig_sweep.py:61-82).
+first (benchmarks/eig_sweep.py:61-82). Each method is timed as the chunk
+runner (solver/step.py) runs it: "poly" and "jacobi" as one CUDA graph of
+the k passes, replayed (eager timing of a small bucket measures the host's
+launches, which a replayed iteration does not pay); "eigh" eagerly, with
+its status check on the host, as the runner runs it between two graphs.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import sys
 import torch
 
 from cuadmm_tpu_torch.device import card_line, resolve_device
+from cuadmm_tpu_torch.k4_ab import graph_ms
 from cuadmm_tpu_torch.ops.dispatch import sweep_path
 from cuadmm_tpu_torch.ops.jacobi import jacobi_eigh
 from cuadmm_tpu_torch.ops.polyfilter import psd_project_poly
@@ -42,13 +47,13 @@ def jacobi_project(mats: torch.Tensor) -> torch.Tensor:
 
 
 JACOBI_MAX_N = 64  # jacobi is timed up to this n, as benchmarks/eig_sweep.py:124 does
-METHODS = {"eigh": eigh_project, "poly": psd_project_poly, "jacobi": jacobi_project}
 SIZES = (2, 4, 8, 16, 32, 64, 128, 256)
 BATCHES = (1, 8, 64, 512, 4096)
 
 
 def time_ms(fn, x: torch.Tensor, k: int = 16) -> float:
-    """Milliseconds per pass over k fresh inputs, from CUDA events."""
+    """Milliseconds per pass over k fresh inputs, launched eagerly, from
+    CUDA events."""
     fn(x)
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -58,6 +63,19 @@ def time_ms(fn, x: torch.Tensor, k: int = 16) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / k
+
+
+def time_graph_ms(fn, x: torch.Tensor, k: int = 16) -> float:
+    """Milliseconds per pass over k fresh inputs, the k passes captured into
+    one CUDA graph and replayed once (after one untimed replay), from CUDA
+    events (``k4_ab.graph_ms``)."""
+    xs = [x * (1.0 + 1e-6 * i) for i in range(k)]
+    return graph_ms(lambda: [fn(xi) for xi in xs], reps=1, rounds=1) / k
+
+
+# Each method and how the chunk runner runs it: graphed, or eager (eigh).
+METHODS = {"eigh": (eigh_project, time_ms), "poly": (psd_project_poly, time_graph_ms),
+           "jacobi": (jacobi_project, time_graph_ms)}
 
 
 def main(argv=None) -> None:
@@ -81,9 +99,9 @@ def main(argv=None) -> None:
             m = torch.randn((b, n, n), dtype=dtype, device=dev, generator=gen)
             m = (m + m.transpose(1, 2)) / 2
             row = {"n": n, "batch": b, "dtype": args.dtype, "card": card}
-            for name, fn in METHODS.items():
+            for name, (fn, timer) in METHODS.items():
                 if name != "jacobi" or n <= JACOBI_MAX_N:
-                    row[f"{name}_ms"] = time_ms(fn, m)
+                    row[f"{name}_ms"] = timer(fn, m)
             rows.append(row)
             print(json.dumps(row), flush=True)
     with open(out, "w") as f:

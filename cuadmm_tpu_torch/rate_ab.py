@@ -9,7 +9,9 @@ chip_smoke.py's stand-in (max-cut on the banded graph n=1560, projection
 "auto", which gives its one bucket to K4, and "poly", which runs no K4:
 100 warm and 500 timed iterations) and on its 20x60 grid problem
 (projections "jacobi", "poly", "eigh" and "auto": 100 warm and 200 timed
-iterations each). Each run is followed by 50 iterations under
+iterations each) and on its 20x120 large grid (projection "auto"; the
+normal solver's "auto" takes the band there: 100 warm and 200 timed
+iterations). Each run is followed by 50 iterations under
 torch.profiler for the device time per iteration. It also times the host
 side of ``jacobi_eigh`` alone at the stand-in's bucket shape (1556, 8, 8):
 microseconds to queue one call, and the device time per call. The kernels
@@ -113,6 +115,7 @@ def main() -> None:
     prob = grid(maxcut_chordal)
     for proj in ("jacobi", "poly", "eigh", "auto"):
         out[f"grid {proj}"] = rate(pkg, prob, proj, 200)
+    out["large grid auto"] = rate(pkg, grid(maxcut_chordal, 20, 120), "auto", 200)
     print(json.dumps(out), flush=True)
 
 
