@@ -63,22 +63,27 @@ Phases, in order; any failure raises and exits non-zero:
    svec_from_pool(psd_project_pool(pool_from_svec(x)));
 7. hold K2 (packed_solve) and K3 (band_solve) against their plain versions
    on synthetic factors made on the card (diagonal tiles near the
-   identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at six layouts,
-   one at a time: packed n=256/B=128, packed at the large grid's (nb 67,
-   T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the large grid's
-   (nb 67, nbw 1), pendulum N=80's (n 112,028, bandwidth 1,615: nb 110,
-   nbw 2) and PushBox N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21,
-   13.9 GB); relative error <= 1e-5, two solves of one r bitwise equal,
-   exactly 2 sweep kernels launched per solve (torch.profiler), both times
-   from CUDA events, the bound counting every tile once per sweep (a solve
-   is two sweeps, and no factor here stays in the 50 MB L2 between them);
-   at the large grid's two layouts one torch.cholesky_solve on the dense
-   expansion of the factor (18.8 GB) as library_ms;
+   identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at seven layouts,
+   one at a time, K3 in the form the solver runs (the one-hop form, with
+   its derived tiles, to nbw 4): packed n=256/B=128, packed at the large
+   grid's (nb 67, T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the
+   large grid's (B 512, nb 134, nbw 1) and at its B 1024 (nb 67),
+   pendulum N=80's (n 112,028, bandwidth 1,615: nb 110, nbw 2) and PushBox
+   N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21, 13.9 GB, two-hop);
+   relative error <= 1e-5, two solves of one r bitwise equal, exactly 2
+   sweep kernels launched per solve (torch.profiler), times from CUDA
+   events both eager and as a replayed CUDA graph (the chunk runner's
+   way; the kernels line takes it), the bound counting every tile once per
+   sweep (a solve is two sweeps, and no factor here stays in the 50 MB L2
+   between them); at the large grid's two layouts one
+   torch.cholesky_solve on the dense expansion of the factor (18.8 GB) as
+   library_ms;
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
-   normal_solver "auto" (resolves to banded: RCM bandwidth 4, B 1024,
-   nb 67, nbw 1 by the card's band model) and "packed", each gated on the probe rhs residual, finite
+   normal_solver "auto" (resolves to banded: RCM bandwidth 4, B 512,
+   nb 134, nbw 1 by the card's band model, K3's one-hop form) and
+   "packed", each gated on the probe rhs residual, finite
    and decreasing residuals and K3 (resp. K2) on every refinement sweep;
    the two runs' last errRp agree to 1e-6; host syncs per iteration of
    each, a profile of the banded run (device ops per iteration, busy
@@ -109,7 +114,7 @@ Phases, in order; any failure raises and exits non-zero:
    (or 64 MiB) of its committed line; K3 at B 1024, 512 and 256 on the
    20x120 grid's, a mid, pendulum N=80's and PushBox N=30's bands beside
    the band model's prediction, the model's pick the fastest measured on
-   each or within 3% of it (the grid band's B 1024 and 512 tie); the
+   each or within 3% of it (K3 in the form the solver runs there); the
    20x60 grid through "banded" (gated as the grid runs) beside phase 6's
    precond rate, and the 20x80 pair of phase 10; precond on QUASAR-500
    (756,501 rows, past the card's n_pad) raising with
@@ -297,6 +302,7 @@ TRI_LAYOUTS = (
     ("packed grid", tri_stream.make_layout(68350)),
     ("band probe", tri_stream.make_band_layout(512, 128, 128)),
     ("band grid", tri_stream.make_band_layout(68350, 4)),
+    ("band grid B 1024", tri_stream.make_band_layout(68350, 4, 1024)),
     ("band pendulum N=80", tri_stream.make_band_layout(112028, 1615)),
     ("band PushBox N=30", tri_stream.make_band_layout(154256, 20512)),
 )
@@ -305,9 +311,9 @@ TRI_REPS = 5
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
 # The large grid's band (RCM bandwidth 4) as the card's band model picks it
-# (ops/limits.py), as the JAX package's TPU model did (PRs 3-10): B 1024,
-# nb 67, nbw 1. K3 runs B 512 there within 3% of it (a tie, PERF.md).
-LARGE_GRID_BAND = (1024, 67, 1)
+# (ops/limits.py): B 512, nb 134, nbw 1, where K3's one-hop form runs
+# faster than at B 1024 (the JAX package's TPU model's pick; PERF.md §6).
+LARGE_GRID_BAND = (512, 134, 1)
 ERRRP_AGREE = 1e-6  # two normal solvers: same iteration, another f32 factor
 # QUASAR-500 (cuadmm_tpu_torch/models/quasar.py): constraints, A^T
 # nonzeros, block size, coupled rows and K1's padded prefix.
@@ -622,14 +628,14 @@ def _gates(res, vec_len: int, what: str) -> None:
 KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
     "k4": ("jacobi_eigh_kernel", "jacobi_cta_kernel"),
-    "k2k3": ("tri_sweep_kernel",),
+    "k2k3": ("tri_sweep_kernel", "chain_sweep_kernel"),  # the two-hop and the one-hop sweep
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
 # The device op one launch of each wrapper makes exactly once (K2/K3: twice,
 # one sweep kernel per sweep), which the profiler counts.
 # K4 launches one of its plans' kernels.
-KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": ("tri_sweep_kernel",)}
+KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": KERNEL_OPS["k2k3"]}
 
 
 def _profiler_launches(dev_events) -> dict:
@@ -948,52 +954,62 @@ def _dense_factor(tiles, lay) -> torch.Tensor:
     return L
 
 
-def _launches_per_solve(kernel, tiles, r, lay, tries: int = 3) -> int:
-    """CUDA kernel launches of one solve, counted by torch.profiler. The
-    wrapper launches or raises, so a trace with no sweep kernel at all
+def _launches_per_solve(kernel, r, tries: int = 3) -> tuple:
+    """CUDA kernel launches of one solve ``kernel(r)``, counted by
+    torch.profiler, and the traces before it that held no sweep kernel.
+    The wrapper launches or raises, so a trace with no sweep kernel at all
     after a solve whose result was checked is a trace that dropped its
-    events (it happens on the card, rarely); it is taken again, up to
-    ``tries`` times."""
+    events (it happens on the card, rarely; the count of such traces goes
+    into the K2/K3 line); it is taken again, up to ``tries`` times."""
     act = torch.profiler.ProfilerActivity
-    for _ in range(tries):
+    for empty in range(tries):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            kernel(tiles, r, lay)
+            kernel(r)
             torch.cuda.synchronize()
         launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                        and any(m in e.key for m in KERNEL_OPS["k2k3"]))
         if launches:
-            return launches
-    return 0
+            return launches, empty
+    return 0, tries
 
 
 def compare_tri_stream() -> dict:
     """K2 and K3 against their plain versions at each TRI_LAYOUTS layout,
-    one at a time; times in turns (plain, kernel, kernel, plain); two solves
-    of the same r bitwise equal; the sweep kernels a solve launches, from the
-    profiler. At the large grid's own layouts one torch.cholesky_solve on
-    the factor's dense expansion (``_dense_factor``, 18.8 GB) is timed as
-    library_ms. Returns the kernel-table numbers at those layouts."""
+    one at a time, K3 in the form the solver runs there (the one-hop form's
+    derived tiles formed first); times in turns (plain, kernel, kernel,
+    plain) and as a replayed CUDA graph of TRI_REPS solves, as the chunk
+    runner runs them (``k4_ab.graph_ms``); two solves of the same r bitwise
+    equal; the sweep kernels a solve launches, from the profiler. At the
+    large grid's own layouts one torch.cholesky_solve on the factor's dense
+    expansion (``_dense_factor``, 18.8 GB) is timed as library_ms. Returns
+    the kernel-table numbers at those layouts."""
     at_grid = {}
     for i, (label, lay) in enumerate(TRI_LAYOUTS):
         packed = isinstance(lay, tri_stream.PackedLayout)
-        kernel = tri_stream.packed_solve if packed else tri_stream.band_solve
-        plain = tri_stream.packed_solve_ref if packed else tri_stream.band_solve_ref
         tiles = _synthetic_factor(lay, seed=100 + i)
+        form, chain = ("two_hop", None) if packed else chol.chain_tiles(
+            tiles, lay, limits.card_limits(tiles.device).band_max_bytes)
+        if packed:
+            kernel = lambda r: tri_stream.packed_solve(tiles, r, lay)
+        else:
+            kernel = lambda r: tri_stream.band_solve(tiles, r, lay, chain=chain, form=form)
+        plain = tri_stream.packed_solve_ref if packed else tri_stream.band_solve_ref
         r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(i))
-        y = kernel(tiles, r, lay)
+        y = kernel(r)
         ref = plain(tiles, r, lay)
         torch.cuda.synchronize()
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
         max_abs = float((y - ref).abs().max())
         check(bool(torch.isfinite(y).all()) and rel <= TRI_REL_TOL, f"{label}: rel err {rel:.3e}")
-        check(torch.equal(kernel(tiles, r, lay), y), f"{label}: two solves of one r differ")
-        launches = _launches_per_solve(kernel, tiles, r, lay)
+        check(torch.equal(kernel(r), y), f"{label}: two solves of one r differ")
+        launches, empty_traces = _launches_per_solve(kernel, r)
         check(launches == 2, f"{label}: {launches} sweep kernel launches per solve, not 2")
         p1 = _time_ms(lambda: plain(tiles, r, lay), 1)
-        k_1 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
-        k_2 = _time_ms(lambda: kernel(tiles, r, lay), TRI_REPS)
+        k_1 = _time_ms(lambda: kernel(r), TRI_REPS)
+        k_2 = _time_ms(lambda: kernel(r), TRI_REPS)
         p2 = _time_ms(lambda: plain(tiles, r, lay), 1)
+        g_ms = graph_ms(lambda: kernel(r), TRI_REPS)
         k_ms, p_ms = (k_1 + k_2) / 2, (p1 + p2) / 2
         tiles_read = len(tri_stream._sweep_tables(lay)[0][0])  # the tiles a sweep visits
         sweep_gb = tiles_read * lay.block**2 * 4 / 1e9
@@ -1001,9 +1017,9 @@ def compare_tri_stream() -> dict:
         # forward and the backward sweep; a factor of these sizes does not
         # stay in the 50 MB L2 between them), r in and y out, at the HBM
         # rate (the 4 B^2 flops a tile takes over both sweeps are ~0.01 of
-        # that).
+        # that). The one-hop form reads as many tiles a sweep.
         bound_ms = (2 * sweep_gb * 1e9 + 8.0 * lay.n_pad) / HBM_BYTES_PER_S * 1e3
-        gbs = 2 * sweep_gb / (k_ms * 1e-3)  # both sweeps
+        gbs = 2 * sweep_gb / (g_ms * 1e-3)  # both sweeps
         l_ms = None
         if label.endswith("grid"):
             L = _dense_factor(tiles, lay)
@@ -1012,17 +1028,18 @@ def compare_tri_stream() -> dict:
             check(bool(torch.isfinite(library()).all()), f"{label}: cholesky_solve on the dense factor")
             l_ms = _time_ms(library, TRI_REPS)
             del L, rcol
-        row = dict(layout=label, kind="packed" if packed else "band", n=lay.n, block=lay.block,
-                   nb=lay.nb, nbw=None if packed else lay.nbw, tiles=lay.T, gb_per_sweep=sweep_gb,
+        row = dict(layout=label, kind="packed" if packed else "band",
+                   form={"chain": "one-hop", "two_hop": "two-hop"}[form], n=lay.n, block=lay.block, nb=lay.nb,
+                   nbw=None if packed else lay.nbw, tiles=lay.T, gb_per_sweep=sweep_gb,
                    rel_err=rel, max_abs_err=max_abs, deterministic=True, launches_per_solve=launches,
-                   ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k_ms,
-                   gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
+                   empty_traces=empty_traces, ms=g_ms, eager_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
+                   share_of_bound=bound_ms / g_ms, gb_per_s=gbs, share_of_3350_gb_per_s=gbs / 3350)
         print("K2/K3 " + json.dumps(row), flush=True)
         report.setdefault("k2k3", []).append(row)
         if label.endswith("grid"):
-            at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+            at_grid["k2" if packed else "k3"] = dict(max_abs_err=max_abs, ms=g_ms, eager_ms=k_ms, plain_ms=p_ms,
                                                      bound_ms=bound_ms, bound_by="bytes", library_ms=l_ms)
-        del tiles, r, y, ref
+        del tiles, chain, r, y, ref
         torch.cuda.empty_cache()
     return at_grid
 
@@ -1055,6 +1072,8 @@ def large_grid(prob: Problem) -> dict:
         if mode == "banded":
             lay = tri_stream.BandLayout(*neq.band_layout)
             check((lay.block, lay.nb, lay.nbw) == LARGE_GRID_BAND, f"{what}: band layout {lay}")
+            check(neq.band_form == "chain" and neq.band_chain is not None,
+                  f"{what}: {neq.band_form} form: nbw 1 takes K3's one-hop form with its derived tiles")
         else:
             lay = tri_stream.PackedLayout(*neq.packed_layout)
             check((lay.nb, lay.T) == (67, 2278), f"{what}: packed layout {lay}")

@@ -14,6 +14,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -36,25 +37,27 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
+def library_path(name: str, variant: Optional[str] = None, flags: Sequence[str] = ()) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built; a
+    ``variant`` (extra nvcc ``flags``) gets a name of its own."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256(src.read_bytes() + " ".join((*NVCC_FLAGS, *flags)).encode()).hexdigest()
+    stem = name if variant is None else f"{name}_{variant}"
+    return BUILD_DIR / f"lib{stem}-{digest[:12]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, variant: Optional[str] = None, flags: Sequence[str] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
 
     The compiler's output (ptxas register and spill report included) goes to
     the ``.log`` beside the library. Raises with that output if nvcc fails.
     """
-    out = library_path(name)
+    out = library_path(name, variant, flags)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -63,6 +66,6 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, variant: Optional[str] = None, flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library for ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name, variant, flags)))

@@ -38,7 +38,7 @@ from cuadmm_tpu_torch.device import card_line, resolve_device
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.ops import limits as lim
 from cuadmm_tpu_torch.ops import tri_stream
-from cuadmm_tpu_torch.ops.chol import build_normal_solver
+from cuadmm_tpu_torch.ops.chol import build_normal_solver, chain_tiles
 from cuadmm_tpu_torch.ops.sparse import build_sparse_a, normalize_rows
 
 # (label, n, bandwidth): the 20x120 grid's under RCM, pendulum N=80's and
@@ -69,12 +69,13 @@ def grid_problem(shape):
 
 
 def _factor_bytes(neq) -> int:
-    """The factor's f32 bytes: precond's padded square, else its tiles."""
+    """The factor's f32 bytes: precond's padded square, else its tiles (a
+    band's derived tiles included, ``tri_stream.band_bytes``)."""
     if neq.mode == "precond":
         return neq.inv_l.numel() * 4
-    packed = neq.mode == "packed"
-    lay = (tri_stream.PackedLayout if packed else tri_stream.BandLayout)(
-        *(neq.packed_layout if packed else neq.band_layout))
+    if neq.mode == "banded":
+        return tri_stream.band_bytes(tri_stream.BandLayout(*neq.band_layout), neq.band_form)
+    lay = tri_stream.PackedLayout(*neq.packed_layout)
     return lay.T * lay.block * lay.block * 4
 
 
@@ -117,8 +118,9 @@ def _synthetic_band(lay, seed: int, diag: float) -> torch.Tensor:
 
 def synthetic_band_peak(n: int, bw: int) -> dict:
     """``band_cholesky`` on a synthetic SPD band of ``n`` rows and
-    bandwidth ``bw`` (the card's block): its tiles' bytes and the peak
-    counted from before they were allocated."""
+    bandwidth ``bw`` (the card's block), then its derived tiles where the
+    band takes the one-hop form: the bytes held and the peak counted from
+    before the tiles were allocated."""
     lay = tri_stream.make_band_layout(n, bw)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -127,11 +129,12 @@ def synthetic_band_peak(n: int, bw: int) -> dict:
     tiles = _synthetic_band(lay, seed=7, diag=10.0)  # eigenvalues >= ~7: the off-band part's norm is ~2.8
     status = tri_stream.band_cholesky(tiles, lay)
     ok = bool((status == 0) & torch.isfinite(tiles[tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay), -1, -1]))
+    form, chain = chain_tiles(tiles, lay)
     torch.cuda.synchronize()
-    out = dict(mode="banded", n=n, bw=bw, layout=lay._asdict(), factor_bytes=lay.T * lay.block**2 * 4,
+    out = dict(mode="banded", n=n, bw=bw, layout=lay._asdict(), factor_bytes=tri_stream.band_bytes(lay, form),
                peak_bytes=torch.cuda.max_memory_allocated() - base, seconds=time.perf_counter() - t0,
                factored=ok)
-    del tiles
+    del tiles, chain
     torch.cuda.empty_cache()
     return out
 
@@ -147,8 +150,9 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def k3_times(bands=BANDS, blocks=BLOCKS) -> list:
-    """K3's solve time at each block of ``blocks`` on each band: synthetic
-    factors (diagonal tiles near the identity) of every block at once, three
+    """K3's solve time at each block of ``blocks`` on each band, in the form
+    the solver runs there (the one-hop form's derived tiles formed first):
+    synthetic factors (diagonal tiles near the identity) of every block at once, three
     warm solves each, then K3_ROUNDS rounds of K3_REPS solves taking the
     blocks in turns; the least round. The sweep tables and scratch of
     layouts made here are dropped after each band (tri_stream keeps them
@@ -161,7 +165,9 @@ def k3_times(bands=BANDS, blocks=BLOCKS) -> list:
         for B in blocks:
             lay = tri_stream.make_band_layout(n, bw, block=B)
             tiles = _synthetic_band(lay, seed=100 + i, diag=1.0)
-            runs.append((lay, tiles, lambda lay=lay, tiles=tiles: tri_stream.band_solve(tiles, r, lay)))
+            form, chain = chain_tiles(tiles, lay)
+            runs.append((lay, tiles, lambda lay=lay, tiles=tiles, chain=chain, form=form: tri_stream.band_solve(
+                tiles, r, lay, chain=chain, form=form)))
         for _, _, solve in runs:
             for _ in range(3):
                 solve()
@@ -194,14 +200,23 @@ def _band_terms(r: dict) -> list:
     return [2.0 * T * B * B * 4, 2.0 * T, 2.0 * nb, 2.0 * nb * B]
 
 
-def fit_band_model(rows: list) -> lim.BandModel:
-    """``limits.BandModel`` by non-negative least squares on the solve
-    times of ``rows``, relative (every layout counts alike)."""
+def _fit_terms(rows: list) -> lim.BandModel:
+    """One form's ``limits.BandModel`` terms by non-negative least squares
+    on the solve times of ``rows``, relative (every layout counts alike)."""
     t = np.array([r["ms"] * 1e-3 for r in rows])
     X = np.array([_band_terms(r) for r in rows]) / t[:, None]
     inv_bw, tile, step, row = nnls(X, np.ones_like(t))[0]
-    return lim.BandModel(bytes_per_s=float(1.0 / inv_bw), tile_s=float(tile), step_s=float(step),
-                         row_s=float(row))
+    return lim.BandModel(bytes_per_s=float(1.0 / inv_bw) if inv_bw > 0 else float("inf"), tile_s=float(tile),
+                         step_s=float(step), row_s=float(row))
+
+
+def fit_band_model(rows: list) -> lim.BandModel:
+    """``limits.BandModel``: the two-hop form's terms fitted to the rows of
+    nbw > NBW_CHAIN, its ``one_hop`` terms to the others (each form's cost
+    has its own shape: csrc/tri_stream.cu)."""
+    one = [r for r in rows if r["nbw"] <= lim.NBW_CHAIN]
+    two = [r for r in rows if r["nbw"] > lim.NBW_CHAIN]
+    return dataclasses.replace(_fit_terms(two), one_hop=_fit_terms(one))
 
 
 def band_ranking(rows: list, model) -> list:

@@ -18,7 +18,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from cuadmm_tpu_torch.ops.chol import NormalEqSolver, _tri_inv
+from cuadmm_tpu_torch.ops import tri_stream
+from cuadmm_tpu_torch.ops.chol import NormalEqSolver, _tri_inv, chain_tiles
+from cuadmm_tpu_torch.ops.limits import card_limits
 from cuadmm_tpu_torch.ops.precond_apply import pad_factor
 from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA
 from cuadmm_tpu_torch.parallel.mesh import Mesh
@@ -95,7 +97,9 @@ def normal_solver_from_numpy(neq, device, mesh: Mesh = None) -> NormalEqSolver:
     as ``inv_l`` (accelerator build) or ``chol_l`` (CPU build, applied by
     an f64 cholesky_solve), the tail's inverse diagonal and the
     permutations. packed and banded: the (T+1, B, B) tiles one to one, the
-    layout tuples, and the band's permutations. cg: the Jacobi and
+    layout tuples, and the band's permutations; a band also gets K3's form
+    and derived tiles (``chol.chain_tiles``) for the card it lands on
+    (``card_limits``; no limit on the CPU). cg: the Jacobi and
     block-Jacobi pieces, the AA^T and FSAI tables, the tolerance and step
     cap."""
     common = dict(
@@ -125,8 +129,12 @@ def normal_solver_from_numpy(neq, device, mesh: Mesh = None) -> NormalEqSolver:
             **common,
         )
     if neq.mode == "banded":
+        band_layout = tuple(int(v) for v in neq.band_layout)
+        tiles = f32(neq.band_tiles)
+        max_bytes = card_limits(tiles.device).band_max_bytes if tiles.device.type == "cuda" else None
+        form, chain = chain_tiles(tiles, tri_stream.BandLayout(*band_layout), max_bytes)
         return NormalEqSolver(
-            band_tiles=f32(neq.band_tiles), band_layout=tuple(int(v) for v in neq.band_layout),
+            band_tiles=tiles, band_layout=band_layout, band_form=form, band_chain=chain,
             band_perm=_opt(neq.band_perm, device), band_inv_perm=_opt(neq.band_inv_perm, device),
             **common,
         )

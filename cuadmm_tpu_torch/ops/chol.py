@@ -51,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -97,20 +97,31 @@ def _rcm_bandwidth(aat) -> tuple:
     return bw_rcm, perm
 
 
+def chain_tiles(tiles: torch.Tensor, lay: "tri_stream.BandLayout",
+                max_bytes: Optional[int] = None) -> Tuple[str, Optional[torch.Tensor]]:
+    """K3's form for a factored band on a card whose band may hold
+    ``max_bytes`` (``tri_stream.band_form``; None: no limit) and the
+    one-hop form's derived tiles (``tri_stream.band_chain``), None in the
+    two-hop form."""
+    form = tri_stream.band_form(lay, max_bytes)
+    return form, tri_stream.band_chain(tiles, lay) if form == "chain" else None
+
+
 def past_ceiling_mode(con_num: int, bw: Optional[int], on_accel: bool, n_devices: int,
                       limits: Optional[CardLimits]) -> str:
     """The mode ``auto`` picks past dense_chol_max, by the JAX package's rule
     (cuadmm_tpu/ops/chol.py:802-842) over ``limits``' numbers. On an
     accelerator: the packed triangle if it streams at most 15% more bytes
     than the band factor at RCM bandwidth ``bw`` (its block picked by
-    ``limits.band_model``), else the band if it fits
-    ``limits.band_max_bytes``, else packed if con_num is within
+    ``limits.bound_band_model()``), else the band if its tiles fit
+    ``limits.band_max_bytes`` (in the one-hop form where its derived tiles
+    fit beside them, ``tri_stream.band_form``), else packed if con_num is within
     ``limits.packed_max_con``, else sharded over ``n_devices`` > 1 ranks,
     else cg. Off an accelerator: cg (``limits`` unread)."""
     if not on_accel:
         return "cg"
-    blay = tri_stream.make_band_layout(con_num, bw, model=limits.band_model)
-    band_bytes = blay.T * blay.block * blay.block * 4
+    blay = tri_stream.make_band_layout(con_num, bw, model=limits.bound_band_model())
+    band_bytes = tri_stream.band_bytes(blay, "two_hop")  # streamed a sweep, in either form
     packed_bytes = (
         tri_stream.make_layout(con_num).T * 1024 * 1024 * 4 if con_num <= limits.packed_max_con else None
     )
@@ -177,11 +188,16 @@ class NormalEqSolver:
     # PackedLayout as a tuple.
     packed_tiles: Optional[torch.Tensor] = None
     packed_layout: Optional[tuple] = None
-    # banded: (T+1, B, B) f32 band tiles, the BandLayout as a tuple, and the
-    # RCM permutation (solver row of each band row) with its inverse; None
-    # when the natural order is already the band's.
+    # banded: (T+1, B, B) f32 band tiles, the BandLayout as a tuple, K3's
+    # form ("chain" or "two_hop", ``tri_stream.band_form``) with the one-hop
+    # form's derived tiles (``tri_stream.band_chain``; None in the two-hop
+    # form), and the RCM permutation (solver
+    # row of each band row) with its inverse; None when the natural order
+    # is already the band's.
     band_tiles: Optional[torch.Tensor] = None
     band_layout: Optional[tuple] = None
+    band_form: Optional[str] = None
+    band_chain: Optional[torch.Tensor] = None
     band_perm: Optional[torch.Tensor] = None
     band_inv_perm: Optional[torch.Tensor] = None
     # sharded: this rank's (nb, ncl, B, B) f32 column slab of the factor
@@ -247,9 +263,11 @@ class NormalEqSolver:
             return tri_shard.sharded_tri_solve(self.shard_grid, r, self.shard_mesh)
         lay = tri_stream.BandLayout(*self.band_layout)
         if self.band_perm is None:
-            return tri_stream.band_solve(self.band_tiles, r, lay)
+            return tri_stream.band_solve(self.band_tiles, r, lay, chain=self.band_chain, form=self.band_form)
         n = self.band_perm.shape[0]
-        return tri_stream.band_solve(self.band_tiles, r[:n][self.band_perm], lay)[self.band_inv_perm]
+        y = tri_stream.band_solve(self.band_tiles, r[:n][self.band_perm], lay, chain=self.band_chain,
+                                  form=self.band_form)
+        return y[self.band_inv_perm]
 
     def _apply_prefix(self, r: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
         """The dense factor applied to the f64 vector ``r`` (all of it in
@@ -839,7 +857,8 @@ def build_normal_solver(
             bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
             pinv = np.empty_like(perm)
             pinv[perm] = np.arange(con_num)
-            lay = tri_stream.make_band_layout(con_num, bw, model=None if limits is None else limits.band_model)
+            model = None if limits is None else limits.bound_band_model()
+            lay = tri_stream.make_band_layout(con_num, bw, model=model)
             rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
             # The jitter ladder starts at 1e-5 rather than precond_eps: a
             # band factors fine there, and the looser 1e-4 costs a sweep.
@@ -851,15 +870,18 @@ def build_normal_solver(
                 "band",
             )
             mark("band_factorize")
+            form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
             if timings is not None:
                 timings["band_bw"] = int(bw)
                 timings["band_layout"] = (
-                    f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={lay.T * lay.block * lay.block * 4}"
+                    f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
+                    f"form={'one-hop' if form == 'chain' else 'two-hop'}"
                 )
             identity = bool(np.array_equal(perm, np.arange(con_num)))
             as_idx = lambda p: torch.as_tensor(np.asarray(p, np.int64), device=device)
             neq = NormalEqSolver(
-                mode="banded", sparse_a=sparse_a, band_tiles=tiles, band_layout=tuple(lay),
+                mode="banded", sparse_a=sparse_a, band_tiles=tiles, band_layout=tuple(lay), band_form=form,
+                band_chain=chain,
                 band_perm=None if identity else as_idx(perm),
                 band_inv_perm=None if identity else as_idx(pinv),
                 applies=applies_0, eps_used=eps_used,

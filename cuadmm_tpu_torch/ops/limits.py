@@ -26,15 +26,20 @@ from ``torch.cuda.max_memory_allocated()`` over each build, on
 
 - packed: the 20x60 and 20x120 grid max-cuts (32,427 and 68,350
   constraints; 2.21 and 9.55 GB of tiles): 1.0156 F + 0.94 GB;
-- banded: the same two grids under RCM (0.27 and 0.56 GB) and the
-  synthetic PushBox N=30 band (n 154,256, bandwidth 20,512: 13.9 GB):
-  1.0643 F + 0.012 GB;
+- banded: the same two grids under RCM (0.54 and 1.12 GB at B 1024, nbw
+  1: the band and its one-hop derived tiles, ``tri_stream.band_bytes``)
+  and the synthetic PushBox N=30 band (n 154,256, bandwidth 20,512: 13.9
+  GB, two-hop): 1.0502 F + 0.212 GB (the derived tiles' f64 products,
+  8 tiles at a time, take the constant);
 - precond: the 20x60 and 20x80 grids (n_pad 32,512 and 44,416: 4.23 and
   7.89 GB squares): 2.9918 F - 0.009 GB;
 
 by least squares, with the constant then raised until no measured peak
 lies above the line. On that card (85.0 GB) they give precond to n_pad
-79,872, packed to 191,488 constraints and bands to 71.9 GB.
+79,872, packed to 191,488 constraints and bands to 72.7 GB held: a band
+of nbw <= NBW_CHAIN takes its derived tiles where the two fit that
+(``band_form``), and runs the two-hop form on the band alone where only
+the band does.
 
 Dense A (``chol._device_factorize``) is built on the card when
 con_num * vec_len * itemsize + 2 * con_num^2 * itemsize (A beside AA^T and
@@ -42,21 +47,22 @@ the jitter clone) fits ``dense_a_budget``, the memory left to the build
 beside precond's constant; otherwise AA^T is formed on the host.
 
 K3's band model, fitted from its solve times at B in {256, 512, 1024} on
-four bands (the same card; ``card_fit.py``), is
+four bands (the same card; ``card_fit.py``), is one form's terms for each
+of K3's two forms (csrc/tri_stream.cu):
 
     t_solve = 2 (T B^2 4 / bytes_per_s + T tile_s + nb (step_s + B row_s))
 
 two sweeps, each streaming its T tiles once, paying a fixed cost a tile
-(its B/8 work items), and waiting at each of its nb dependent block steps
-for the step's diagonal and last off-diagonal tile, read by B/8 CTAs
-(a cost that grows with B). The two-term form bytes / rate + nb x step
-ranked B = 1024 first at the 20x120 grid's band when B = 512 had run 8%
-faster (nbw 1: every tile is on the chain of steps); this one ranks the
-three blocks as measured on all four bands but the grid's, where B 1024
-and 512 tie within 2.5% (PERF.md, PR 11). The JAX package's TPU model is
-this form without the step terms, with its TPU's rates
-(cuadmm_tpu/ops/tri_stream.py:463-478). ``tri_stream.make_band_layout``
-picks the B the model predicts fastest.
+and a cost at each of its nb dependent block steps. In the two-hop form
+(nbw > NBW_CHAIN) a step waits for its diagonal and its last off-diagonal
+tile, read by B/8 CTAs each (a cost that grows with B); in the one-hop
+form one hop a step remains, a fixed 1.1 us, and no cost a tile (PERF.md
+§6). Both rank the three blocks as measured on all four bands; the
+20x120 grid's band, whose blocks tied in the two-hop form, runs B 512
+fastest in the one-hop form (0.441 against 0.518 ms at B 1024). The JAX
+package's TPU model is the two-hop form without the step terms, with its
+TPU's rates (cuadmm_tpu/ops/tri_stream.py:463-478).
+``tri_stream.make_band_layout`` picks the B the model predicts fastest.
 """
 
 from __future__ import annotations
@@ -88,29 +94,69 @@ class PeakModel(NamedTuple):
         return self.multiple * factor_bytes + self.constant
 
 
-# Fitted on NVIDIA H100 80GB HBM3, 700.00 W (card_fit.py; PERF.md, PR 11).
+# Fitted on NVIDIA H100 80GB HBM3, 700.00 W (card_fit.py; PERF.md §6).
 PACKED_PEAK = PeakModel(1.0155765206473215, 938720099.0)
-BAND_PEAK = PeakModel(1.0642607521221874, 12113848.0)
+BAND_PEAK = PeakModel(1.0502401146889744, 212103896.0)
 PRECOND_PEAK = PeakModel(2.991796406750399, -8626858.0)
+
+
+# The widest block band (nbw) K3 runs in its one-hop form
+# (ops/tri_stream.py), whose derived tiles add 2 nbw tiles a block row:
+# it ran 1.4-1.8x faster than the two-hop form at nbw 1-6 (PERF.md §6).
+NBW_CHAIN = 4
+
+
+def band_held_bytes(T: int, B: int, nb: int, form: str) -> int:
+    """The f32 bytes a band of T tiles of B^2 in nb block rows holds in
+    K3's ``form``: its tiles, and in the one-hop form ("chain") the 2 nb
+    nbw derived tiles beside them."""
+    extra = 2 * (T - nb) if form == "chain" else 0  # T - nb = nb nbw
+    return (T + extra) * B * B * 4
+
+
+def band_form(T: int, B: int, nb: int, max_bytes: "int | None" = None) -> str:
+    """K3's form for a band of T tiles of B^2 in nb block rows, nbw = T / nb
+    - 1: "chain" (one-hop) at nbw <= NBW_CHAIN where the band with its
+    derived tiles fits ``max_bytes`` (None: no limit), else "two_hop", which
+    holds the band alone. ``auto`` places a band whose two-hop bytes fit
+    ``CardLimits.band_max_bytes``; this picks its form, K3's model its time
+    and the build its derived tiles."""
+    if T // nb - 1 > NBW_CHAIN:
+        return "two_hop"
+    if max_bytes is not None and band_held_bytes(T, B, nb, "chain") > max_bytes:
+        return "two_hop"
+    return "chain"
 
 
 @dataclasses.dataclass(frozen=True)
 class BandModel:
     """K3's solve time for a band layout of T tiles of B^2 f32 in nb block
-    rows: ``2 (T B^2 4 / bytes_per_s + T tile_s + nb (step_s + B row_s))``."""
+    rows: ``2 (T B^2 4 / bytes_per_s + T tile_s + nb (step_s + B row_s))``,
+    the two-hop form's terms; ``one_hop`` (a BandModel of its own terms)
+    stands for the bands that run the one-hop form, ``band_form(T, B, nb,
+    max_bytes)`` (None: these terms for every band). ``max_bytes``: the
+    card's ``band_max_bytes`` (``CardLimits.bound_band_model``), so that a
+    block whose derived tiles do not fit is timed in the two-hop form it
+    runs."""
 
     bytes_per_s: float
     tile_s: float
     step_s: float
     row_s: float
+    one_hop: "BandModel | None" = None
+    max_bytes: "int | None" = None
 
     def __call__(self, T: int, B: int, nb: int) -> float:
+        if self.one_hop is not None and band_form(T, B, nb, self.max_bytes) == "chain":
+            return self.one_hop(T, B, nb)
         return 2.0 * (T * B * B * 4 / self.bytes_per_s + T * self.tile_s + nb * (self.step_s + B * self.row_s))
 
 
-# Fitted on NVIDIA H100 80GB HBM3, 700.00 W (card_fit.py; PERF.md, PR 11).
-BAND_MODEL = BandModel(bytes_per_s=2826837042583.1016, tile_s=1.0427952326990273e-07,
-                       step_s=1.3379230425212235e-06, row_s=2.0193962745902527e-09)
+# Fitted on NVIDIA H100 80GB HBM3, 700.00 W (card_fit.py; PERF.md §6).
+BAND_MODEL = BandModel(bytes_per_s=2606775805619.3306, tile_s=1.0361712840547813e-07,
+                       step_s=1.5921109713602756e-06, row_s=4.628687237513854e-10,
+                       one_hop=BandModel(bytes_per_s=3182356971592.5957, tile_s=0.0,
+                                         step_s=1.110786131302426e-06, row_s=0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +165,18 @@ class CardLimits:
 
     total_bytes: int
     packed_max_con: int  # largest con_num auto routes to the packed triangle
-    band_max_bytes: int  # largest f32 band factor auto places
+    band_max_bytes: int  # largest f32 band auto places, derived tiles included where it takes them
     dense_a_budget: int  # bytes for dense A beside AA^T and its jitter clone
     precond_max_n_pad: int  # largest n_pad of precond's (or split's prefix's) inverse factor
     band_model: BandModel  # K3's solve time: picks the band's block
+
+    def bound_band_model(self):
+        """``band_model`` as the card's band is picked with it: a BandModel
+        bound to ``band_max_bytes`` (``band_form``); any other model as it
+        is."""
+        if isinstance(self.band_model, BandModel):
+            return dataclasses.replace(self.band_model, max_bytes=self.band_max_bytes)
+        return self.band_model
 
 
 def available(total_bytes: int) -> int:

@@ -24,6 +24,13 @@ array for array (tests/test_torch_tri_stream.py).
   layout from the meta tables) or raise; on a CPU
   tensor they run the plain versions ``packed_solve_ref`` /
   ``band_solve_ref``.
+- The one-hop form (``band_form``: bands with nbw <= ``NBW_CHAIN`` whose
+  derived tiles fit the card beside them): ``band_chain``
+  forms W_ij = inv(L_ii) L_ij and Ut_ji = inv(L_jj)^T L_ij^T once per
+  factor, and ``band_solve(..., chain=)`` sweeps x_i = inv(L_ii) r_i -
+  sum_j W_ij x_j and y_i = inv(L_ii)^T x_i - sum_j Ut_ij y_j, one wait on
+  the newest solved block per block step where the two-hop form waits
+  twice (csrc/tri_stream.cu says why). The same tiles are read per sweep.
 
 Dropped from the JAX package: the pow2 padding of panels and chunks, the
 sentinel-tile writes and the scan of dynamic slices, which only bound
@@ -41,8 +48,8 @@ import numpy as np
 import torch
 
 from cuadmm_tpu_torch import _build
-from cuadmm_tpu_torch.ops import launches
-from cuadmm_tpu_torch.ops.limits import BAND_MODEL
+from cuadmm_tpu_torch.ops import launches, limits
+from cuadmm_tpu_torch.ops.limits import BAND_MODEL, NBW_CHAIN
 
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
@@ -50,9 +57,14 @@ UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 # the backward sweep of csrc/tri_stream.cu, one persistent launch each).
 COUNTER = {"packed_solve": "k2", "band_solve": "k3"}
 
-_LIB = None  # the loaded kernel library, built on the first CUDA launch
-_CTAS: dict = {}  # (device index, block) -> co-resident CTAs of one sweep
-_STEPS: dict = {}  # (layout, device) -> work tables and tagged scratch of both sweeps
+# NBW_CHAIN (ops/limits.py, beside K3's model): the widest block band that
+# takes the one-hop form; wider bands keep the two-hop form, where the
+# derived tiles would near triple the factor (k3_ab.py --forms times both).
+CHAIN_CHUNK = 8  # derived tiles formed per f64 product in band_chain
+
+_CTAS: dict = {}  # (variant, device index, block) -> co-resident CTAs of one two-hop sweep
+_PLANS: dict = {}  # (variant, device index, block) -> one-hop ring depth and co-resident CTAs
+_STEPS: dict = {}  # (form, layout, device) -> work tables and tagged scratch of both sweeps
 
 
 class PackedLayout(NamedTuple):
@@ -90,7 +102,9 @@ def make_band_layout(n: int, bw: int, block: int = 0, model: Optional[Callable] 
     """Layout for scalar bandwidth ``bw``; ``block=0`` picks B in
     {1024, 512, 256} by ``model(T, B, nb)``, the seconds of a solve over T
     tiles of B^2 in nb block rows (None: K3's on the card,
-    ``ops/limits.py::BAND_MODEL``); the first B wins a tie."""
+    ``ops/limits.py::BAND_MODEL``; ``CardLimits.bound_band_model()`` also
+    knows at which blocks the derived tiles fit the card); the first B
+    wins a tie."""
     if block <= 0:
         model = BAND_MODEL if model is None else model
         best = None
@@ -109,6 +123,51 @@ def make_band_layout(n: int, bw: int, block: int = 0, model: Optional[Callable] 
 def tid_band(i, j, lay: BandLayout):
     """Band slot of tile (i, j), i - nbw <= j <= i (row-major band)."""
     return i * (lay.nbw + 1) + (lay.nbw - (i - j))
+
+
+def band_form(lay: BandLayout, max_bytes: Optional[int] = None) -> str:
+    """K3's form for ``lay`` on a card whose band may hold ``max_bytes``
+    (``CardLimits.band_max_bytes``; None: no limit): "chain" (one-hop) at
+    nbw <= NBW_CHAIN where the derived tiles fit beside the band, else
+    "two_hop" (``limits.band_form``)."""
+    return limits.band_form(lay.T, lay.block, lay.nb, max_bytes)
+
+
+def chain_slot(i, j, lay: BandLayout):
+    """Slot of off-diagonal tile (i, j), i - nbw <= j < i, among a chain
+    half's nb * nbw (W first, Ut second, each row-major like the band)."""
+    return i * lay.nbw + (lay.nbw - (i - j))
+
+
+def band_bytes(lay: BandLayout, form: str) -> int:
+    """The f32 bytes a banded solver holds in ``form``: the band's T tiles,
+    and in the one-hop form its derived tiles (2 nb nbw)."""
+    return limits.band_held_bytes(lay.T, lay.block, lay.nb, form)
+
+
+def band_chain(tiles: torch.Tensor, lay: BandLayout) -> torch.Tensor:
+    """The one-hop form's derived tiles of a factored band (diagonal tiles
+    inverted): (2 nb nbw, B, B) in the tiles' dtype and device, W_ij =
+    inv(L_ii) L_ij at ``chain_slot(i, j)`` and Ut_ji = inv(L_jj)^T L_ij^T at
+    nb nbw + ``chain_slot(i, j)``, each formed in f64 (``torch.matmul``,
+    CHAIN_CHUNK tiles at a time) and rounded once. Slots of the top-left
+    corner (j < 0) are zero and never read."""
+    B, half = lay.block, lay.nb * lay.nbw
+    out = torch.zeros((2 * half, B, B), dtype=tiles.dtype, device=tiles.device)
+    pairs = [(i, j) for i in range(lay.nb) for j in range(max(0, i - lay.nbw), i)]
+    f64 = torch.float64
+    for s in range(0, len(pairs), CHAIN_CHUNK):
+        chunk = pairs[s : s + CHAIN_CHUNK]
+        idx = lambda ids: torch.as_tensor(ids, dtype=torch.int64, device=tiles.device)
+        l_ij = tiles.index_select(0, idx([tid_band(i, j, lay) for i, j in chunk])).to(f64)
+        inv_i = tiles.index_select(0, idx([tid_band(i, i, lay) for i, _ in chunk])).to(f64)
+        slots = idx([chain_slot(i, j, lay) for i, j in chunk])
+        out.index_copy_(0, slots, torch.matmul(inv_i, l_ij).to(tiles.dtype))
+        del inv_i
+        inv_j = tiles.index_select(0, idx([tid_band(j, j, lay) for _, j in chunk])).to(f64)
+        out.index_copy_(0, slots + half, torch.matmul(inv_j.mT, l_ij.mT).to(tiles.dtype))
+        del inv_j, l_ij
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -378,7 +437,8 @@ def _steps(table, transpose: bool) -> dict:
     )
 
 
-SLAB = 8  # output entries per work item (csrc/tri_stream.cu kSlab)
+SLAB = 8  # output entries per two-hop work item (csrc/tri_stream.cu kSlab)
+CHAIN_ITEM = 16  # output entries per one-hop work item (csrc/tri_stream.cu kS)
 
 
 def _work_table(st: dict, B: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -404,25 +464,52 @@ def _work_table(st: dict, B: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             np.ascontiguousarray(st["off_blk"], np.int32))
 
 
-def _device_steps(lay, device: torch.device) -> dict:
-    """Both sweeps' work tables on ``device`` (built once per layout), the
-    tagged scratch they share (solved vector and partial rows, 64-bit words
-    {value, epoch}), and the device word holding the next sweep's epoch
-    (the kernel advances it after each sweep, so a CUDA graph replaying a
-    solve tags each replay anew)."""
-    key = (type(lay).__name__, tuple(lay), str(device))
+def _chain_tables(lay: BandLayout) -> list:
+    """Both sweeps' one-hop tables (host int32): steps (nb, 4) block solved,
+    diagonal tile, first chain entry, chain entries; offs (entries, 2)
+    chain tile and the solved block it multiplies, the newest block last
+    (forward j = i-nbw..i-1 into W, backward j = i+nbw..i+1 into Ut)."""
+    half = lay.nb * lay.nbw
+    out = []
+    for transpose in (False, True):
+        blocks = range(lay.nb - 1, -1, -1) if transpose else range(lay.nb)
+        steps, offs = [], []
+        for i in blocks:
+            if transpose:
+                reads = [(half + chain_slot(j, i, lay), j) for j in range(min(lay.nb - 1, i + lay.nbw), i, -1)]
+            else:
+                reads = [(chain_slot(i, j, lay), j) for j in range(max(0, i - lay.nbw), i)]
+            steps.append((i, tid_band(i, i, lay), len(offs), len(reads)))
+            offs += reads
+        out.append(dict(steps=np.asarray(steps, np.int32).reshape(-1, 4),
+                        offs=np.asarray(offs or [(0, 0)], np.int32).reshape(-1, 2)))
+    return out
+
+
+def _device_steps(lay, device: torch.device, form: str = "two_hop") -> dict:
+    """Both sweeps' work tables on ``device`` (built once per layout and
+    form), the tagged scratch they share (solved vector and, for the
+    two-hop form, partial rows: 64-bit words {value, epoch}), and the
+    device word holding the next sweep's epoch (the kernel advances it
+    after each sweep, so a CUDA graph replaying a solve tags each replay
+    anew)."""
+    key = (form, type(lay).__name__, tuple(lay), str(device))
     if key not in _STEPS:
-        sweeps, rows = [], 1
-        for table, transpose in zip(_sweep_tables(lay), (False, True)):
-            items, steps, row_blk = _work_table(_steps(table, transpose), lay.block)
-            rows = max(rows, len(row_blk))
-            sweeps.append(dict(items=torch.as_tensor(items, device=device), n_items=len(items),
-                               steps=torch.as_tensor(steps, device=device),
-                               row_blk=torch.as_tensor(np.r_[row_blk, 0].astype(np.int32), device=device)))
+        sweeps, rows = [], 0
+        if form == "chain":
+            sweeps = [{k: torch.as_tensor(v, device=device) for k, v in sw.items()} for sw in _chain_tables(lay)]
+        else:
+            rows = 1
+            for table, transpose in zip(_sweep_tables(lay), (False, True)):
+                items, steps, row_blk = _work_table(_steps(table, transpose), lay.block)
+                rows = max(rows, len(row_blk))
+                sweeps.append(dict(items=torch.as_tensor(items, device=device), n_items=len(items),
+                                   steps=torch.as_tensor(steps, device=device),
+                                   row_blk=torch.as_tensor(np.r_[row_blk, 0].astype(np.int32), device=device)))
         _STEPS[key] = dict(
             sweeps=sweeps,
             solved=torch.zeros(lay.n_pad, dtype=torch.int64, device=device),
-            parts=torch.zeros(rows * lay.block, dtype=torch.int64, device=device),
+            parts=torch.zeros(rows * lay.block, dtype=torch.int64, device=device) if rows else None,
             epoch=torch.ones(1, dtype=torch.int32, device=device),  # read as unsigned; fresh scratch tags 0
         )
     return _STEPS[key]
@@ -434,35 +521,72 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"tri_stream {what} failed: {msg} (cudaError {err})")
 
 
-def _load() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("tri_stream")
+_LIBS: dict = {}  # variant -> the loaded kernel library, built on its first CUDA launch
+# A variant's library name and nvcc flags: k3_ab.py's timeline build
+# records %globaltimer stamps; the library that ships has none.
+VARIANTS = {None: (), "stamps": ("-DCUADMM_TRI_STAMPS",)}
+
+
+def _load(variant: Optional[str] = None) -> ctypes.CDLL:
+    if variant not in _LIBS:
+        lib = _build.load("tri_stream", variant=variant, flags=VARIANTS[variant])
+        P, I = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd):
-            fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                + [ctypes.c_void_p] * 6
-                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-        lib.cuadmm_tri_stream_capacity.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.cuadmm_tri_stream_capacity.restype = ctypes.c_int
-        lib.cuadmm_cuda_error_string.argtypes = [ctypes.c_int]
+            fn.argtypes = [P, I, P, I] + [P] * 6 + [P, I, P]
+            fn.restype = I
+        for fn in (lib.cuadmm_tri_chain_fwd, lib.cuadmm_tri_chain_bwd):
+            fn.argtypes = [P, P, I, I, I, P, P, P, P, P, P, I, P]
+            fn.restype = I
+        lib.cuadmm_tri_stream_capacity.argtypes = [I, ctypes.POINTER(I)]
+        lib.cuadmm_tri_stream_capacity.restype = I
+        lib.cuadmm_tri_chain_plan.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I)]
+        lib.cuadmm_tri_chain_plan.restype = I
+        lib.cuadmm_cuda_error_string.argtypes = [I]
         lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        if variant == "stamps":
+            lib.cuadmm_tri_stream_set_stamps.argtypes = [P, P]
+            lib.cuadmm_tri_stream_set_stamps.restype = I
+        _LIBS[variant] = lib
+    return _LIBS[variant]
 
 
-def _capacity(lib: ctypes.CDLL, idx: int, B: int) -> int:
-    """Co-resident CTAs of one sweep on device ``idx`` at block B (cached)."""
-    if (idx, B) not in _CTAS:
+def _capacity(lib: ctypes.CDLL, idx: int, B: int, variant: Optional[str] = None) -> int:
+    """Co-resident CTAs of one two-hop sweep on device ``idx`` at block B
+    (cached)."""
+    key = (variant, idx, B)
+    if key not in _CTAS:
         n = ctypes.c_int(0)
         _check(lib, lib.cuadmm_tri_stream_capacity(B, ctypes.byref(n)), "occupancy query")
-        _CTAS[(idx, B)] = n.value
-    return _CTAS[(idx, B)]
+        _CTAS[key] = n.value
+    return _CTAS[key]
 
 
-def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor:
+def _chain_plan(lib: ctypes.CDLL, idx: int, B: int, variant: Optional[str] = None) -> Tuple[int, int]:
+    """The one-hop kernel's ring depth and co-resident CTAs on device
+    ``idx`` at block B (cached; sets the kernel's shared memory attribute
+    on the first call)."""
+    key = (variant, idx, B)
+    if key not in _PLANS:
+        stages, ctas = ctypes.c_int(0), ctypes.c_int(0)
+        _check(lib, lib.cuadmm_tri_chain_plan(B, ctypes.byref(stages), ctypes.byref(ctas)), "one-hop plan")
+        _PLANS[key] = (stages.value, ctas.value)
+    return _PLANS[key]
+
+
+def _check_chain(chain: torch.Tensor, tiles: torch.Tensor, lay: BandLayout) -> None:
+    B = lay.block
+    want = (2 * lay.nb * lay.nbw, B, B)
+    if tuple(chain.shape) != want:
+        raise ValueError(f"need chain tiles {want} (band_chain), got {tuple(chain.shape)}")
+    if chain.device != tiles.device or chain.dtype != tiles.dtype:
+        raise ValueError(f"chain tiles on {chain.device} as {chain.dtype}, band tiles on {tiles.device} "
+                         f"as {tiles.dtype}")
+    if not chain.is_contiguous() or chain.data_ptr() % 16:
+        raise ValueError("chain tiles must be contiguous and 16-byte aligned")
+
+
+def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str, chain: Optional[torch.Tensor] = None,
+           form: str = "two_hop", variant: Optional[str] = None) -> torch.Tensor:
     B = lay.block
     if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (B, B) or tiles.shape[0] < lay.T:
         raise ValueError(f"need tiles (>= {lay.T}, {B}, {B}), got {tuple(tiles.shape)}")
@@ -470,6 +594,8 @@ def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor
         raise ValueError(f"need r of length <= n_pad={lay.n_pad}, got {tuple(r.shape)}")
     if tiles.device != r.device:
         raise ValueError(f"tiles on {tiles.device} but r on {r.device}")
+    if chain is not None:
+        _check_chain(chain, tiles, lay)
     if tiles.device.type == "cpu":
         return _solve_ref(tiles, r, lay)
     if tiles.device.type != "cuda":
@@ -480,27 +606,41 @@ def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str) -> torch.Tensor
         raise ValueError(f"the kernel takes a block of 128..1024 in steps of 128, got {B}")
     if not tiles.is_contiguous() or tiles.data_ptr() % 16:
         raise ValueError("tiles must be contiguous and 16-byte aligned")
-    lib = _load()
+    if form == "chain" and chain is None:
+        raise ValueError(f"nbw {lay.nbw} in the one-hop form needs its derived tiles: pass "
+                         "chain=band_chain(tiles, lay), or form='two_hop'")
+    lib = _load(variant)
     dev = tiles.device
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(idx):
-        ctas = _capacity(lib, idx, B)
-        tab = _device_steps(lay, dev)
+        tab = _device_steps(lay, dev, form)
         rp = torch.nn.functional.pad(r.to(torch.float32), (0, lay.n_pad - r.shape[0])).contiguous()
         x = torch.empty(lay.n_pad, dtype=torch.float32, device=dev)
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(idx).cuda_stream
-        fns = (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd)
-        for fn, sw, rhs, out in zip(fns, tab["sweeps"], (rp, x), (x, y)):
-            # Each launched sweep reads the epoch from its device word and
-            # advances it after itself (wrapping past 0 after 2^32 sweeps),
-            # so the scratch never needs a reset.
-            err = fn(
-                tiles.data_ptr(), B, sw["items"].data_ptr(), sw["n_items"], sw["steps"].data_ptr(),
-                sw["row_blk"].data_ptr(), rhs.data_ptr(), out.data_ptr(), tab["solved"].data_ptr(),
-                tab["parts"].data_ptr(), tab["epoch"].data_ptr(), ctas, stream,
-            )
-            _check(lib, err, f"{name} launch")
+        # Each launched sweep reads the epoch from its device word and
+        # advances it after itself (wrapping past 0 after 2^32 sweeps), so
+        # the scratch never needs a reset.
+        if form == "chain":
+            stages, ctas = _chain_plan(lib, idx, B, variant)
+            fns = (lib.cuadmm_tri_chain_fwd, lib.cuadmm_tri_chain_bwd)
+            for fn, sw, rhs, out in zip(fns, tab["sweeps"], (rp, x), (x, y)):
+                err = fn(
+                    tiles.data_ptr(), chain.data_ptr(), B, lay.nb, stages, sw["steps"].data_ptr(),
+                    sw["offs"].data_ptr(), rhs.data_ptr(), out.data_ptr(), tab["solved"].data_ptr(),
+                    tab["epoch"].data_ptr(), ctas, stream,
+                )
+                _check(lib, err, f"{name} launch")
+        else:
+            ctas = _capacity(lib, idx, B, variant)
+            fns = (lib.cuadmm_tri_stream_fwd, lib.cuadmm_tri_stream_bwd)
+            for fn, sw, rhs, out in zip(fns, tab["sweeps"], (rp, x), (x, y)):
+                err = fn(
+                    tiles.data_ptr(), B, sw["items"].data_ptr(), sw["n_items"], sw["steps"].data_ptr(),
+                    sw["row_blk"].data_ptr(), rhs.data_ptr(), out.data_ptr(), tab["solved"].data_ptr(),
+                    tab["parts"].data_ptr(), tab["epoch"].data_ptr(), ctas, stream,
+                )
+                _check(lib, err, f"{name} launch")
     launches.LAUNCHES[COUNTER[name]] += 1
     return y[: r.shape[0]].to(r.dtype)
 
@@ -513,7 +653,16 @@ def packed_solve(tiles: torch.Tensor, r: torch.Tensor, lay: PackedLayout) -> tor
     return _solve(tiles, r, lay, "packed_solve")
 
 
-def band_solve(tiles: torch.Tensor, r: torch.Tensor, lay: BandLayout) -> torch.Tensor:
+def band_solve(tiles: torch.Tensor, r: torch.Tensor, lay: BandLayout, chain: Optional[torch.Tensor] = None,
+               form: Optional[str] = None) -> torch.Tensor:
     """y = (L L^T)^{-1} r over band tiles (K3); the contract of
-    ``packed_solve``."""
-    return _solve(tiles, r, lay, "band_solve")
+    ``packed_solve``. ``form``: "chain" or "two_hop", the ``band_form``
+    the caller's derived tiles were made for (None: ``band_form(lay)``,
+    one-hop at nbw <= NBW_CHAIN). The one-hop form on CUDA needs its
+    derived tiles, ``chain=band_chain(tiles, lay)``, and raises without
+    them; the two-hop form ignores ``chain``. On the CPU the plain version
+    reads ``tiles`` alone."""
+    form = form or band_form(lay)
+    if form not in ("chain", "two_hop"):
+        raise ValueError(f"form must be 'chain' or 'two_hop', got {form!r}")
+    return _solve(tiles, r, lay, "band_solve", chain=chain if form == "chain" else None, form=form)

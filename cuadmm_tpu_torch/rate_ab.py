@@ -1,7 +1,7 @@
 """Iteration rates of one checkout of the port, to compare two checkouts on
 one card.
 
-    python3 cuadmm_tpu_torch/rate_ab.py ROOT [LABEL]
+    python3 cuadmm_tpu_torch/rate_ab.py ROOT [LABEL] [--banded]
 
 Imports ``cuadmm_tpu_torch`` from the checkout at ROOT, so this script can
 time an older checkout too, and runs plain ADMM (f64, switch_admm=0) on
@@ -11,7 +11,10 @@ chip_smoke.py's stand-in (max-cut on the banded graph n=1560, projection
 (projections "jacobi", "poly", "eigh" and "auto": 100 warm and 200 timed
 iterations each) and on its 20x120 large grid (projection "auto"; the
 normal solver's "auto" takes the band there: 100 warm and 200 timed
-iterations). Each run is followed by 50 iterations under
+iterations, in f64 and in f32 state), and the 20x60 grid through
+normal_solver "banded" (projection "auto"). ``--banded`` runs only the
+three banded runs (K3's path). Each banded row names the layout and the
+calibrated sweeps a solve (``applies``). Each run is followed by 50 iterations under
 torch.profiler for the device time per iteration. It also times the host
 side of ``jacobi_eigh`` alone at the stand-in's bucket shape (1556, 8, 8):
 microseconds to queue one call, and the device time per call. The kernels
@@ -79,9 +82,12 @@ def k4_host(jacobi, calls: int = 200) -> dict:
     return dict(queue_us_per_call=queued / calls * 1e6, device_us_per_call=start.elapsed_time(stop) / calls * 1e3)
 
 
-def rate(pkg, prob, projection: str, iters: int) -> dict:
-    cfg = pkg.SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=projection)
+def rate(pkg, prob, projection: str, iters: int, **config) -> dict:
+    cfg = pkg.SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection=projection,
+                           **config)
     solver = pkg.SDPSolver(prob, cfg, device="cuda")
+    neq = solver.params.neq
+    band = dict(band_layout=list(neq.band_layout), applies=neq.applies) if neq.mode == "banded" else {}
     solver.solve(max_iter=WARM, stop_tol=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -92,12 +98,14 @@ def rate(pkg, prob, projection: str, iters: int) -> dict:
         raise RuntimeError(f"{projection}: {res.iterations} of {iters} iterations, errRp {res.errRp}")
     ms = elapsed * 1e3 / iters
     dev = device_ms_per_it(solver)
-    return dict(it_per_s=iters / elapsed, ms_per_it=ms, device_ms_per_it=dev, device_idle_ms_per_it=ms - dev)
+    return dict(it_per_s=iters / elapsed, ms_per_it=ms, device_ms_per_it=dev, device_idle_ms_per_it=ms - dev, **band)
 
 
 def main() -> None:
-    root = Path(sys.argv[1]).resolve()
-    label = sys.argv[2] if len(sys.argv) > 2 else root.name
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    root = Path(args[0]).resolve()
+    label = args[1] if len(args) > 1 else root.name
+    banded_only = "--banded" in sys.argv
     if not torch.cuda.is_available():
         raise SystemExit("rate_ab: needs a CUDA device")
     sys.path[0] = str(root)  # in place of this script's directory
@@ -108,14 +116,18 @@ def main() -> None:
 
     print(card_line())
     out = dict(label=label, root=str(root))
-    prob = standin(maxcut_chordal)
-    for proj in ("auto", "poly"):
-        out[f"stand-in {proj}"] = rate(pkg, prob, proj, 500)
-    out["k4 host at (1556, 8, 8)"] = k4_host(jacobi)
+    if not banded_only:
+        prob = standin(maxcut_chordal)
+        for proj in ("auto", "poly"):
+            out[f"stand-in {proj}"] = rate(pkg, prob, proj, 500)
+        out["k4 host at (1556, 8, 8)"] = k4_host(jacobi)
     prob = grid(maxcut_chordal)
-    for proj in ("jacobi", "poly", "eigh", "auto"):
+    for proj in () if banded_only else ("jacobi", "poly", "eigh", "auto"):
         out[f"grid {proj}"] = rate(pkg, prob, proj, 200)
-    out["large grid auto"] = rate(pkg, grid(maxcut_chordal, 20, 120), "auto", 200)
+    out["grid banded"] = rate(pkg, prob, "auto", 200, normal_solver="banded")
+    prob = grid(maxcut_chordal, 20, 120)
+    out["large grid auto"] = rate(pkg, prob, "auto", 200)
+    out["large grid auto f32"] = rate(pkg, prob, "auto", 200, dtype="float32")
     print(json.dumps(out), flush=True)
 
 

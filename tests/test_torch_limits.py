@@ -50,10 +50,10 @@ def test_each_peak_fits_at_its_limit_and_not_one_step_past(total):
 def test_h100_limits():
     """The H100's numbers PERF.md quotes: precond to n_pad 79,872 (the
     20x80 grid's 44,416 well inside), the packed triangle to 191,488
-    constraints, a 71.9 GB band."""
+    constraints, a 72.7 GB band (derived tiles included)."""
     lm = lim.limits_for(H100_BYTES)
     assert (lm.precond_max_n_pad, lm.packed_max_con) == (79872, 191488)
-    assert 71e9 < lm.band_max_bytes < 72e9
+    assert 72.6e9 < lm.band_max_bytes < 72.7e9
     assert tchol.dense_a_fits(44312, 61476, 4, lm.dense_a_budget)  # the 20x80 grid: 26.6 GB
     assert not tchol.dense_a_fits(44312, 61476, 4, 6 * 1024**3)  # the JAX package's 6 GiB
 
@@ -67,10 +67,24 @@ def test_card_limits_reads_the_cuda_device(monkeypatch):
 
 
 def test_band_model_form():
-    """2 (T B^2 4 / bytes_per_s + T tile_s + nb (step_s + B row_s)); the JAX
-    package's TPU model is the same form without the step terms."""
+    """2 (T B^2 4 / bytes_per_s + T tile_s + nb (step_s + B row_s)) for
+    each of K3's forms; the JAX package's TPU model is the same form
+    without the step terms."""
     m = lim.BandModel(bytes_per_s=1e12, tile_s=1e-7, step_s=1e-6, row_s=1e-9)
     assert m(10, 512, 4) == pytest.approx(2 * (10 * 512 * 512 * 4 / 1e12 + 10 * 1e-7 + 4 * (1e-6 + 512e-9)))
+    # one_hop: its own terms for the bands of nbw <= NBW_CHAIN (T / nb - 1).
+    two = lim.BandModel(bytes_per_s=1e12, tile_s=1e-7, step_s=1e-6, row_s=1e-9,
+                        one_hop=lim.BandModel(bytes_per_s=3e12, tile_s=0.0, step_s=2e-6, row_s=0.0))
+    assert two(10, 512, 5) == pytest.approx(2 * (10 * 512 * 512 * 4 / 3e12 + 5 * 2e-6))  # nbw 1
+    assert two(25, 512, 5) == pytest.approx(2 * (25 * 512 * 512 * 4 / 3e12 + 5 * 2e-6))  # nbw 4
+    assert two(30, 512, 5) == pytest.approx(m(30, 512, 5))  # nbw 5: the two-hop terms
+    # max_bytes: a band whose derived tiles do not fit is timed in the two-hop form it runs.
+    held = lim.band_held_bytes(10, 512, 5, "chain")
+    assert held == 2 * lim.band_held_bytes(10, 512, 5, "two_hop") == 20 * 512 * 512 * 4  # nbw 1: T + 2 nb nbw
+    assert dataclasses.replace(two, max_bytes=held)(10, 512, 5) == pytest.approx(two(10, 512, 5))
+    assert dataclasses.replace(two, max_bytes=held - 1)(10, 512, 5) == pytest.approx(m(10, 512, 5))
+    card = lim.limits_for(H100_BYTES)
+    assert card.bound_band_model() == dataclasses.replace(lim.BAND_MODEL, max_bytes=card.band_max_bytes)
     jax_form = lim.BandModel(bytes_per_s=800e9, tile_s=3e-6, step_s=0.0, row_s=0.0)
     for n, bw in ((68350, 4), (112028, 1615), (154256, 20512), (5000, 300), (1342, 4)):
         assert tts.make_band_layout(n, bw, model=jax_form) == tts.make_band_layout(

@@ -3,12 +3,19 @@
 Layouts, meta tables and scatters agree exactly; the elimination agrees to
 rtol 1e-10 in f64 (inverted diagonal tiles included); the plain sweeps
 agree with the JAX package's Pallas kernels run in interpret mode to 1e-12
-in f64 and 1e-5 in f32 (f32 matvecs summed in another order). On the CPU
-the wrappers run the plain versions. The CUDA kernel runs only on a card:
+in f64 and 1e-5 in f32 (f32 matvecs summed in another order), and so does
+a plain walk of the one-hop form's tables over its derived tiles (W, Ut).
+On the CPU the wrappers run the plain versions. The CUDA kernel runs only on a card:
 those tests are marked ``cuda`` and run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_tri_stream.py``
 (the suite's conftest imports jax, which the card's machine lacks).
 """
+
+import ctypes
+import dataclasses
+import os
+import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -36,9 +43,9 @@ def _random_aat(n, density=0.05, seed=1):
     return (A @ A.T).tocsr()
 
 
-def _chain_aat(n, vec_len_per=6, coupling=30, seed=3):
-    """AA^T of tests/test_tri_stream.py::_chain_A: banded, a trajectory's
-    knot-point structure."""
+def _chain_a(n, vec_len_per=6, coupling=30, seed=3):
+    """tests/test_tri_stream.py::_chain_A: a trajectory's knot-point
+    structure, whose AA^T is banded."""
     rng = np.random.default_rng(seed)
     rows, cols, vals = [], [], []
     for i in range(n):
@@ -46,7 +53,12 @@ def _chain_aat(n, vec_len_per=6, coupling=30, seed=3):
             rows.append(i)
             cols.append(2 * i + int(k))
             vals.append(rng.standard_normal())
-    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n * 2 + coupling + vec_len_per))
+    return sp.csr_matrix((vals, (rows, cols)), shape=(n, n * 2 + coupling + vec_len_per))
+
+
+def _chain_aat(n, vec_len_per=6, coupling=30, seed=3):
+    """AA^T of tests/test_tri_stream.py::_chain_A."""
+    A = _chain_a(n, vec_len_per, coupling, seed)
     return (A @ A.T).tocsr()
 
 
@@ -99,15 +111,19 @@ def test_band_layout_block_model_and_tables_match_jax(n, bw, block):
 
 
 def test_grid_layouts_are_the_ones_auto_sees():
-    """The 20x120 grid: band B 1024, nb 67, nbw 1 (134 slots, 0.56 GB f32)
-    under the card's model (the default) as under the JAX package's; the
-    20x80 grid's band B 512 under the card's (nb 87: less padding), 1024
-    under the JAX package's; packed nb 67, T 2,278 (9.55 GB)."""
+    """The 20x120 grid: band B 512, nb 134, nbw 1 (268 slots, 0.28 GB f32,
+    as much again in derived tiles) under the card's model (the default),
+    where K3's one-hop form runs B 512 fastest; B 1024, nb 67 (134 slots,
+    0.56 GB) under the JAX package's; the 20x80 grid's band B 512 under
+    the card's (nb 87), 1024 under the JAX package's; packed nb 67, T 2,278
+    (9.55 GB)."""
     from cuadmm_tpu_torch.ops.limits import BAND_MODEL
 
-    for model in (None, BAND_MODEL, JAX_BAND_MODEL):
+    for model in (None, BAND_MODEL):
         band = tts.make_band_layout(68350, 4, model=model)
-        assert (band.block, band.nb, band.nbw, band.T) == (1024, 67, 1, 134)
+        assert (band.block, band.nb, band.nbw, band.T) == (512, 134, 1, 268)
+    band = tts.make_band_layout(68350, 4, model=JAX_BAND_MODEL)
+    assert (band.block, band.nb, band.nbw, band.T) == (1024, 67, 1, 134)
     assert tts.make_band_layout(44312, 4)[2:5] == (512, 87, 1)
     assert tts.make_band_layout(44312, 4, model=JAX_BAND_MODEL)[2:5] == (1024, 44, 1)
     packed = tts.make_layout(68350)
@@ -341,6 +357,217 @@ def test_work_table_walk_matches_plain(lay):
     assert float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref)) < 1e-12
 
 
+CHAIN_LAYOUTS = [tts.make_band_layout(512, 128, 128), tts.make_band_layout(1342, 4, 512),
+                 tts.make_band_layout(1000, 200, 128), tts.make_band_layout(640, 100, 128),
+                 tts.make_band_layout(1200, 500, 128)]
+CHAIN_IDS = ["nbw1_probe", "nbw1_grid8x12", "nbw2", "nbw1_b128", "nbw4"]
+
+
+def test_chain_form_is_taken_at_narrow_bands_only():
+    """NBW_CHAIN (4) splits the forms: the grid's band (nbw 1), pendulum's
+    at B 1024 and 512 (nbw 2, 4) take the one-hop form; the mid band at B
+    1024 (nbw 5) and PushBox's (nbw 21) keep the two-hop form; band_bytes
+    counts the derived tiles (2 nb nbw) only in the one-hop form."""
+    assert tts.NBW_CHAIN == 4
+    grid, pend, pend512, mid, push = (
+        tts.make_band_layout(68350, 4, 1024), tts.make_band_layout(112028, 1615, 1024),
+        tts.make_band_layout(112028, 1615, 512), tts.make_band_layout(100000, 5000, 1024),
+        tts.make_band_layout(154256, 20512, 1024))
+    assert (grid.nbw, pend.nbw, pend512.nbw, mid.nbw, push.nbw) == (1, 2, 4, 5, 21)
+    assert all(tts.band_form(lay) == "chain" for lay in (grid, pend, pend512))
+    assert tts.band_form(mid) == tts.band_form(push) == "two_hop"
+    assert tts.band_bytes(grid, "chain") == (134 + 134) * 1024**2 * 4  # 0.56 -> 1.12 GB
+    assert tts.band_bytes(grid, "two_hop") == 134 * 1024**2 * 4
+    assert tts.band_bytes(push, "two_hop") == push.T * 1024**2 * 4
+
+
+def test_a_narrow_band_whose_derived_tiles_do_not_fit_runs_two_hop():
+    """A card whose band ceiling lies between a narrow band's bytes and its
+    bytes with the derived tiles still places it (auto picks banded, as
+    the parent rule did on the band alone) and runs it in the two-hop
+    form: band_form, the build (no derived tiles, form two_hop, a solve
+    equal to the one-hop build's on the CPU) and K3's model (the two-hop terms at that
+    block) all read the one ceiling."""
+    from cuadmm_tpu_torch.ops import chol as tchol
+    from cuadmm_tpu_torch.ops import limits as lim
+    from cuadmm_tpu_torch.ops import sparse as tsparse
+    from cuadmm_tpu_torch.structure import BlockStructure
+
+    grid = tts.make_band_layout(68350, 4, 1024)  # 0.56 GB, 1.12 GB with the derived tiles
+    between = (tts.band_bytes(grid, "two_hop") + tts.band_bytes(grid, "chain")) // 2
+    assert tts.band_form(grid, between) == "two_hop" and tts.band_form(grid, 2 * between) == "chain"
+    assert lim.band_form(grid.T, grid.block, grid.nb, between) == "two_hop"
+    card = lim.limits_for(40 * 10**9)
+    low = dataclasses.replace(card, band_max_bytes=between, packed_max_con=0)
+    assert tchol.past_ceiling_mode(68350, 4, True, 1, low) == "banded"
+    two_hop = dataclasses.replace(lim.BAND_MODEL, one_hop=None)
+    for B in (1024, 512, 256):
+        lay = tts.make_band_layout(68350, 4, B)
+        want = (lim.BAND_MODEL.one_hop if tts.band_form(lay, between) == "chain" else two_hop)(lay.T, B, lay.nb)
+        assert low.bound_band_model()(lay.T, B, lay.nb) == want
+    assert tts.band_form(tts.make_band_layout(68350, 4, 512), between) == "chain"  # 0.56 GB held at B 512
+
+    A = _chain_a(2500)  # nb 3, nbw 1 at B 1024
+    con, vec_len = A.shape
+    coo = A.tocoo()
+    args = (coo.col.astype(np.int64), coo.row.astype(np.int64), coo.data, con, vec_len)
+    sa = tsparse.build_sparse_a_pool(*args[:4], BlockStructure([("u", vec_len)], "pow2", 64, 0),
+                                     torch.float64, torch.device("cpu"))
+    lay = tts.make_band_layout(con, 1, 1024)
+    fits = tts.band_bytes(lay, "two_hop")
+    small = dataclasses.replace(card, band_max_bytes=fits, band_model=lambda T, B, nb: -B)  # B 1024
+    neq = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=2,
+                                    limits=small)
+    assert tuple(neq.band_layout) == tuple(lay) and lay.nbw == 1
+    assert neq.band_form == "two_hop" and neq.band_chain is None
+    full = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=2,
+                                     limits=dataclasses.replace(small, band_max_bytes=tts.band_bytes(lay, "chain")))
+    assert full.band_form == "chain" and full.band_chain is not None
+    torch.testing.assert_close(neq.band_tiles, full.band_tiles, rtol=0, atol=0)
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(lay.n_pad), dtype=torch.float32)
+    y = neq._apply_factor(r)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, full._apply_factor(r), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("lay", CHAIN_LAYOUTS[:3], ids=CHAIN_IDS[:3])
+def test_band_chain_matches_numpy_products(lay):
+    """W_ij = inv(L_ii) L_ij and Ut_ji = inv(L_jj)^T L_ij^T from seeded f32
+    tiles, against numpy's f64 products rounded to f32 (the same rounding:
+    equal to 1 ulp); unused corner slots are zero."""
+    rng = np.random.default_rng(5)
+    tiles_np = rng.standard_normal((lay.T + 1, lay.block, lay.block)).astype(np.float32)
+    chain = tts.band_chain(torch.as_tensor(tiles_np), lay).numpy()
+    half = lay.nb * lay.nbw
+    assert chain.shape == (2 * half, lay.block, lay.block) and chain.dtype == np.float32
+    seen = set()
+    for i in range(lay.nb):
+        for j in range(max(0, i - lay.nbw), i):
+            l_ij = tiles_np[tts.tid_band(i, j, lay)].astype(np.float64)
+            inv_i = tiles_np[tts.tid_band(i, i, lay)].astype(np.float64)
+            inv_j = tiles_np[tts.tid_band(j, j, lay)].astype(np.float64)
+            k = tts.chain_slot(i, j, lay)
+            seen.add(k)
+            np.testing.assert_allclose(chain[k], (inv_i @ l_ij).astype(np.float32), rtol=2e-6, atol=1e-5)
+            np.testing.assert_allclose(chain[half + k], (inv_j.T @ l_ij.T).astype(np.float32), rtol=2e-6, atol=1e-5)
+    unused = sorted(set(range(half)) - seen)
+    assert len(unused) == lay.nbw * (lay.nbw + 1) // 2
+    assert not chain[unused].any() and not chain[[half + k for k in unused]].any()
+
+
+@pytest.mark.parametrize("lay", CHAIN_LAYOUTS, ids=CHAIN_IDS)
+def test_chain_tables_cover_every_tile_once_and_wait_backwards(lay):
+    """The one-hop tables: per sweep every band tile is read once (the
+    diagonal tiles from the band, the off-diagonal ones as their W or Ut);
+    steps come in sweep order; a step's entries read blocks solved at
+    earlier steps, within the band, the newest last. Items (step s, slab e)
+    are numbered s B/16 + e, so every item an item waits for comes earlier
+    in the table."""
+    half = lay.nb * lay.nbw
+    off_slot = {tts.chain_slot(i, j, lay): tts.tid_band(i, j, lay)
+                for i in range(lay.nb) for j in range(max(0, i - lay.nbw), i)}
+    for sw, transpose in zip(tts._chain_tables(lay), (False, True)):
+        steps, offs = sw["steps"], sw["offs"]
+        assert steps.dtype == offs.dtype == np.int32 and steps.shape == (lay.nb, 4)
+        order = np.arange(lay.nb)[::-1] if transpose else np.arange(lay.nb)
+        np.testing.assert_array_equal(steps[:, 0], order)
+        np.testing.assert_array_equal(steps[:, 1], [tts.tid_band(b, b, lay) for b in order])
+        solved_at = {int(b): s for s, b in enumerate(steps[:, 0])}
+        read = list(steps[:, 1])
+        for s, (blk, _, first, count) in enumerate(steps):
+            entries = offs[first : first + count]
+            if s + 1 < lay.nb:
+                assert first + count == steps[s + 1, 2]
+            blocks = [int(b) for _, b in entries]
+            assert all(solved_at[b] < s and 0 < abs(b - blk) <= lay.nbw for b in blocks)
+            assert count == len(set(blocks)) == min(lay.nbw, blk if not transpose else lay.nb - 1 - blk)
+            if count:
+                assert solved_at[blocks[-1]] == s - 1  # the newest block, on the chain, last
+            for k, b in entries:
+                assert (k >= half) == transpose
+                i, j = (b, blk) if transpose else (blk, b)
+                assert off_slot[int(k) - half * transpose] == tts.tid_band(i, j, lay)
+                read.append(off_slot[int(k) - half * transpose])
+        assert sorted(read) == sorted(tts._sweep_tables(lay)[1 if transpose else 0][0].tolist())
+
+
+def _walk_chain(tiles, chain, rhs, sw, transpose, slab=16):
+    """The one-hop kernel's arithmetic in plain torch: items in table order,
+    each slab's diagonal product first, then its chain products subtracted
+    in table order."""
+    B = tiles.shape[-1]
+    out = torch.zeros_like(rhs)
+    for blk, diag, first, count in sw["steps"].tolist():
+        for e in range(0, B, slab):
+            rows = slice(e, e + slab)
+            d = tiles[diag].mT if transpose else tiles[diag]
+            acc = d[rows] @ rhs[blk * B : (blk + 1) * B]
+            for k, b in sw["offs"][first : first + count].tolist():
+                acc = acc - chain[k][rows] @ out[b * B : (b + 1) * B]
+            out[blk * B + e : blk * B + e + slab] = acc
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)], ids=["f64", "f32"])
+@pytest.mark.parametrize("lay", [CHAIN_LAYOUTS[0], CHAIN_LAYOUTS[2], CHAIN_LAYOUTS[4]], ids=["nbw1", "nbw2", "nbw4"])
+def test_chain_walk_matches_plain_and_pallas_interpret(lay, dtype, tol):
+    """Both one-hop sweeps walked over band_chain's tiles solve what
+    band_solve_ref and the JAX package's band_solve (interpret mode) solve
+    on the same tiles: 1e-12 in f64, 1e-5 in f32 (products in another order,
+    W and Ut rounded once)."""
+    jts, jnp = _jax()
+    tiles = _synthetic_factor(lay, 3, "cpu").to(dtype)
+    chain = tts.band_chain(tiles, lay)
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(lay.n)).to(dtype)
+    fwd, bwd = tts._chain_tables(lay)
+    rp = torch.nn.functional.pad(r, (0, lay.n_pad - lay.n))
+    y = _walk_chain(tiles, chain, _walk_chain(tiles, chain, rp, fwd, False), bwd, True)[: lay.n].double()
+    ref = tts.band_solve_ref(tiles, r, lay).double()
+    theirs = torch.as_tensor(np.array(jts.band_solve(jnp.asarray(tiles.numpy()), jnp.asarray(r.numpy()),
+                                                       jts.BandLayout(*lay), interpret=True))).double()
+    for other in (ref, theirs):
+        assert float(torch.linalg.norm(y - other) / torch.linalg.norm(other)) < tol
+
+
+def test_banded_solvers_from_the_build_and_convert_carry_chain_tiles():
+    """A banded NormalEqSolver built by the port and one carried over from
+    the JAX package's build (convert.py) each hold band_chain of its own
+    tiles; the two agree as their f32 factors do; a band wider than
+    NBW_CHAIN carries none. The solve on the CPU reads the tiles alone."""
+    from cuadmm_tpu.ops import chol as jchol
+    from cuadmm_tpu.ops import sparse as jsparse
+
+    from cuadmm_tpu_torch import convert
+    from cuadmm_tpu_torch.ops import chol as tchol
+    from cuadmm_tpu_torch.ops import sparse as tsparse
+    from cuadmm_tpu_torch.structure import BlockStructure
+
+    _, jnp = _jax()
+    A = _chain_a(2500)  # B 1024 under both packages' models: nb 3, nbw 1
+    con, vec_len = A.shape
+    coo = A.tocoo()
+    args = (coo.col.astype(np.int64), coo.row.astype(np.int64), coo.data, con, vec_len)
+    sa_t = tsparse.build_sparse_a_pool(*args[:4], BlockStructure([("u", vec_len)], "pow2", 64, 0),
+                                       torch.float64, torch.device("cpu"))
+    neq_t = tchol.build_normal_solver(*args, sa_t, "banded", torch.float64, torch.device("cpu"), applies=2)
+    neq_j = jchol.build_normal_solver(*args, jsparse.build_sparse_a(*args, jnp.float64), "banded", jnp.float64,
+                                      applies=2)
+    neq_c = convert.normal_solver_from_numpy(neq_j, torch.device("cpu"))
+    lay = tts.BandLayout(*neq_t.band_layout)
+    assert tuple(neq_c.band_layout) == tuple(lay) and lay.nb > 1 and 0 < lay.nbw <= tts.NBW_CHAIN
+    for neq in (neq_t, neq_c):
+        assert neq.band_form == "chain"
+        assert neq.band_chain is not None and neq.band_chain.dtype == torch.float32
+        torch.testing.assert_close(neq.band_chain, tts.band_chain(neq.band_tiles, lay), rtol=0, atol=0)
+    used = [k for i in range(lay.nb) for j in range(max(0, i - lay.nbw), i)
+            for k in (tts.chain_slot(i, j, lay), lay.nb * lay.nbw + tts.chain_slot(i, j, lay))]
+    rel = lambda a, b: float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double()))
+    tiles_rel = rel(neq_t.band_tiles[: lay.T], neq_c.band_tiles[: lay.T])  # the JAX package's CPU factor is f64
+    assert rel(neq_t.band_chain[used], neq_c.band_chain[used]) <= 2 * tiles_rel + 1e-6
+    wide = tts.make_band_layout(1000, 900, 128)  # nbw 7
+    assert wide.nbw > tts.NBW_CHAIN and tchol.chain_tiles(torch.zeros(wide.T + 1, 128, 128), wide) == ("two_hop", None)
+
+
 @pytest.mark.parametrize(
     "tiles,r,err",
     [
@@ -374,6 +601,19 @@ def _synthetic_factor(lay, seed, device):
     return tiles
 
 
+def _band_chain(tiles, lay):
+    """band_solve's derived tiles where the layout takes the one-hop form."""
+    return tts.band_chain(tiles, lay) if tts.band_form(lay) == "chain" else None
+
+
+def _kernel_for(lay, tiles):
+    """The wrapper as the solver calls it, and its plain version."""
+    if isinstance(lay, tts.PackedLayout):
+        return (lambda r: tts.packed_solve(tiles, r, lay)), tts.packed_solve_ref, "packed_solve"
+    chain = _band_chain(tiles, lay)
+    return (lambda r: tts.band_solve(tiles, r, lay, chain=chain)), tts.band_solve_ref, "band_solve"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "lay",
@@ -386,17 +626,89 @@ def test_kernel_matches_plain_on_card(lay):
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     tiles = _synthetic_factor(lay, 7, "cuda")
     r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(8))
-    packed = isinstance(lay, tts.PackedLayout)
-    wrapper, ref = (tts.packed_solve, tts.packed_solve_ref) if packed else (tts.band_solve, tts.band_solve_ref)
-    name = "packed_solve" if packed else "band_solve"
+    solve, ref, name = _kernel_for(lay, tiles)
     before = LAUNCHES[tts.COUNTER[name]]
-    y = wrapper(tiles, r, lay)
+    y = solve(r)
     torch.cuda.synchronize()
     assert LAUNCHES[tts.COUNTER[name]] == before + 1
     plain = ref(tiles.double(), r.double(), lay)
     assert float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < KERNEL_REL_TOL
     # Deterministic: partials are summed in the tables' fixed order.
-    assert torch.equal(wrapper(tiles, r, lay), y)
+    assert torch.equal(solve(r), y)
+
+
+# Both forms at nbw 1 and 2 and at each block the band model picks from, and
+# at nbw 4 (NBW_CHAIN); the two-hop form also at nbw 5, past it.
+FORM_LAYOUTS = [(tts.make_band_layout(n, bw, B), form) for B in (256, 512, 1024)
+                for n, bw in ((6 * B + 77, 3), (6 * B + 77, B + 5)) for form in ("chain", "two_hop")]
+FORM_LAYOUTS += [(tts.make_band_layout(8 * 512 + 77, 3 * 512 + 5, 512), form) for form in ("chain", "two_hop")]
+FORM_LAYOUTS += [(tts.make_band_layout(8 * 512 + 77, 4 * 512 + 5, 512), "two_hop")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lay,form", FORM_LAYOUTS,
+                         ids=[f"B{lay.block}_nbw{lay.nbw}_{form}" for lay, form in FORM_LAYOUTS])
+def test_band_forms_match_plain_and_repeat_bitwise_on_card(lay, form):
+    """Each form of K3 against band_solve_ref in f64, within
+    KERNEL_REL_TOL; two solves of one r bitwise equal; one count and two
+    sweep launches (a captured graph's kernel nodes) a solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    tiles = _synthetic_factor(lay, 11, "cuda")
+    chain = tts.band_chain(tiles, lay) if form == "chain" else None
+    r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(12))
+    solve = lambda: tts.band_solve(tiles, r, lay, chain=chain, form=form)
+    before = LAUNCHES["k3"]
+    y = solve()
+    torch.cuda.synchronize()
+    assert LAUNCHES["k3"] == before + 1
+    plain = tts.band_solve_ref(tiles.double(), r.double(), lay)
+    assert float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < KERNEL_REL_TOL
+    assert torch.equal(solve(), y)
+    assert _sweeps_per_solve(solve) == 2
+
+
+SWEEP_KERNELS = ("tri_sweep_kernel", "chain_sweep_kernel")  # the two-hop and one-hop sweeps
+
+
+def _sweeps_per_solve(solve) -> int:
+    """Sweep kernels one ``solve()`` launches: the kernel nodes of a CUDA
+    graph that captures it, named in the driver's DOT print of the graph
+    (``cuGraphDebugDotPrint``). A graph holds every launch of the capture,
+    where a profiler trace can drop an event. ``solve`` has run before, so
+    its tables and plans are built outside the capture."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        solve()
+    driver = ctypes.CDLL("libcuda.so.1")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "solve.dot")
+        err = driver.cuGraphDebugDotPrint(ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), ctypes.c_uint(0))
+        assert err == 0, f"cuGraphDebugDotPrint failed: CUresult {err}"
+        with open(path) as f:
+            text = f.read()
+    del graph
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', text)[1:]  # one chunk a node definition
+    return sum(any(k in node for k in SWEEP_KERNELS) for node in nodes)
+
+
+@pytest.mark.cuda
+def test_chain_form_without_its_tiles_raises_on_card():
+    """A layout that takes the one-hop form never drops back to the
+    two-hop form: without its derived tiles the wrapper raises and
+    launches nothing; derived tiles of the wrong shape raise too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay = tts.make_band_layout(512, 128, 128)
+    tiles = _synthetic_factor(lay, 7, "cuda")
+    r = torch.randn(lay.n, device="cuda")
+    before = LAUNCHES["k3"]
+    with pytest.raises(ValueError, match="one-hop"):
+        tts.band_solve(tiles, r, lay)
+    with pytest.raises(ValueError, match="chain tiles"):
+        tts.band_solve(tiles, r, lay, chain=tts.band_chain(tiles, lay)[1:])
+    assert LAUNCHES["k3"] == before
 
 
 @pytest.mark.cuda
@@ -413,47 +725,51 @@ def test_kernel_rejects_what_it_does_not_take_on_card():
 
 
 @pytest.mark.cuda
-def test_kernel_grid_past_co_residency_raises_on_card(monkeypatch):
+@pytest.mark.parametrize("form", ["chain", "two_hop"])
+def test_kernel_grid_past_co_residency_raises_on_card(monkeypatch, form):
     """A grid larger than the card can hold at once fails the cooperative
     launch (it would hang a persistent sweep); the wrapper raises, and the
-    next solve, on a new epoch, is right again."""
+    next solve, on a new epoch, is right again. Both forms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    lay = tts.make_band_layout(512, 128, 128)
+    lay = tts.make_band_layout(512, 128, 128) if form == "chain" else tts.make_band_layout(1024, 700, 128)
     tiles = _synthetic_factor(lay, 7, "cuda")
+    chain = _band_chain(tiles, lay)
     r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(8))
-    y = tts.band_solve(tiles, r, lay)
-    key = (torch.cuda.current_device(), lay.block)
-    monkeypatch.setitem(tts._CTAS, key, 2 * tts._CTAS[key])
+    y = tts.band_solve(tiles, r, lay, chain=chain)
+    if form == "chain":
+        key = (None, torch.cuda.current_device(), lay.block)
+        stages, ctas = tts._PLANS[key]
+        monkeypatch.setitem(tts._PLANS, key, (stages, 2 * ctas))
+    else:
+        key = (None, torch.cuda.current_device(), lay.block)
+        monkeypatch.setitem(tts._CTAS, key, 2 * tts._CTAS[key])
     before = LAUNCHES["k3"]
     with pytest.raises(RuntimeError, match="launch"):
-        tts.band_solve(tiles, r, lay)
+        tts.band_solve(tiles, r, lay, chain=chain)
     assert LAUNCHES["k3"] == before
     monkeypatch.undo()
-    assert torch.equal(tts.band_solve(tiles, r, lay), y)
+    assert torch.equal(tts.band_solve(tiles, r, lay, chain=chain), y)
 
 
 @pytest.mark.cuda
 def test_kernel_is_two_launches_per_solve_on_card():
-    """One persistent launch per sweep, counted by the profiler."""
+    """One persistent launch per sweep, counted in a captured graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lay = tts.make_band_layout(5000, 1500, 1024)
     tiles = _synthetic_factor(lay, 7, "cuda")
+    chain = _band_chain(tiles, lay)
     r = torch.randn(lay.n, device="cuda")
-    tts.band_solve(tiles, r, lay)
+    tts.band_solve(tiles, r, lay, chain=chain)
     torch.cuda.synchronize()
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        tts.band_solve(tiles, r, lay)
-        torch.cuda.synchronize()
-    sweeps = [e for e in prof.key_averages() if "tri_sweep_kernel" in e.key]
-    assert sum(e.count for e in sweeps) == 2
+    assert _sweeps_per_solve(lambda: tts.band_solve(tiles, r, lay, chain=chain)) == 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lay", [tts.make_layout(3000, 1024), tts.make_band_layout(5000, 1500, 1024)],
-                         ids=["packed", "band"])
+@pytest.mark.parametrize("lay", [tts.make_layout(3000, 1024), tts.make_band_layout(5000, 1500, 1024),
+                                 tts.make_band_layout(5000, 2600, 512)],
+                         ids=["packed", "band", "band_two_hop"])
 def test_captured_solve_replays_on_a_new_epoch_on_card(lay):
     """A solve captured into a CUDA graph and replayed 3 times in a row,
     each with a new right-hand side copied in: every replay equals an eager
@@ -462,16 +778,15 @@ def test_captured_solve_replays_on_a_new_epoch_on_card(lay):
     second replay accept the first one's tagged words without waiting."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
-    packed = isinstance(lay, tts.PackedLayout)
-    kernel = tts.packed_solve if packed else tts.band_solve
     tiles = _synthetic_factor(lay, 7, "cuda")
+    kernel, _, _ = _kernel_for(lay, tiles)
     gen = torch.Generator(device="cuda").manual_seed(9)
     r_static = torch.randn(lay.n, device="cuda", generator=gen)
-    kernel(tiles, r_static, lay)  # builds the kernel, its work tables and scratch before the capture
+    kernel(r_static)  # builds the kernel, its work tables and scratch before the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        y_static = kernel(tiles, r_static, lay)
+        y_static = kernel(r_static)
     rhs, replays = [], []
     for _ in range(3):
         rhs.append(torch.randn(lay.n, device="cuda", generator=gen))
@@ -480,5 +795,5 @@ def test_captured_solve_replays_on_a_new_epoch_on_card(lay):
         replays.append(y_static.clone())
     torch.cuda.synchronize()
     for r, y in zip(rhs, replays):
-        assert torch.equal(y, kernel(tiles, r, lay))
+        assert torch.equal(y, kernel(r))
     assert not torch.equal(replays[0], replays[1])
