@@ -260,18 +260,18 @@ from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
 from cuadmm_tpu_torch.ops import chol, jacobi, limits, precond_apply, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
-from cuadmm_tpu_torch.ops.launches import LAUNCHES, reset as reset_launches
 from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool, reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec, build_sparse_a, normalize_rows
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.parallel import rank_jobs
 from cuadmm_tpu_torch.parallel.dryrun import dryrun_multichip
 from cuadmm_tpu_torch.parallel.launch import run_ranks
-from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+from cuadmm_tpu_torch.parallel.mesh import make_mesh
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import step as step_mod
 from cuadmm_tpu_torch.solver.step import make_chunk_runner, run_chunk
 from cuadmm_tpu_torch.structure import BlockStructure
+from cuadmm_tpu_torch.trace import COUNTS, reset as reset_counts
 from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 # 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
@@ -465,10 +465,10 @@ def compare_apply_padded() -> None:
         m, r = _k1_operands(n, seed=50 + i)
         mp = precond_apply.pad_factor(m)  # the lower triangle, zero-padded
         del m
-        before = LAUNCHES["k1"]
+        before = COUNTS["k1"]
         y = precond_apply.apply_padded(mp, r)
         torch.cuda.synchronize()
-        check(LAUNCHES["k1"] == before + 1, f"apply_padded n={n}: {LAUNCHES['k1'] - before} K1 launches, not 1")
+        check(COUNTS["k1"] == before + 1, f"apply_padded n={n}: {COUNTS['k1'] - before} K1 launches, not 1")
         ref = precond_apply.fused_spd_apply_ref(mp, torch.nn.functional.pad(r, (0, mp.shape[0] - n)))[:n]
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
         check(y.shape == (n,) and bool(torch.isfinite(y).all()) and rel <= K1_REL_TOL,
@@ -662,13 +662,13 @@ def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
     act = torch.profiler.ProfilerActivity
     for _ in range(PROFILE_TRIES if graphed else 1):
         torch.cuda.synchronize()
-        before = dict(LAUNCHES)
+        before = dict(COUNTS)
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
             t0 = time.perf_counter()
             fn(iters)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        counted = {k: v - before[k] for k, v in LAUNCHES.items()}
+        counted = {k: v - before[k] for k, v in COUNTS.items()}
         dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         events = _profiler_launches(dev)
         want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]))
@@ -732,16 +732,16 @@ def _k4_plans(solver) -> list:
 def timed_run(solver, iters: int, warm: int = 100):
     """``warm`` untimed iterations, then ``iters`` timed ones with every
     kernel's launch count set to 0 just before and read just after (the
-    counters are replay-aware: ops/launches.py), run as CUDA graphs (one
+    counters are replay-aware: trace.COUNTS), run as CUDA graphs (one
     replay an iteration, split at each eigh bucket)."""
     solver.solve(max_iter=warm, stop_tol=0.0)
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res = solver.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(LAUNCHES)
+    counts = dict(COUNTS)
     check(res.iterations == iters, f"ran {res.iterations} of {iters} iterations")
     check(solver.chunk_runner == "graphs", f"the chunks ran {solver.chunk_runner!r}, not as graphs")
     return res, elapsed, counts
@@ -908,10 +908,10 @@ def compare_psd_project(prob: Problem) -> None:
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(st.vec_len), device="cuda")
     out = {}
     for method in ("eigh", "jacobi", "poly"):
-        reset_launches()
+        reset_counts()
         y = psd_project(x, maps, method=method)
         torch.cuda.synchronize()
-        k4 = LAUNCHES["k4"]
+        k4 = COUNTS["k4"]
         ref = svec_from_pool(psd_project_pool(pool_from_svec(x, maps), maps, method=method), maps)
         rel = float((y - ref).abs().max() / ref.abs().max())
         want_k4 = len(GRID_BUCKETS) if method == "jacobi" else 0
@@ -1335,17 +1335,17 @@ def standin_cg(prob: Problem) -> None:
     neq = solver.params.neq
     check(neq.mode == "cg" and neq.fsai_g is not None, f"stand-in cg: mode {neq.mode!r}, FSAI built: "
                                                        f"{neq.fsai_g is not None}")
-    chol.CG_STATS.update(solves=0, steps=0, waits=0)
+    COUNTS.update(cg_solves=0, cg_steps=0, cg_waits=0)
     resid = _probe_normal_solve(solver, prob.con_num)
-    probe = dict(chol.CG_STATS)
+    probe = {k[3:]: COUNTS[k] for k in ("cg_solves", "cg_steps", "cg_waits")}
     solver.solve(max_iter=CG_ITERS, stop_tol=0.0)  # warm
     torch.cuda.synchronize()
-    chol.CG_STATS.update(solves=0, steps=0, waits=0)
+    COUNTS.update(cg_solves=0, cg_steps=0, cg_waits=0)
     t0 = time.perf_counter()
     res = solver.solve(max_iter=CG_ITERS, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    st = dict(chol.CG_STATS)
+    st = {k[3:]: COUNTS[k] for k in ("cg_solves", "cg_steps", "cg_waits")}
     check(res.iterations == CG_ITERS, f"stand-in cg: ran {res.iterations} of {CG_ITERS} iterations")
     check(solver.chunk_runner == "eager", f"stand-in cg: chunks ran {solver.chunk_runner!r}, not eagerly")
     _gates(res, prob.vec_len, "stand-in cg")
@@ -1602,12 +1602,12 @@ def batched() -> tuple:
     check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD, f"batched: {neq.mode!r}")
     batch.solve(max_iter=BIG_BLOCK_WARM, stop_tol=0.0)
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     results = batch.solve(max_iter=iters, stop_tol=0.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1 = LAUNCHES["k1"]
+    k1 = COUNTS["k1"]
     check(batch.chunk_runner == "graphs", f"batched: chunks ran {batch.chunk_runner!r}, not as graphs")
     sweeps = BATCH * iters * neq.applies
     check(k1 == sweeps, f"batched: K1 launched {k1} times, not {BATCH} x {iters} x {neq.applies}")
@@ -2141,7 +2141,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
     """The grid imported from SeDuMi through ``cuadmm`` (jacobi, plain ADMM,
     stop_tol 0): gated as the grid phase gates. Returns (line, launches)."""
     prob = load_sedumi_mat(str(grid_sedumi))
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     with _observe_solvers() as made:
         X, y, S, info = cuadmm(0, FE_GRID_ITERS, 0.0, _at(prob), prob.dense_b(), prob.dense_C(),
@@ -2149,7 +2149,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
                                check_every=100, switch_admm=0, projection="jacobi")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    counts = dict(LAUNCHES)
+    counts = dict(COUNTS)
     (solver,) = made
     neq = solver.params.neq
     what = "front ends: grid through cuadmm"
@@ -2299,13 +2299,13 @@ def mesh_one_rank_nccl(large: Problem) -> dict:
         check(neq.mode == "sharded", f"mesh nccl: resolved to {neq.mode!r}")
         rhs = aat_matvec(neq.sparse_a, torch.as_tensor(np.random.default_rng(1).standard_normal(prob.con_num),
                                                        device="cuda"))
-        COLLECTIVES.update(all_reduce=0, broadcast=0)
+        COUNTS.update(all_reduce=0, broadcast=0)
         resid = float(neq.residual_norm(rhs, neq.solve(rhs)))
-        per_solve = dict(COLLECTIVES)
+        per_solve = {k: COUNTS[k] for k in ("all_reduce", "broadcast")}
         check(resid < PROBE_TOL["float64"], f"mesh nccl: probe residual {resid:.3e}")
-        COLLECTIVES.update(all_reduce=0, broadcast=0)
+        COUNTS.update(all_reduce=0, broadcast=0)
         res = solver.solve(max_iter=6000, stop_tol=1e-6)
-        run = dict(COLLECTIVES)
+        run = {k: COUNTS[k] for k in ("all_reduce", "broadcast")}
         gates = _certified_gates(res, opt, "mesh nccl sharded")
         dry = dryrun_multichip(1, "nccl")[0]
         torch.cuda.empty_cache()

@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
 
+from cuadmm_tpu_torch import trace
+
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
@@ -67,5 +69,8 @@ def build(name: str, variant: Optional[str] = None, flags: Sequence[str] = ()) -
 
 
 def load(name: str, variant: Optional[str] = None, flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load the library for ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name, variant, flags)))
+    """Build (if needed) and load the library for ``csrc/<name>.cu``. Inside
+    a set-up stage (the normal solver's ``neq`` stages) the build is the
+    span ``neq.build`` and its seconds are ``build``'s, not the stage's."""
+    with trace.building():
+        return ctypes.CDLL(str(build(name, variant, flags)))

@@ -49,7 +49,6 @@ are the dense-A budget and the inverse factor's largest n_pad.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
@@ -58,7 +57,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from cuadmm_tpu_torch.device import synchronize
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.ops import tri_stream
 from cuadmm_tpu_torch.ops.fsai import build_fsai, fsai_tables
 from cuadmm_tpu_torch.ops.limits import CardLimits, card_limits
@@ -76,9 +75,6 @@ CALIBRATE_MAX_APPLIES = 6
 
 # CG steps queued between two reads of the convergence flag on the host.
 CG_BLOCK = 16
-# Totals over cg solves (steps taken, host waits), for reports; callers
-# reset them.
-CG_STATS = {"solves": 0, "steps": 0, "waits": 0}
 
 def _rcm_bandwidth(aat) -> tuple:
     """(bandwidth, permutation) of AA^T under reverse Cuthill-McKee; the
@@ -334,13 +330,14 @@ class NormalEqSolver:
                 lambda v: _ell_matvec(self.aat_tbl, v), rhs_hp, self._precond(), y,
                 self.cg_tol, self.cg_max_iter,
             )
-            CG_STATS["solves"] += 1
-            CG_STATS["steps"] += steps
-            CG_STATS["waits"] += waits
+            trace.COUNTS["cg_solves"] += 1
+            trace.COUNTS["cg_steps"] += steps
+            trace.COUNTS["cg_waits"] += waits
             return y.to(rhs.dtype)
         # Refinement through the composed A (A^T y): its rounding stays in
         # range(A), which the regularized factor does not amplify.
         r_pad = self._residual_buffer(tuple(rhs.shape[:-1]))
+        trace.COUNTS["neq_sweeps"] += self.applies
         for _ in range(self.applies):
             y = self._sweep(rhs_hp, y, r_pad)
         return y.to(rhs.dtype)
@@ -639,7 +636,7 @@ def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, den
 
 
 def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,
-               fsai_cap, fsai_pattern_power, device, mark, timings) -> NormalEqSolver:
+               fsai_cap, fsai_pattern_power, device, stages, timings) -> NormalEqSolver:
     """cg (cuadmm_tpu/ops/chol.py:1260-1356), f64 throughout but for the
     f32 block-Jacobi inverses. ``cg_precond`` "auto" builds FSAI and drops
     to block-Jacobi if the build fails; "fsai" raises then; "block_jacobi"
@@ -650,7 +647,7 @@ def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi
     if cg_precond in ("auto", "fsai"):
         try:
             G = build_fsai(aat, eps_rel=max(eps, 1e-10), pattern_power=fsai_pattern_power, cap=fsai_cap)
-            mark("fsai_build")
+            stages.begin(None)
             if timings is not None:
                 timings["fsai_nnz"] = int(G.nnz)
             fsai_g, fsai_gt = fsai_tables(G, f64, device)
@@ -783,110 +780,107 @@ def build_normal_solver(
     if cg_tol is None or cg_tol <= 0.0:
         cg_tol = 2e-7 if dtype == torch.float32 else 64.0 * torch.finfo(torch.float64).eps
 
-    t = [time.perf_counter()]
-
-    def mark(name: str) -> None:
-        synchronize(device)
-        now = time.perf_counter()
-        if timings is not None:
-            timings[name] = round(now - t[0], 3)
-        t[0] = now
-
-    if mode in ("cg", "host", "sharded") and aat is None:
-        aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
-    if mode == "cg":
-        return _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi,
-                          cg_precond, fsai_cap, fsai_pattern_power, device, mark, timings)
-    if mode == "host":
-        if on_accel:
-            warnings.warn(
-                "normal_solver='host' factorizes on the host: every solve copies "
-                "rhs to the host and the answer back; prefer 'auto' on CUDA."
-            )
-        lu = spla.factorized((aat + max(eps, 1e-14) * sp.eye(con_num, format="csr")).tocsc())
-        return NormalEqSolver(mode="host", sparse_a=sparse_a, host_solve=lu)
-
-    f32 = torch.float32
-    applies_0 = max(applies, 1)
-    if mode in ("precond", "dense"):
-        jitter, fdt = (max(precond_eps, 1e-5), f32) if mode == "precond" else (max(eps, 1e-14), torch.float64)
-        l, eps_used = _device_factorize(
-            at_svec_idx, at_con_idx, vals, con_num, vec_len, jitter, device, fdt,
-            None if limits is None else limits.dense_a_budget, timings,
-        )
-        mark("factorize")
-        if mode == "precond":
-            inv_l = pad_factor(_tri_inv(l))
-            del l  # only the inverse is kept: frees n^2 of device memory
-            mark("tri_inv")
-            neq = NormalEqSolver(
-                mode="precond", sparse_a=sparse_a, inv_l=inv_l, applies=applies_0, eps_used=eps_used
-            )
-        else:
-            neq = NormalEqSolver(
-                mode="dense", sparse_a=sparse_a, chol_l=l, applies=applies_0, eps_used=eps_used
-            )
-    elif mode == "split":
-        neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
-                            dense_chol_max, precond_eps, applies_0, device, limits)
-        mark("split_factorize")
-    elif mode == "sharded":
-        neq = _sharded_solver(aat, con_num, sparse_a, mesh, precond_eps, applies_0, device, timings)
-        mark("sharded_factorize")
-    else:
-        if aat is None:
+    # Each stage a span ``neq.<stage>`` and its seconds in ``timings``; a
+    # kernel build inside one is left out of it and counted as ``build``.
+    first = dict(precond="factorize", dense="factorize", split="split_factorize", sharded="sharded_factorize",
+                 packed="packed_factorize", banded="band_factorize",
+                 cg="fsai_build" if cg_precond in ("auto", "fsai") else None).get(mode)
+    with trace.Stages("neq", timings, device, builds=True) as stages:
+        stages.begin(first)
+        if mode in ("cg", "host", "sharded") and aat is None:
             aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
-        coo = aat.tocoo()
-        diag_mean = float(aat.diagonal().mean())
-        if mode == "packed":
-            lay = tri_stream.make_layout(con_num, 1024 if con_num > 2048 else 256)
-            rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
-            tiles, eps_used = _tile_factorize(
-                lambda e: tri_stream.scatter_packed_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
-                lambda tl: tri_stream.packed_cholesky(tl, lay),
-                tri_stream.tid(lay.nb - 1, lay.nb - 1),
-                max(precond_eps, 1e-5),
-                "packed",
-            )
-            mark("packed_factorize")
-            neq = NormalEqSolver(
-                mode="packed", sparse_a=sparse_a, packed_tiles=tiles, packed_layout=tuple(lay),
-                applies=applies_0, eps_used=eps_used,
-            )
-        else:
-            bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
-            pinv = np.empty_like(perm)
-            pinv[perm] = np.arange(con_num)
-            model = None if limits is None else limits.bound_band_model()
-            lay = tri_stream.make_band_layout(con_num, bw, model=model)
-            rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
-            # The jitter ladder starts at 1e-5 rather than precond_eps: a
-            # band factors fine there, and the looser 1e-4 costs a sweep.
-            tiles, eps_used = _tile_factorize(
-                lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
-                lambda tl: tri_stream.band_cholesky(tl, lay),
-                tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
-                max(min(precond_eps, 1e-5), 1e-7),
-                "band",
-            )
-            mark("band_factorize")
-            form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
-            if timings is not None:
-                timings["band_bw"] = int(bw)
-                timings["band_layout"] = (
-                    f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
-                    f"form={'one-hop' if form == 'chain' else 'two-hop'}"
+        if mode == "cg":
+            return _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi,
+                              cg_precond, fsai_cap, fsai_pattern_power, device, stages, timings)
+        if mode == "host":
+            if on_accel:
+                warnings.warn(
+                    "normal_solver='host' factorizes on the host: every solve copies "
+                    "rhs to the host and the answer back; prefer 'auto' on CUDA."
                 )
-            identity = bool(np.array_equal(perm, np.arange(con_num)))
-            as_idx = lambda p: torch.as_tensor(np.asarray(p, np.int64), device=device)
-            neq = NormalEqSolver(
-                mode="banded", sparse_a=sparse_a, band_tiles=tiles, band_layout=tuple(lay), band_form=form,
-                band_chain=chain,
-                band_perm=None if identity else as_idx(perm),
-                band_inv_perm=None if identity else as_idx(pinv),
-                applies=applies_0, eps_used=eps_used,
+            lu = spla.factorized((aat + max(eps, 1e-14) * sp.eye(con_num, format="csr")).tocsc())
+            return NormalEqSolver(mode="host", sparse_a=sparse_a, host_solve=lu)
+
+        f32 = torch.float32
+        applies_0 = max(applies, 1)
+        if mode in ("precond", "dense"):
+            jitter, fdt = (max(precond_eps, 1e-5), f32) if mode == "precond" else (max(eps, 1e-14), torch.float64)
+            l, eps_used = _device_factorize(
+                at_svec_idx, at_con_idx, vals, con_num, vec_len, jitter, device, fdt,
+                None if limits is None else limits.dense_a_budget, timings,
             )
-    if applies <= 0:
-        neq = _calibrate_applies(neq, con_num, device, calibrate_target)
-    mark("calibrate")
+            stages.begin("tri_inv" if mode == "precond" else "calibrate")
+            if mode == "precond":
+                inv_l = pad_factor(_tri_inv(l))
+                del l  # only the inverse is kept: frees n^2 of device memory
+                stages.begin("calibrate")
+                neq = NormalEqSolver(
+                    mode="precond", sparse_a=sparse_a, inv_l=inv_l, applies=applies_0, eps_used=eps_used
+                )
+            else:
+                neq = NormalEqSolver(
+                    mode="dense", sparse_a=sparse_a, chol_l=l, applies=applies_0, eps_used=eps_used
+                )
+        elif mode == "split":
+            neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
+                                dense_chol_max, precond_eps, applies_0, device, limits)
+            stages.begin("calibrate")
+        elif mode == "sharded":
+            neq = _sharded_solver(aat, con_num, sparse_a, mesh, precond_eps, applies_0, device, timings)
+            stages.begin("calibrate")
+        else:
+            if aat is None:
+                aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
+            coo = aat.tocoo()
+            diag_mean = float(aat.diagonal().mean())
+            if mode == "packed":
+                lay = tri_stream.make_layout(con_num, 1024 if con_num > 2048 else 256)
+                rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
+                tiles, eps_used = _tile_factorize(
+                    lambda e: tri_stream.scatter_packed_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
+                    lambda tl: tri_stream.packed_cholesky(tl, lay),
+                    tri_stream.tid(lay.nb - 1, lay.nb - 1),
+                    max(precond_eps, 1e-5),
+                    "packed",
+                )
+                stages.begin("calibrate")
+                neq = NormalEqSolver(
+                    mode="packed", sparse_a=sparse_a, packed_tiles=tiles, packed_layout=tuple(lay),
+                    applies=applies_0, eps_used=eps_used,
+                )
+            else:
+                bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
+                pinv = np.empty_like(perm)
+                pinv[perm] = np.arange(con_num)
+                model = None if limits is None else limits.bound_band_model()
+                lay = tri_stream.make_band_layout(con_num, bw, model=model)
+                rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
+                # The jitter ladder starts at 1e-5 rather than precond_eps: a
+                # band factors fine there, and the looser 1e-4 costs a sweep.
+                tiles, eps_used = _tile_factorize(
+                    lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
+                    lambda tl: tri_stream.band_cholesky(tl, lay),
+                    tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
+                    max(min(precond_eps, 1e-5), 1e-7),
+                    "band",
+                )
+                stages.begin("calibrate")
+                form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
+                if timings is not None:
+                    timings["band_bw"] = int(bw)
+                    timings["band_layout"] = (
+                        f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
+                        f"form={'one-hop' if form == 'chain' else 'two-hop'}"
+                    )
+                identity = bool(np.array_equal(perm, np.arange(con_num)))
+                as_idx = lambda p: torch.as_tensor(np.asarray(p, np.int64), device=device)
+                neq = NormalEqSolver(
+                    mode="banded", sparse_a=sparse_a, band_tiles=tiles, band_layout=tuple(lay), band_form=form,
+                    band_chain=chain,
+                    band_perm=None if identity else as_idx(perm),
+                    band_inv_perm=None if identity else as_idx(pinv),
+                    applies=applies_0, eps_used=eps_used,
+                )
+        if applies <= 0:
+            neq = _calibrate_applies(neq, con_num, device, calibrate_target)
     return neq

@@ -40,8 +40,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from cuadmm_tpu_torch import _build
-from cuadmm_tpu_torch.ops import launches
+from cuadmm_tpu_torch import _build, trace
 
 _LIB = None  # the loaded kernel library, built on the first CUDA launch
 _READY: set = set()  # device indices whose shared-memory attribute is set
@@ -305,6 +304,6 @@ def jacobi_eigh(mats: torch.Tensor, sweeps: Optional[int] = None, *,
         err = fn(mats.data_ptr(), w.data_ptr(), v.data_ptr(), work.data_ptr() if work is not None else None,
                  b, n, sweeps, PLANS.index(plan), stream)
     _check(lib, err, f"kernel launch ({plan} plan)")
-    launches.LAUNCHES["k4"] += 1
-    launches.LAUNCHES["k4_f32"] += mats.dtype == torch.float32
+    trace.COUNTS["k4"] += 1
+    trace.COUNTS["k4_f32"] += mats.dtype == torch.float32
     return w, v

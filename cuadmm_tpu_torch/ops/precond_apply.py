@@ -24,8 +24,7 @@ from typing import Callable
 
 import torch
 
-from cuadmm_tpu_torch import _build
-from cuadmm_tpu_torch.ops import launches
+from cuadmm_tpu_torch import _build, trace
 
 LANE = 128  # n_pad granularity and the kernel's column chunk
 # The kernel's constants (csrc/precond_apply.cu).
@@ -181,7 +180,7 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(idx):
             err = lib.cuadmm_fused_spd_apply(*args, stream)
     _check(lib, err, "kernel launch")
-    launches.LAUNCHES["k1"] += 1
+    trace.COUNTS["k1"] += 1
     return out[k * n_pad:]
 
 

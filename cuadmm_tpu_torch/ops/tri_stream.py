@@ -47,13 +47,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from cuadmm_tpu_torch import _build
-from cuadmm_tpu_torch.ops import launches, limits
+from cuadmm_tpu_torch import _build, trace
+from cuadmm_tpu_torch.ops import limits
 from cuadmm_tpu_torch.ops.limits import BAND_MODEL, NBW_CHAIN
 
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
-# Each wrapper's entry in ops/launches.py (a call queues the forward and
+# Each wrapper's entry in trace.COUNTS (a call queues the forward and
 # the backward sweep of csrc/tri_stream.cu, one persistent launch each).
 COUNTER = {"packed_solve": "k2", "band_solve": "k3"}
 
@@ -641,7 +641,7 @@ def _solve(tiles: torch.Tensor, r: torch.Tensor, lay, name: str, chain: Optional
                     tab["parts"].data_ptr(), tab["epoch"].data_ptr(), ctas, stream,
                 )
                 _check(lib, err, f"{name} launch")
-    launches.LAUNCHES[COUNTER[name]] += 1
+    trace.COUNTS[COUNTER[name]] += 1
     return y[: r.shape[0]].to(r.dtype)
 
 

@@ -18,12 +18,13 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
 from cuadmm_tpu_torch.ops import tri_stream
 from cuadmm_tpu_torch.parallel import tri_shard
 from cuadmm_tpu_torch.parallel.launch import run_ranks
-from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, DEFAULT_TIMEOUT_S, Mesh, make_mesh
+from cuadmm_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, Mesh, make_mesh
 from cuadmm_tpu_torch.solver.driver import SDPSolver
 from cuadmm_tpu_torch.solver.step import make_step
 
@@ -58,9 +59,9 @@ def dryrun_job(mesh: Mesh) -> dict:
     fac = tiles.cpu().numpy()
     slab = tri_shard.shard_factor(tri_shard.square_tiles_from_packed(fac, lay), mesh)
     r = torch.as_tensor(np.random.default_rng(0).standard_normal(n).astype(np.float32), device=mesh.device)
-    before = COLLECTIVES["all_reduce"]
+    before = trace.COUNTS["all_reduce"]
     y = tri_shard.sharded_tri_solve(slab, r, mesh)
-    solve_all_reduces = COLLECTIVES["all_reduce"] - before
+    solve_all_reduces = trace.COUNTS["all_reduce"] - before
     if not bool(torch.isfinite(y).all()):
         raise RuntimeError("dry-run sharded_tri_solve: non-finite result")
 

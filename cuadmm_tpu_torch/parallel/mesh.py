@@ -36,13 +36,12 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.device import resolve_device
 
 BLOCK_AXIS = "blocks"
 # A collective that waits longer than this raises instead of hanging.
 DEFAULT_TIMEOUT_S = 600.0
-# Collective calls made through a Mesh, for reports; callers reset them.
-COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +57,13 @@ class Mesh:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it."""
-        COLLECTIVES["all_reduce"] += 1
+        trace.COUNTS["all_reduce"] += 1
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` of rank ``src`` (a rank of this mesh) on every rank, in place."""
-        COLLECTIVES["broadcast"] += 1
+        trace.COUNTS["broadcast"] += 1
         if self.group is not None:
             src = dist.get_global_rank(self.group, src)
         dist.broadcast(t, src=src, group=self.group)

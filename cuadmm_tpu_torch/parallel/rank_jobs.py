@@ -22,15 +22,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import synchronize
-from cuadmm_tpu_torch.ops import launches
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.parallel import tri_shard
 from cuadmm_tpu_torch.parallel.batch import BatchedSDPSolver
-from cuadmm_tpu_torch.parallel.mesh import COLLECTIVES, Mesh, shard_axis, shard_bounds
+from cuadmm_tpu_torch.parallel.mesh import Mesh, shard_axis, shard_bounds
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver, solve_escalated
 from cuadmm_tpu_torch.structure import BlockStructure
@@ -57,14 +57,14 @@ def project(mesh: Mesh, blk, svec: np.ndarray, method: str = "eigh", pack_to: in
     st = BlockStructure(blk, "pow2", 64, pack_to)
     maps = device_maps(st, torch.float64, mesh.device)
     x = torch.as_tensor(svec, device=mesh.device)
-    before = COLLECTIVES["all_reduce"]
+    before = trace.COUNTS["all_reduce"]
     out = svec_from_pool(psd_project_pool(pool_from_svec(x, maps), maps, method=method, mesh=mesh), maps)
-    pooled = COLLECTIVES["all_reduce"] - before
+    pooled = trace.COUNTS["all_reduce"] - before
     direct = psd_project(x, maps, method=method, mesh=mesh)
     shares = [(bk.count, bk.n, shard_axis((bk.count, bk.n, bk.n), mesh, method == "poly"),
                shard_bounds(bk.count, mesh)) for bk in st.buckets if bk.n > 1]
     return dict(svec=out.cpu().numpy(), all_reduces=pooled, svec_direct=direct.cpu().numpy(),
-                direct_all_reduces=COLLECTIVES["all_reduce"] - before - pooled, shares=shares)
+                direct_all_reduces=trace.COUNTS["all_reduce"] - before - pooled, shares=shares)
 
 
 def solve(mesh: Mesh, prob: Problem, config: dict, runs: Sequence[Tuple[int, float]],
@@ -81,11 +81,11 @@ def solve(mesh: Mesh, prob: Problem, config: dict, runs: Sequence[Tuple[int, flo
         solver.params = dataclasses.replace(solver.params, neq=neq)
     out = []
     for max_iter, stop_tol in runs:
-        before = COLLECTIVES["all_reduce"]
+        before = trace.COUNTS["all_reduce"]
         t0 = time.perf_counter()
         res = solver.solve(max_iter=max_iter, stop_tol=stop_tol)
         out.append(dict(result_dict(res), seconds=time.perf_counter() - t0,
-                        all_reduces=COLLECTIVES["all_reduce"] - before))
+                        all_reduces=trace.COUNTS["all_reduce"] - before))
     return dict(runs=out, mode=neq.mode, applies=neq.applies, eps_used=neq.eps_used,
                 projection=solver._projection,
                 grid_shape=None if neq.shard_grid is None else tuple(neq.shard_grid.shape))
@@ -139,19 +139,18 @@ def grid_buckets_k4(mesh: Mesh, prob: Problem, svec: np.ndarray) -> Dict[str, An
     st = BlockStructure(prob.blk, "pow2", 64, 0)
     maps = device_maps(st, torch.float64, mesh.device)
     P = pool_from_svec(torch.as_tensor(svec, device=mesh.device), maps)
-    launches.reset()
+    trace.reset()
     out = svec_from_pool(psd_project_pool(P, maps, method="jacobi", mesh=mesh), maps)
     synchronize(mesh.device)
-    return dict(svec=out.cpu().numpy(), k4=launches.LAUNCHES["k4"])
+    return dict(svec=out.cpu().numpy(), k4=trace.COUNTS["k4"])
 
 
 def _reset_counts() -> None:
-    launches.reset()
-    COLLECTIVES.update(all_reduce=0, broadcast=0)
+    trace.reset()
 
 
 def _counts() -> Dict[str, int]:
-    return dict(k1=launches.LAUNCHES["k1"], k4=launches.LAUNCHES["k4"], k4_f32=launches.LAUNCHES["k4_f32"], **COLLECTIVES)
+    return {k: trace.COUNTS[k] for k in ("k1", "k4", "k4_f32", "all_reduce", "broadcast")}
 
 
 def continued_run(solver, warm: int, iters: int) -> Tuple[SDPResult, float, Dict[str, int]]:

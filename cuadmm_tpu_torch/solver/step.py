@@ -30,11 +30,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from cuadmm_tpu_torch.ops.launches import LAUNCHES, add as add_launches
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.ops.projection import psd_project_pool
 from cuadmm_tpu_torch.ops.sparse import SparseA, spmv_a, spmv_at
 from cuadmm_tpu_torch.parallel.mesh import Mesh
@@ -118,8 +119,16 @@ def make_step(
     is that choice (the chunk runner keys its graphs on it).
 
     ``step.key`` is every argument of this call, tensors and the mesh by
-    identity: two steps with equal keys compute the same function, so the
-    chunk runner's cache replays one step's graphs for the other.
+    identity, and ``step.layers``, whether layer tracing was on
+    (``trace.enable(layers=True)``): two steps with equal keys compute the
+    same function and record the same graphs, so the chunk runner's cache
+    replays one step's graphs for the other.
+
+    The step opens its layers (``trace.layer``) at their outermost calls:
+    "algebra" around all of it, and inside it "ell_products" around its
+    own A and A^T products, "normal_solve" around each normal solve and
+    "projection" around the projection. They are null contexts unless
+    something traces them.
 
     ``out``: a state whose tensors receive the new state in place (the
     chunk runner's static buffers; ``out`` may be ``state`` itself, since
@@ -131,30 +140,51 @@ def make_step(
     def in_sgs(it_host: int) -> bool:
         return it_host + 1 < switch_admm
 
+    layer = trace.layer
+
     def step(state: SolverState, params: SolveParams, it_host: int, out: Optional[SolverState] = None,
              eigh: Callable = torch.linalg.eigh) -> Tuple[SolverState, torch.Tensor]:
+        with layer(trace.STEP_LAYER):
+            return _step(state, params, it_host, out, eigh)
+
+    def _step(state, params, it_host, out, eigh):
         sa = params.sparse_a
         it = state.it + 1  # 1-based iteration number
         sig = state.sig
         sig_c = _col(sig)
 
         # -- Step 1: first normal-equation solve -------------------------
-        rhsy = state.Rp / sig_c - spmv_a(sa, state.SmC)
-        y_half = params.neq.solve(rhsy, warm=state.y)
+        with layer("ell_products"):
+            a_smc = spmv_a(sa, state.SmC)
+        rhsy = state.Rp / sig_c - a_smc
+        del a_smc  # each product freed where the inline expression freed it: graphs hold no more
+        with layer("normal_solve"):
+            y_half = params.neq.solve(rhsy, warm=state.y)
 
         # -- Step 2: PSD projection --------------------------------------
-        Rd1 = spmv_at(sa, y_half) - params.C
+        with layer("ell_products"):
+            at_y = spmv_at(sa, y_half)
+        Rd1 = at_y - params.C
+        del at_y
         Xb = state.X + sig_c * Rd1
-        Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection, mesh=mesh, eigh=eigh)
+        with layer("projection"):
+            Xproj = psd_project_pool(Xb, params.maps, eig_rank=eig_rank, method=projection, mesh=mesh, eigh=eigh)
         S = (Xproj - state.X) / sig_c - Rd1
         SmC = S - params.C
 
         # -- Step 3: sGS second solve / best tracking --------------------
         sgs = in_sgs(it_host)
         if sgs:
-            rhsy2 = state.Rp / sig_c - spmv_a(sa, SmC)
-            y_new = params.neq.solve(rhsy2, warm=y_half)
-            Rd1_new = spmv_at(sa, y_new) - params.C
+            with layer("ell_products"):
+                a_smc = spmv_a(sa, SmC)
+            rhsy2 = state.Rp / sig_c - a_smc
+            del a_smc
+            with layer("normal_solve"):
+                y_new = params.neq.solve(rhsy2, warm=y_half)
+            with layer("ell_products"):
+                at_y = spmv_at(sa, y_new)
+            Rd1_new = at_y - params.C
+            del at_y
         else:
             y_new, Rd1_new = y_half, Rd1
 
@@ -182,11 +212,19 @@ def make_step(
         # -- Step 5: residuals, objectives, sigma ------------------------
         if rp_hp is not None:
             sa64, b64, normA64 = rp_hp
-            Rp64 = b64 - spmv_a(sa64, X.to(b64.dtype))
+            X64 = X.to(b64.dtype)
+            with layer("ell_products"):
+                a_x = spmv_a(sa64, X64)
+            del X64
+            Rp64 = b64 - a_x
+            del a_x
             Rp = Rp64.to(X.dtype)
             errRp = torch.linalg.norm(normA64 * Rp64, dim=-1).to(X.dtype) * params.bscale / params.norm_borg
         else:
-            Rp = params.b - spmv_a(sa, X)
+            with layer("ell_products"):
+                a_x = spmv_a(sa, X)
+            Rp = params.b - a_x
+            del a_x
             errRp = torch.linalg.norm(params.normA * Rp, dim=-1) * params.bscale / params.norm_borg
         errRd = torch.linalg.norm(Rd, dim=-1) * params.Cscale / params.norm_Corg
         pobj = (_seg_dot(params.C, X) * params.objscale).to(X.dtype)
@@ -253,11 +291,13 @@ def make_step(
         return new_state, info_row
 
     step.in_sgs = in_sgs
+    step.layers = trace.layers_on()
     step.key = (
         stop_tol, switch_admm, sig_update_threshold, sig_update_stage_1, sig_min, sig_max, eig_rank,
         tuple(sorted(projection.items())) if isinstance(projection, dict) else projection,
         None if rp_hp is None else tuple(id(t) for t in rp_hp),
         None if mesh is None else id(mesh),
+        step.layers,
     )
     return step
 
@@ -313,6 +353,8 @@ class _EighSegment:
     def run(self) -> None:
         torch.linalg.eigh(self.x, out=(self.w, self.v))
 
+    replay = run  # between two graphs: eigh checks its status on the host, one wait a bucket
+
 
 @dataclasses.dataclass
 class _Recording:
@@ -320,25 +362,34 @@ class _Recording:
     static state. ``parts``: on CUDA the captured graphs, with an
     ``_EighSegment`` between two of them for each eigh bucket; on the CPU
     the eigh segments alone, which ``plain`` (the recorded step run on the
-    static state) fills in order. ``row``: the static info row a replay
-    writes. ``launches``: the kernel launches one replay makes, which it
-    adds to ops/launches.py's counts (no wrapper runs on a replay)."""
+    static state) fills in order. ``tags``: with layer tracing, each
+    part's span (``layer.<name>``), which its replay runs inside; else
+    None. ``row``: the static info row a replay writes. ``counts``: what
+    one replay adds to ``trace.COUNTS`` (the kernel launches and sweeps
+    the capture counted, no wrapper running on a replay; the replay and
+    its graph launches), which the runner adds once a chunk
+    (``count``)."""
 
     parts: List[Union["torch.cuda.CUDAGraph", _EighSegment]] = dataclasses.field(default_factory=list)
+    tags: Optional[List[str]] = None
     row: Optional[torch.Tensor] = None
-    launches: Dict[str, int] = dataclasses.field(default_factory=lambda: dict.fromkeys(LAUNCHES, 0))
+    counts: Dict[str, int] = dataclasses.field(default_factory=lambda: dict(graph_replays=1))
     plain: Optional[Callable[[], torch.Tensor]] = None
 
     def replay(self) -> None:
         if self.plain is not None:
             self.row = self.plain()
-        else:
+        elif self.tags is None:
             for part in self.parts:
-                if isinstance(part, _EighSegment):
-                    part.run()  # eigh checks its status on the host: one wait a bucket
-                else:
+                part.replay()
+        else:
+            for part, tag in zip(self.parts, self.tags):
+                with trace.span(tag):
                     part.replay()
-        add_launches(self.launches)
+
+    def count(self, replays: int) -> None:
+        """Add ``replays`` replays' counts."""
+        trace.add(self.counts, replays)
 
 
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -424,26 +475,50 @@ class ChunkRunner:
             rec.plain = plain
             return rec
         t0 = time.perf_counter()
-        before = dict(LAUNCHES)
+        before = trace.counts()
         torch.cuda.synchronize(self.device)
-        graph = [torch.cuda.CUDAGraph()]
+        if self.step.layers:
+            rec.tags = []
+        graph = [None]
 
-        def eigh(x):  # end the graph, run eigh between replays, start the next
-            graph[0].capture_end()
-            rec.parts.append(graph[0])
-            seg = _EighSegment(x, *_EighSegment.outputs_for(x))
-            rec.parts.append(seg)
+        def add(part, layer: Optional[str]) -> None:
+            rec.parts.append(part)
+            if rec.tags is not None:
+                rec.tags.append(f"layer.{layer}")
+
+        def begin() -> None:
             graph[0] = torch.cuda.CUDAGraph()
             graph[0].capture_begin(pool=self.pool)
+
+        def end(layer: Optional[str]) -> None:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                graph[0].capture_end()
+            # Layer boundaries with no op between them (a normal solve and
+            # the product after it) capture nothing: no part to launch.
+            if not any("empty" in str(w.message) for w in caught):
+                add(graph[0], layer)
+
+        def eigh(x):  # end the graph, run eigh between replays, start the next
+            end(trace.open_layer())
+            seg = _EighSegment(x, *_EighSegment.outputs_for(x))
+            add(seg, trace.open_layer())
+            begin()
             return seg.w, seg.v
 
+        def cut(layer: str) -> None:  # a layer boundary: end the layer's part, start the next
+            end(layer)
+            begin()
+
         with self._side_stream():
-            graph[0].capture_begin(pool=self.pool)
-            rec.row = step(static, params, it_host, out=static, eigh=eigh)[1]
-            graph[0].capture_end()
-            rec.parts.append(graph[0])
-        rec.launches = {k: v - before[k] for k, v in LAUNCHES.items()}
-        add_launches(rec.launches, -1)  # nothing ran while capturing
+            begin()
+            with trace.cutting(cut) if self.step.layers else contextlib.nullcontext():
+                rec.row = step(static, params, it_host, out=static, eigh=eigh)[1]
+            end(trace.STEP_LAYER)
+        delta = {k: v - before[k] for k, v in trace.COUNTS.items() if v != before[k]}
+        trace.add(delta, -1)  # nothing ran while capturing
+        rec.counts = dict(delta, graph_replays=1,
+                          graph_launches=sum(isinstance(p, torch.cuda.CUDAGraph) for p in rec.parts))
         torch.cuda.synchronize(self.device)
         self.capture_s += time.perf_counter() - t0
         return rec
@@ -457,16 +532,25 @@ class ChunkRunner:
         static = self.static
         rows = torch.empty((chunk,) + tuple(static.sig.shape) + (len(INFO_FIELDS),),
                            dtype=static.sig.dtype, device=self.device)
+        replays = [0, 0]  # by branch (in_sgs False, True)
+        trace.chunk_edge("start", self.device)
         for k in range(chunk):
             branch = self.step.in_sgs(it_host + k)
             rec = self.recordings.get(branch)
             if rec is None:
-                with self._side_stream():
-                    rows[k] = self.step(static, self.params, it_host + k, out=static)[1]
-                self.recordings[branch] = self._record(it_host + k)
+                with trace.span("solve.capture"):
+                    with self._side_stream():
+                        rows[k] = self.step(static, self.params, it_host + k, out=static)[1]
+                    self.recordings[branch] = self._record(it_host + k)
+                trace.COUNTS["graph_captures"] += 1
                 continue
             rec.replay()
             rows[k].copy_(rec.row)
+            replays[branch] += 1
+        trace.chunk_edge("end", self.device)
+        for branch, n in enumerate(replays):
+            if n:
+                self.recordings[bool(branch)].count(n)
         self._last = _clone(static)
         return self._last, rows
 
@@ -512,7 +596,10 @@ class ChunkRunners:
         self.reason = eager_reason(params, mesh)
         if self.reason is not None:
             self.kind = "eager"
-            return run_chunk(step, state, params, it_host, chunk)
+            trace.chunk_edge("start", params.b.device)
+            out = run_chunk(step, state, params, it_host, chunk)
+            trace.chunk_edge("end", params.b.device)
+            return out
         runner = self.runner
         if runner is None or runner.step.key != step.key or runner.params is not params:
             self.free()

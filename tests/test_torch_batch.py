@@ -13,7 +13,7 @@ import torch
 import cuadmm_tpu_torch
 from cuadmm_tpu_torch import BatchedSDPSolver
 from cuadmm_tpu_torch.models.random_sdp import _svec, random_certified_sdp
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 
 torch.set_num_threads(1)
 
@@ -146,10 +146,10 @@ def test_batched_precond_launches_k1_per_instance_on_card():
     applies = batch.params.neq.applies
     batch.solve(max_iter=2, stop_tol=0.0)  # builds the kernel
     torch.cuda.synchronize()
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     res = batch.solve(max_iter=20, stop_tol=0.0)
     torch.cuda.synchronize()
-    assert LAUNCHES["k1"] - before == 4 * 20 * 2 * applies  # sGS: two solves an iteration
+    assert COUNTS["k1"] - before == 4 * 20 * 2 * applies  # sGS: two solves an iteration
     for i, rb in enumerate(res):
         rs = cuadmm_tpu_torch.SDPSolver(probs[i], cfg.replace(projection="eigh")).solve(max_iter=20, stop_tol=0.0)
         np.testing.assert_allclose(rb.info["errRp"], rs.info["errRp"], rtol=1e-9, atol=0)

@@ -26,7 +26,7 @@ from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
 from cuadmm_tpu_torch.ops.dispatch import bucket_method
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 from cuadmm_tpu_torch.solver import driver
 from cuadmm_tpu_torch.solver import step as step_mod
 from cuadmm_tpu_torch.solver.state import SolverState
@@ -286,17 +286,18 @@ def test_eager_modes_run_run_chunk_and_say_so(mode):
 
 
 def test_replay_adds_the_launches_a_capture_counted(monkeypatch):
-    """A replay adds the kernel launches its recording made, and nothing
-    else; the counts are the one dict the wrappers increment
-    (ops/launches.py), so a caller that resets it (chip_smoke.py) sees the
-    replays' launches."""
-    monkeypatch.setitem(LAUNCHES, "k1", 0)
-    monkeypatch.setitem(LAUNCHES, "k3", 0)
-    before = dict(LAUNCHES)
-    rec = step_mod._Recording(plain=lambda: torch.zeros(8), launches=dict(before, k1=4, k3=3))
+    """Replays add the kernel launches their recording made, and nothing
+    else, once a chunk (``count``, times the chunk's replays); the counts
+    are the one dict the wrappers increment (trace.COUNTS), so a caller
+    that resets it (chip_smoke.py) sees the replays' launches."""
+    monkeypatch.setitem(COUNTS, "k1", 0)
+    monkeypatch.setitem(COUNTS, "k3", 0)
+    before = dict(COUNTS)
+    rec = step_mod._Recording(plain=lambda: torch.zeros(8), counts=dict(k1=4, k3=3))
     for _ in range(5):
         rec.replay()
-    after = dict(LAUNCHES)
+    rec.count(5)
+    after = dict(COUNTS)
     assert after["k1"] == 20 and after["k3"] == 15
     assert {k: after[k] - before[k] for k in ("k2", "k4", "k4_f32")} == {"k2": 0, "k4": 0, "k4_f32": 0}
 
@@ -368,11 +369,12 @@ def test_graphs_match_eager_on_card(case):
     state = _start(solver)
     step_mod.run_chunk(step, state, solver.params, 0, 1)  # builds every kernel before counting
     torch.cuda.synchronize()
-    before = dict(LAUNCHES)
+    before = dict(COUNTS)
     runner = _runner_vs_eager(step, solver.params, state, chunks)
     torch.cuda.synchronize()
     assert runner.graphs and all(rec.plain is None for rec in runner.recordings.values())
-    both = {k: v - before[k] for k, v in LAUNCHES.items()}
+    # The graph counters are the runner's alone.
+    both = {k: v - before[k] for k, v in COUNTS.items() if not k.startswith("graph_")}
     # The runner's launches (its eager first iterations, then replays) and
     # run_chunk's are the same kernels: half of each count is the runner's.
     assert all(v % 2 == 0 for v in both.values()), both

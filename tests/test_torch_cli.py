@@ -21,7 +21,7 @@ import cuadmm_tpu_torch
 from cuadmm_tpu_torch.cli import main as tmain
 from cuadmm_tpu_torch.io import txt as txtio
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 
 torch.set_num_threads(1)
 
@@ -189,11 +189,11 @@ def test_cli_and_cuadmm_on_card(prob_dir):
     At = sp.coo_matrix((prob.At_vals, (prob.At_rows, prob.At_cols)), shape=(prob.vec_len, prob.con_num))
     args = (0, 5000, 1e-6, At, prob.dense_b(), prob.dense_C(), [5, 3])
     kw = dict(sig=1.0, verbose=False, switch_admm=10**9, normal_solver="precond", projection="jacobi")
-    before = LAUNCHES["k1"], LAUNCHES["k4"]
+    before = COUNTS["k1"], COUNTS["k4"]
     X, y, S, info = cuadmm(*args, device="cuda", **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["k1"] - before[0] >= info["iter_num"] > 0
-    assert LAUNCHES["k4"] - before[1] >= 2 * info["iter_num"]  # the 5x5 and 3x3 buckets
+    assert COUNTS["k1"] - before[0] >= info["iter_num"] > 0
+    assert COUNTS["k4"] - before[1] >= 2 * info["iter_num"]  # the 5x5 and 3x3 buckets
     Xc, *_ = cuadmm(*args, device="cpu", **kw)
     assert np.all(np.isfinite(X)) and info["errRp_arr"][-1] < 1e-6
     assert _rel(X, Xc) <= 1e-6

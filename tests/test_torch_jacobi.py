@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from cuadmm_tpu_torch.ops import jacobi as tj
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 from cuadmm_tpu_torch.ops.projection import reconstruct_clamped
 
 H100_SMEM = 232448  # an H100's opt-in shared memory per block
@@ -298,9 +298,9 @@ def test_non_finite_stays_non_finite(where):
 
 def test_cpu_tensors_launch_nothing():
     mats = torch.as_tensor(random_sym(4, 5, seed=1))
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     w, v = tj.jacobi_eigh(mats)
-    assert LAUNCHES["k4"] == before
+    assert COUNTS["k4"] == before
     wr, vr = tj.jacobi_eigh_ref(mats)
     torch.testing.assert_close(w, wr, rtol=0, atol=0)
     torch.testing.assert_close(v, vr, rtol=0, atol=0)
@@ -311,9 +311,9 @@ def test_cpu_tensors_take_the_cyclic_plain_version_in_any_plan(plan):
     """A CPU tensor takes jacobi_eigh_ref (the reference's order) whatever
     plan the private ``_plan`` hook names, and launches nothing."""
     mats = torch.as_tensor(random_sym(4, 9, seed=1))
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     w, v = tj.jacobi_eigh(mats, _plan=plan)
-    assert LAUNCHES["k4"] == before
+    assert COUNTS["k4"] == before
     wr, vr = tj.jacobi_eigh_ref(mats)
     torch.testing.assert_close(w, wr, rtol=0, atol=0)
     torch.testing.assert_close(v, vr, rtol=0, atol=0)
@@ -330,17 +330,17 @@ def test_cpu_tensors_take_the_cyclic_plain_version_in_any_plan(plan):
     ids=["square", "batched", "f16", "meta_device"],
 )
 def test_wrapper_rejects(mats, err):
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     with pytest.raises(err):
         tj.jacobi_eigh(mats)
-    assert LAUNCHES["k4"] == before
+    assert COUNTS["k4"] == before
 
 
 def test_wrapper_rejects_unknown_plan():
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     with pytest.raises(ValueError, match="plan"):
         tj.jacobi_eigh(torch.zeros(2, 3, 3, dtype=torch.float64), _plan="block")
-    assert LAUNCHES["k4"] == before
+    assert COUNTS["k4"] == before
 
 
 def _card_plan(n, batch, dtype):
@@ -376,10 +376,10 @@ def test_kernel_matches_plain_on_card(n, batch, plan, dtype):
     eye = torch.eye(n, dtype=dtype, device="cuda")
     bad = mats.clone()
     bad[0, 0, 1] = bad[0, 1, 0] = float("nan")
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     w, v = tj.jacobi_eigh(mats)
     torch.cuda.synchronize()
-    assert LAUNCHES["k4"] == before + 1
+    assert COUNTS["k4"] == before + 1
     w2, v2 = tj.jacobi_eigh(mats)
     assert torch.equal(w2, w) and torch.equal(v2, v), plan
     proj = (v * w.clamp(min=0)[:, None, :]) @ v.transpose(1, 2)
@@ -433,10 +433,10 @@ def test_cta_plan_past_shared_memory_raises_on_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     mats = torch.as_tensor(random_sym(2, 200, seed=1), device="cuda")
     assert _card_plan(200, 2, torch.float64) == "warp"
-    before = LAUNCHES["k4"]
+    before = COUNTS["k4"]
     with pytest.raises(RuntimeError, match="cta"):
         tj.jacobi_eigh(mats, _plan="cta")
-    assert LAUNCHES["k4"] == before
+    assert COUNTS["k4"] == before
 
 
 @pytest.mark.cuda

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from cuadmm_tpu_torch.ops import precond_apply as tpa
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 
 torch.set_num_threads(1)
 
@@ -63,9 +63,9 @@ def test_apply_padded_matches_jax_interpret(n):
     r = np.random.default_rng(5).standard_normal(n)
     pallas = np.asarray(jpa.apply_padded(jpa.pad_factor(jnp.asarray(M)), jnp.asarray(r, jnp.float32), interpret=True))
     mp = tpa.pad_factor(torch.as_tensor(M))
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     y = tpa.apply_padded(mp, torch.as_tensor(r))
-    assert LAUNCHES["k1"] == before
+    assert COUNTS["k1"] == before
     assert y.shape == (n,) and y.dtype == torch.float32
     assert _rel(y.numpy(), pallas) < REL_TOL
     ref = tpa.fused_spd_apply_ref(mp, torch.nn.functional.pad(torch.as_tensor(r, dtype=torch.float32),
@@ -75,9 +75,9 @@ def test_apply_padded_matches_jax_interpret(n):
 
 def test_cpu_tensors_launch_nothing():
     M, r = _factor(128, 1)
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     y = tpa.fused_spd_apply(torch.as_tensor(M), torch.as_tensor(r))
-    assert LAUNCHES["k1"] == before
+    assert COUNTS["k1"] == before
     torch.testing.assert_close(y, tpa.fused_spd_apply_ref(torch.as_tensor(M), torch.as_tensor(r)))
 
 
@@ -99,10 +99,10 @@ def test_cpu_tensors_launch_nothing():
          "mixed_devices", "meta_device"],
 )
 def test_wrapper_rejects(m, r, err):
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     with pytest.raises(err):
         tpa.fused_spd_apply(m, r)
-    assert LAUNCHES["k1"] == before
+    assert COUNTS["k1"] == before
 
 
 @pytest.mark.parametrize("n", [128, 130, 517])
@@ -212,10 +212,10 @@ def _needs_card():
 def test_kernel_matches_plain_on_card(n):
     _needs_card()
     m, rv = _card_operands(n, 5)
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     y = tpa.fused_spd_apply(m, rv)
     torch.cuda.synchronize()
-    assert LAUNCHES["k1"] == before + 1
+    assert COUNTS["k1"] == before + 1
     ref = tpa.fused_spd_apply_ref(m.double(), rv.double())
     assert _rel(y.cpu(), ref.cpu()) < REL_TOL
     # Deterministic: partials are summed in a fixed order.
@@ -231,10 +231,10 @@ def test_apply_padded_on_card(n):
     M, r = _factor(n, 6)
     mp = tpa.pad_factor(torch.as_tensor(M, device="cuda"))
     rv = torch.as_tensor(r, device="cuda")
-    before = LAUNCHES["k1"]
+    before = COUNTS["k1"]
     y = tpa.apply_padded(mp, rv)
     torch.cuda.synchronize()
-    assert LAUNCHES["k1"] == before + 1 and y.shape == (n,)
+    assert COUNTS["k1"] == before + 1 and y.shape == (n,)
     ref = tpa.fused_spd_apply_ref(mp.double(), torch.nn.functional.pad(rv.double(), (0, mp.shape[0] - n)))[:n]
     assert _rel(y.cpu(), ref.cpu()) < REL_TOL
 

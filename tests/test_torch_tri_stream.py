@@ -23,7 +23,7 @@ import scipy.sparse as sp
 import torch
 
 from cuadmm_tpu_torch.ops import tri_stream as tts
-from cuadmm_tpu_torch.ops.launches import LAUNCHES
+from cuadmm_tpu_torch.trace import COUNTS
 
 torch.set_num_threads(1)
 
@@ -265,10 +265,10 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing(kind):
     lay, tiles, _, r, _ = _solve_case(kind, torch.float64)
     wrapper, ref = ((tts.packed_solve, tts.packed_solve_ref) if kind == "packed"
                     else (tts.band_solve, tts.band_solve_ref))
-    before = dict(LAUNCHES)
+    before = dict(COUNTS)
     rt = torch.as_tensor(r)
     torch.testing.assert_close(wrapper(tiles, rt, lay), ref(tiles, rt, lay), rtol=0, atol=0)
-    assert LAUNCHES == before
+    assert COUNTS == before
 
 
 def test_kernel_step_tables_cover_every_tile_once():
@@ -582,10 +582,10 @@ def test_banded_solvers_from_the_build_and_convert_carry_chain_tiles():
 )
 def test_wrapper_rejects(tiles, r, err):
     lay = tts.make_layout(200, 64)
-    before = dict(LAUNCHES)
+    before = dict(COUNTS)
     with pytest.raises(err):
         tts.packed_solve(tiles, r, lay)
-    assert LAUNCHES == before
+    assert COUNTS == before
 
 
 def _synthetic_factor(lay, seed, device):
@@ -627,10 +627,10 @@ def test_kernel_matches_plain_on_card(lay):
     tiles = _synthetic_factor(lay, 7, "cuda")
     r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(8))
     solve, ref, name = _kernel_for(lay, tiles)
-    before = LAUNCHES[tts.COUNTER[name]]
+    before = COUNTS[tts.COUNTER[name]]
     y = solve(r)
     torch.cuda.synchronize()
-    assert LAUNCHES[tts.COUNTER[name]] == before + 1
+    assert COUNTS[tts.COUNTER[name]] == before + 1
     plain = ref(tiles.double(), r.double(), lay)
     assert float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < KERNEL_REL_TOL
     # Deterministic: partials are summed in the tables' fixed order.
@@ -658,10 +658,10 @@ def test_band_forms_match_plain_and_repeat_bitwise_on_card(lay, form):
     chain = tts.band_chain(tiles, lay) if form == "chain" else None
     r = torch.randn(lay.n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(12))
     solve = lambda: tts.band_solve(tiles, r, lay, chain=chain, form=form)
-    before = LAUNCHES["k3"]
+    before = COUNTS["k3"]
     y = solve()
     torch.cuda.synchronize()
-    assert LAUNCHES["k3"] == before + 1
+    assert COUNTS["k3"] == before + 1
     plain = tts.band_solve_ref(tiles.double(), r.double(), lay)
     assert float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < KERNEL_REL_TOL
     assert torch.equal(solve(), y)
@@ -703,12 +703,12 @@ def test_chain_form_without_its_tiles_raises_on_card():
     lay = tts.make_band_layout(512, 128, 128)
     tiles = _synthetic_factor(lay, 7, "cuda")
     r = torch.randn(lay.n, device="cuda")
-    before = LAUNCHES["k3"]
+    before = COUNTS["k3"]
     with pytest.raises(ValueError, match="one-hop"):
         tts.band_solve(tiles, r, lay)
     with pytest.raises(ValueError, match="chain tiles"):
         tts.band_solve(tiles, r, lay, chain=tts.band_chain(tiles, lay)[1:])
-    assert LAUNCHES["k3"] == before
+    assert COUNTS["k3"] == before
 
 
 @pytest.mark.cuda
@@ -744,10 +744,10 @@ def test_kernel_grid_past_co_residency_raises_on_card(monkeypatch, form):
     else:
         key = (None, torch.cuda.current_device(), lay.block)
         monkeypatch.setitem(tts._CTAS, key, 2 * tts._CTAS[key])
-    before = LAUNCHES["k3"]
+    before = COUNTS["k3"]
     with pytest.raises(RuntimeError, match="launch"):
         tts.band_solve(tiles, r, lay, chain=chain)
-    assert LAUNCHES["k3"] == before
+    assert COUNTS["k3"] == before
     monkeypatch.undo()
     assert torch.equal(tts.band_solve(tiles, r, lay, chain=chain), y)
 
