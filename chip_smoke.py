@@ -78,6 +78,14 @@ Phases, in order; any failure raises and exits non-zero:
    between them); at the large grid's two layouts one
    torch.cholesky_solve on the dense expansion of the factor (18.8 GB) as
    library_ms;
+7b. hold the mirror kernel of the poly filter's one-triangle route
+   (csrc/sym_mirror.cu) against ``mirror_ref`` at QUASAR-500's n = 2004,
+   in f64 and f32, plain and with the addend and device scale of the
+   projection's last pass, NaN written below the diagonal of T and W:
+   finite, exactly symmetric, bitwise equal in place and twice, within
+   1e-15 (f64) / 1e-6 (f32) of the largest |entry|; kernel and plain
+   version timed as replayed CUDA graphs beside the bound (the triangles
+   read and the square written, 48.2 MB in f64, at 3.35 TB/s);
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -95,8 +103,10 @@ Phases, in order; any failure raises and exits non-zero:
    split with the 5,001 coupled rows as the prefix (no permutation, K1 at
    n_pad 5,120); 20 warm and 100 timed iterations, gated on the probe rhs
    residual, finite and decreasing residuals and K1 on exactly every
-   refinement sweep; init breakdown, peak memory, host syncs per iteration
-   and a profile;
+   refinement sweep, and where the block takes the poly filter's
+   one-triangle route ("auto" picks poly) on 40 triangle products and 40
+   mirror launches an iteration (none under "eigh"); init breakdown, peak
+   memory, host syncs per iteration and a profile;
 10. run the 20x80 grid (max-cut, chordally decomposed, 44,312
    constraints) with dense_chol_max=45_056 and normal_solver "auto", which
    must resolve to precond at n_pad 44,416 (K1 past the first design's
@@ -138,8 +148,9 @@ Phases, in order; any failure raises and exits non-zero:
    warm, 200 timed), gated on K4's f32 instantiation on every jacobi
    bucket of every iteration, device and K4 ms beside the grid's f64
    jacobi run; the large grid (auto -> banded + K3) and QUASAR-500
-   (split + K1, "poly" with the f32 sign schedule), rate and device ms
-   beside the f64 runs above;
+   (split + K1, "poly" with the f32 sign schedule on one triangle: 28
+   triangle products and mirror launches an iteration), rate and device
+   ms beside the f64 runs above;
 15. the certified SDP in f32 through every normal solver of 13 and
    "packed" and "banded" (K2 and K3 at one 256-wide block) to stop_tol
    2e-4 and its optimum within 5e-3 (tests/test_solver.py:101),
@@ -158,7 +169,8 @@ Phases, in order; any failure raises and exits non-zero:
    eager: the stand-in f64 ADMM and sGS (K1, K4), the stand-in f32 with
    rp_hp, the grid with "jacobi" (K1, K4) and "auto" (an eigh segment),
    the large grid banded with "jacobi" (K3, K4) and "auto", packed (K2),
-   QUASAR-500 split "poly" (K1) and the 8 batched stand-ins (eigh); all
+   QUASAR-500 split "poly" (K1, the mirror kernel) and the 8 batched
+   stand-ins (eigh); all
    end states and info rows bitwise equal (else within 1e-12 relative),
    it/s of each run, device ms, busy share, device ops and kernel
    launches per iteration (a graph run's counters held to the profiler's
@@ -203,8 +215,10 @@ Phases, in order; any failure raises and exits non-zero:
    seconds, each rank's peak memory, one timed normal solve with its
    all_reduces, 20 iterations whose errRp is within 1e-6 of a banded
    run's), QUASAR-500 with "poly" (its 2004 block's rows split over the
-   ranks: 40 all_reduces a projection; K1 on every sweep; errRp within
-   1e-9 of one rank) and the 8 batched stand-ins (4 a rank, K1 4 times a
+   ranks: 40 all_reduces a projection and no triangle product; K1 on
+   every sweep; errRp within 1e-9 of one rank, whose block takes the
+   one-triangle route, 40 triangle products and mirror launches an
+   iteration) and the 8 batched stand-ins (4 a rank, K1 4 times a
    sweep on each, every instance within 1e-9 of its single run from
    phase 16); every rank's X, y, S and info rows bitwise equal.
 
@@ -258,7 +272,7 @@ from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops import chol, jacobi, limits, precond_apply, tri_stream
+from cuadmm_tpu_torch.ops import chol, jacobi, limits, polyfilter, precond_apply, sym_products, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool, reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec, build_sparse_a, normalize_rows
@@ -308,6 +322,9 @@ TRI_LAYOUTS = (
 )
 TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain version's
 TRI_REPS = 5
+MIRROR_N = 2004  # QUASAR-500's block, the one the poly filter's one-triangle route takes
+# Of the largest |entry|: the kernel's one fma against mirror_ref's multiply and add.
+MIRROR_REL_TOL = {torch.float64: 1e-15, torch.float32: 1e-6}
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
 # The large grid's band (RCM bandwidth 4) as the card's band model picks it
@@ -629,13 +646,15 @@ KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
     "k4": ("jacobi_eigh_kernel", "jacobi_cta_kernel"),
     "k2k3": ("tri_sweep_kernel", "chain_sweep_kernel"),  # the two-hop and the one-hop sweep
+    "sym_mirror": ("sym_mirror_kernel",),  # the poly filter's mirror pass
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
 # The device op one launch of each wrapper makes exactly once (K2/K3: twice,
 # one sweep kernel per sweep), which the profiler counts.
 # K4 launches one of its plans' kernels.
-KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": KERNEL_OPS["k2k3"]}
+KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": KERNEL_OPS["k2k3"],
+                "sym_mirror": KERNEL_OPS["sym_mirror"]}
 
 
 def _profiler_launches(dev_events) -> dict:
@@ -671,7 +690,8 @@ def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
         counted = {k: v - before[k] for k, v in COUNTS.items()}
         dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         events = _profiler_launches(dev)
-        want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]))
+        want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]),
+                    sym_mirror=counted["sym_mirror"])
         if events == want or not graphed:
             return dev, wall_us, counted, events, iters
         iters = max(iters // 2, 1)
@@ -1044,6 +1064,66 @@ def compare_tri_stream() -> dict:
     return at_grid
 
 
+def compare_mirror() -> dict:
+    """The mirror kernel (csrc/sym_mirror.cu) on card tensors at MIRROR_N,
+    in f64 and f32, as the poly filter calls it (plain; with the addend W
+    and the device scale, as in the projection's last pass), NaN written
+    below the diagonal of T and W: finite, exactly symmetric, the same bits
+    in place and twice, and within MIRROR_REL_TOL of ``mirror_ref``; the
+    kernel and ``mirror_ref`` on the card timed as replayed CUDA graphs
+    (the chunk runner's way), beside the bound: the triangles read and the
+    square written at 3.35 TB/s. Returns the f64 plain row, the pass after
+    every triangle product, for the kernels line."""
+    n, rows = MIRROR_N, []
+    for dtype in (torch.float64, torch.float32):
+        t, w = _sym_batch(n, 1, dtype, seed=61)[0], _sym_batch(n, 1, dtype, seed=62)[0]
+        scale = torch.full((1, 1, 1), 0.37, dtype=dtype, device="cuda")
+        nan_low = torch.full_like(t, float("nan")).tril_(-1)
+        size = t.element_size()
+        tri_bytes = n * (n + 1) // 2 * size
+        for form, kw, nbytes in (("plain", {}, tri_bytes + n * n * size),
+                                 ("addend and scale", dict(add=w, add_coef=1.0, scale=scale, alpha=0.5),
+                                  2 * tri_bytes + n * n * size)):
+            ref = sym_products.mirror_ref(t, torch.empty_like(t), kw.get("alpha", 1.0), kw.get("scale"), 0.0,
+                                          kw.get("add"), kw.get("add_coef", 1.0))
+            kw_nan = dict(kw, add=w + nan_low) if "add" in kw else kw
+            out = sym_products.mirror(t + nan_low, torch.empty_like(t), **kw_nan)
+            again = sym_products.mirror(t + nan_low, torch.empty_like(t), **kw_nan)
+            inplace = sym_products.mirror(t + nan_low, **kw_nan)
+            torch.cuda.synchronize()
+            what = f"mirror n={n} {str(dtype)[6:]} {form}"
+            check(bool(torch.isfinite(out).all()), f"{what}: NaN below the diagonal leaked")
+            check(torch.equal(out, out.mT), f"{what}: not exactly symmetric")
+            check(torch.equal(out, again) and torch.equal(out, inplace), f"{what}: launches differ")
+            max_abs = float((out - ref).abs().max())
+            rel = max_abs / float(ref.abs().max())
+            check(rel <= MIRROR_REL_TOL[dtype], f"{what}: rel err {rel:.3e}")
+            dst = torch.empty_like(t)
+            ms = graph_ms(lambda: sym_products.mirror(t, dst, **kw))
+            plain_ms = graph_ms(lambda: sym_products.mirror_ref(t, dst, kw.get("alpha", 1.0), kw.get("scale"), 0.0,
+                                                               kw.get("add"), kw.get("add_coef", 1.0)))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(n=n, dtype=str(dtype)[6:], form=form, rel_err=rel, max_abs_err=max_abs, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms,
+                             bytes=nbytes, deterministic=True))
+            print(f"{what}: rel_err={rel:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+                  f"share={bound_ms / ms:.3f}")
+        del t, w, nan_low, ref, out, again, inplace, dst
+        torch.cuda.empty_cache()
+    emit("sym_mirror", rows)
+    return {k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+def _tri_products_per_it(solver) -> int:
+    """Triangle products (and mirror launches, one each) an iteration of
+    the poly filter's one-triangle route: the schedule's for each poly
+    bucket that takes the route, none for the others."""
+    dtype = getattr(torch, solver.config.dtype)
+    per = sum(2 if c == 0.0 else 3 for _, _, c in polyfilter.default_schedule(dtype)) + 1
+    route = lambda bk: polyfilter.one_triangle(torch.empty((bk.count, bk.n, bk.n), dtype=dtype, device="meta"))
+    return per * sum(m == "poly" and route(bk) for m, bk in zip(_methods(solver), solver.structure.buckets))
+
+
 def large_grid_problem() -> Problem:
     t0 = time.perf_counter()
     prob = grid_problem(LARGE_GRID)
@@ -1144,6 +1224,10 @@ def big_block_run(prob: Problem, projection: str, split_p: int, what: str, dtype
     sweeps = BIG_BLOCK_ITERS * neq.applies if split_p else 0
     check(counts["k1"] == sweeps, f"{what}: K1 launched {counts['k1']} times, not {sweeps}")
     _gate_launches(solver, counts, BIG_BLOCK_ITERS, 1 if split_p else 0, what)
+    tri = BIG_BLOCK_ITERS * _tri_products_per_it(solver)
+    check(counts["poly_tri_products"] == tri and counts["sym_mirror"] == tri,
+          f"{what}: {counts['poly_tri_products']} triangle products and {counts['sym_mirror']} mirror launches, "
+          f"not {tri}")
     out = dict(
         it_per_s=BIG_BLOCK_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
         split_p=neq.split_p, n_pad=n_pad, methods=_methods(solver), applies=neq.applies,
@@ -1769,7 +1853,8 @@ def graphs(standin_prob: Problem, large: Problem, quasar_prob: Problem, family: 
     process (``graph_path``): the stand-in f64 in ADMM and sGS (K1, K4),
     the grid with "jacobi" (K1, K4) and "auto" (an eigh segment), the large
     grid banded under "jacobi" (K3, K4) and "auto" (eigh segment) and
-    packed (K2), QUASAR-500 split with "poly" (K1), the stand-in in f32
+    packed (K2), QUASAR-500 split with "poly" (K1, the mirror kernel of the
+    poly filter's one-triangle route), the stand-in in f32
     with rp_hp (K1), and the 8 batched stand-ins (eigh: one segment)."""
     admm = dict(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0)
     out = {}
@@ -1807,7 +1892,7 @@ def graphs(standin_prob: Problem, large: Problem, quasar_prob: Problem, family: 
     torch.cuda.empty_cache()
     solver = SDPSolver(quasar_prob, SolverConfig(projection="poly", **admm), device="cuda")
     check(solver.params.neq.mode == "split", f"graphs quasar: {solver.params.neq.mode!r}")
-    run("quasar-500 split poly", solver, _step_for(solver), ("k1",))
+    run("quasar-500 split poly", solver, _step_for(solver), ("k1", "sym_mirror"))
     del solver
     torch.cuda.empty_cache()
     batch = BatchedSDPSolver(family, SolverConfig(**admm))
@@ -2271,7 +2356,9 @@ MESH_RANKS = 2
 # (warm, timed) iterations; the large grid's init already ran its solves (calibration).
 MESH_ITERS = dict(grid=(20, 100), large=(0, 20), quasar=(2, 10), batched=(BIG_BLOCK_WARM, BIG_BLOCK_ITERS))
 MESH_TIMEOUT_S = 600
-MESH_ONE_RANK_REL = 1e-9  # a split bucket against the whole one: other batch sizes, the same arithmetic
+# A split bucket against the whole one: other batch sizes, the same polynomial in the same precision
+# (QUASAR's one rank takes the poly filter's one-triangle route, its ranks the row-split GEMMs).
+MESH_ONE_RANK_REL = 1e-9
 LARGE_GRID_SLAB = {1: (67, 67, 1024, 1024), 2: (68, 34, 1024, 1024)}  # by ranks: nb a multiple of them
 POLY_ALL_REDUCES = 40  # f64 schedule: 13 steps of 3 row-split products, and the last product
 
@@ -2371,7 +2458,14 @@ def mesh(large: Problem, quasar_prob: Problem, family: list, single_errrp: list)
     solver = SDPSolver(large, SolverConfig(projection="auto", normal_solver="banded", **admm), device="cuda")
     l1 = solver.solve(max_iter=MESH_ITERS["large"][1], stop_tol=0.0)
     solver = SDPSolver(quasar_prob, SolverConfig(projection="poly", **admm), device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
     q1 = solver.solve(max_iter=MESH_ITERS["quasar"][1], stop_tol=0.0)
+    torch.cuda.synchronize()
+    q1_counts, q1_tri = dict(COUNTS), MESH_ITERS["quasar"][1] * _tri_products_per_it(solver)
+    check(q1_counts["poly_tri_products"] == q1_tri and q1_counts["sym_mirror"] == q1_tri,
+          f"mesh quasar one rank: {q1_counts['poly_tri_products']} triangle products and "
+          f"{q1_counts['sym_mirror']} mirror launches, not {q1_tri}")
     del solver
     torch.cuda.empty_cache()
 
@@ -2432,10 +2526,13 @@ def mesh(large: Problem, quasar_prob: Problem, family: list, single_errrp: list)
               f"mesh quasar rank {r}: K1 launched {qr['counts']['k1']} times, not {iters} x {qr['applies']}")
         check(qr["counts"]["all_reduce"] == iters * POLY_ALL_REDUCES,
               f"mesh quasar rank {r}: {qr['counts']['all_reduce']} all_reduces in {iters} projections")
+        check(qr["counts"]["poly_tri_products"] == 0 and qr["counts"]["sym_mirror"] == 0,
+              f"mesh quasar rank {r}: the row split took the one-triangle route ({qr['counts']})")
     check(rel <= MESH_ONE_RANK_REL, f"mesh quasar: errRp {qs[0]['errRp']!r} against one rank's {q1.errRp!r}")
     out["quasar poly"] = dict(
         iterations=iters, it_per_s=[iters / qr["seconds"] for qr in qs], errRp=qs[0]["errRp"],
         one_rank_errRp=q1.errRp, rel=rel, all_reduces_per_projection=qs[0]["counts"]["all_reduce"] / iters,
+        one_rank_counts={k: q1_counts[k] for k in ("k1", "poly_tri_products", "sym_mirror")},
         counts=[qr["counts"] for qr in qs], peak_mem_gb=[qr["peak_mem_gb"] for qr in qs])
 
     warm, iters = MESH_ITERS["batched"]
@@ -2455,7 +2552,8 @@ def mesh(large: Problem, quasar_prob: Problem, family: list, single_errrp: list)
         counts=[br["counts"] for br in bs], peak_mem_gb=[br["peak_mem_gb"] for br in bs])
     emit("mesh", out)
     return dict(grid_k1=sum(gr["counts"]["k1"] for gr in g), grid_k4=sum(gr["counts"]["k4"] for gr in g),
-                quasar_k1=sum(qr["counts"]["k1"] for qr in qs), batched_k1=sum(br["counts"]["k1"] for br in bs))
+                quasar_k1=sum(qr["counts"]["k1"] for qr in qs), batched_k1=sum(br["counts"]["k1"] for br in bs),
+                quasar_one_rank_mirror=q1_counts["sym_mirror"])
 
 
 def timed_phase(fn, *args):
@@ -2472,6 +2570,7 @@ def main() -> None:
     k1 = timed_phase(compare_k1)
     k4 = timed_phase(compare_k4)
     k2k3 = timed_phase(compare_tri_stream)
+    mirror = timed_phase(compare_mirror)
     prob = standin_problem()
     k1_launches = timed_phase(standin, prob)
     k4_launches = timed_phase(grid)
@@ -2501,6 +2600,10 @@ def main() -> None:
                 "quasar mesh 2": ms["quasar_k1"], "batched mesh 2": ms["batched_k1"]}
     k4_paths = {"grid jacobi f64": k4_launches, "grid jacobi f32": k4_f32, "grid through cuadmm": fe["k4"],
                 "grid jacobi mesh 2": ms["grid_k4"]}
+    mirror_paths = {"quasar-500 auto f64": report["quasar-500 projection=auto"]["launches"]["sym_mirror"],
+                    "G22-size auto f64": report["maxcut G22-size projection=auto"]["launches"]["sym_mirror"],
+                    "quasar-500 poly f32": report["quasar-500 float32 projection=poly"]["launches"]["sym_mirror"],
+                    "quasar one rank (mesh reference)": ms["quasar_one_rank_mirror"]}
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),
@@ -2513,6 +2616,8 @@ def main() -> None:
         dict(name="band_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
              replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"] + k3_f32,
              launches_by_path={"large grid f64": tri_launches["k3"], "large grid f32": k3_f32}, **k2k3["k3"]),
+        dict(name="sym_mirror", route="cuda", source="cuadmm_tpu_torch/csrc/sym_mirror.cu", replaces="none",
+             launches=sum(mirror_paths.values()), launches_by_path=mirror_paths, **mirror),
     ]}
     report.update(kernels)
     REPORT.parent.mkdir(exist_ok=True)

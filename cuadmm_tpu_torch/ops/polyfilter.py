@@ -16,14 +16,36 @@ row axis: a rank computes its rows of X @ Y and one masked all_reduce
 rebuilds X @ Y on every rank for the next product. A step's three products
 take three all_reduces (two where c = 0), and the final product one more:
 40 a projection with the f64 schedule, 28 with the f32 one.
+
+One triangle. Every product of the filter is a product of two commuting
+symmetric matrices (Y Y, A A, Y p(A), and the final Z Y0), so it is
+symmetric, and half of a full GEMM's flops compute the triangle that the
+symmetrization averages away. For one large matrix (``one_triangle``: a
+batch of one, n >= TRI_MIN_N of its dtype, no row mesh) the filter
+computes only the upper triangle of each product, by cuBLAS's syrk (Y Y,
+c A A) and syrkx (Y P, Z Y0), and restores the full matrix with one
+mirror pass that also folds in the polynomial (ops/sym_products.py,
+csrc/sym_mirror.cu): P = c A^2 + b A + a I in the pass after c A^2, and
+0.5 s (Z Y0 + Y0) in the last. A step makes three triangle products (two
+where c = 0), and the last product one more: 40 with the f64 schedule,
+28 with the f32 one (``trace.COUNTS["poly_tri_products"]``), in three
+work matrices written in place. It is the same polynomial in the same
+precision, without the redundant half. The products are bound by the
+card's f64 tensor-core rate (67 TFLOP/s on the H100; syrk and syrkx
+reach about 50 useful TFLOP/s at n = 2004, the full GEMM 55); the mirror
+passes by bytes. Below TRI_MIN_N, where cuBLAS's syrk loses to its GEMM
+(poly_ab.py, PERF.md), and for batched buckets (cuBLAS has no batched
+syrk), a row mesh and stacked instances, the full GEMMs stay.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from cuadmm_tpu_torch import trace
+from cuadmm_tpu_torch.ops import sym_products
 from cuadmm_tpu_torch.parallel.mesh import Mesh, shard_bounds
 
 # Schedules: tuples of (a, b, c) with p(y) = a y + b y^3 + c y^5.
@@ -64,6 +86,52 @@ def default_schedule(dtype: torch.dtype) -> Tuple[Tuple[float, float, float], ..
     return SIGN_SCHEDULE_F64 if dtype == torch.float64 else SIGN_SCHEDULE_F32
 
 
+# The smallest n at which one matrix takes the one-triangle route, by dtype:
+# where it beat the GEMMs at every n measured from there up to 2048 on the
+# H100 (f64 from 504, 3.6x slower at 496, where cuBLAS's syrk takes another
+# kernel; f32 from 1500, about even at 1100-1400; poly_ab.py, PERF.md).
+TRI_MIN_N: Dict[torch.dtype, int] = {torch.float64: 504, torch.float32: 1500}
+
+
+def one_triangle(mats: torch.Tensor, mesh: Optional[Mesh] = None) -> bool:
+    """Whether the filter of ``mats`` takes the one-triangle route: one
+    f64 or f32 matrix of n >= TRI_MIN_N[dtype], not split over a mesh."""
+    n = mats.shape[-1]
+    return (mats.dtype in TRI_MIN_N and n >= TRI_MIN_N[mats.dtype] and mats.numel() == n * n
+            and (mesh is None or mesh.size <= 1))
+
+
+def _tri(out: torch.Tensor) -> torch.Tensor:
+    """One triangle product of the route, counted (on any device)."""
+    trace.COUNTS["poly_tri_products"] += 1
+    return out
+
+
+def _sign_tri(y0: torch.Tensor, schedule) -> Tuple[torch.Tensor, list]:
+    """sign(y0) of one (n, n) matrix on one triangle: a step's products
+    Y^2, c A^2 and Y p(A) by syrk, syrk and syrkx, each restored by one
+    mirror pass, which also folds in the polynomial (P = c A^2 + b A + a I
+    in the pass after c A^2). Three work matrices, written in place; returns
+    sign(y0) and the work matrices left free."""
+    free = [torch.empty_like(y0) for _ in range(3)]
+    y = y0
+    for a, b, c in schedule:
+        sq = _tri(sym_products.syrk(y, free.pop()))
+        if c == 0.0:  # P = a I + b A, in A's own mirror pass
+            poly = sym_products.mirror(sq, alpha=b, shift=a)
+        else:
+            sym_products.mirror(sq)
+            poly = _tri(sym_products.syrk(sq, free.pop(), alpha=c))
+            sym_products.mirror(poly, add=sq, add_coef=b, shift=a)
+            free.append(sq)
+        nxt = sym_products.mirror(_tri(sym_products.syrkx(y, poly, free.pop())))
+        free.append(poly)
+        if y is not y0:
+            free.append(y)
+        y = nxt
+    return y, free
+
+
 def _sym(y: torch.Tensor) -> torch.Tensor:
     return 0.5 * (y + y.transpose(-1, -2))
 
@@ -91,6 +159,8 @@ def matrix_sign(
     """
     if schedule is None:
         schedule = default_schedule(mats.dtype)
+    if one_triangle(mats, mesh):
+        return _sign_tri(mats.reshape(mats.shape[-2:]).contiguous(), schedule)[0].reshape(mats.shape)
     eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device)
     y = mats
     for a, b, c in schedule:
@@ -127,5 +197,10 @@ def psd_project_poly(
     """
     s = spectral_scale(mats)[..., None, None]
     y0 = mats / s
+    if one_triangle(mats, mesh):
+        y0 = y0.reshape(mats.shape[-2:])
+        z, free = _sign_tri(y0, default_schedule(mats.dtype) if schedule is None else schedule)
+        out = _tri(sym_products.syrkx(z, y0, free.pop()))
+        return sym_products.mirror(out, add=y0, scale=s, alpha=0.5).reshape(mats.shape)
     z = matrix_sign(y0, schedule, mesh)
     return 0.5 * s * _sym(y0 + _product(z, y0, mesh))

@@ -150,7 +150,8 @@ def _reset_counts() -> None:
 
 
 def _counts() -> Dict[str, int]:
-    return {k: trace.COUNTS[k] for k in ("k1", "k4", "k4_f32", "all_reduce", "broadcast")}
+    return {k: trace.COUNTS[k] for k in ("k1", "k4", "k4_f32", "sym_mirror", "poly_tri_products", "all_reduce",
+                                         "broadcast")}
 
 
 def continued_run(solver, warm: int, iters: int) -> Tuple[SDPResult, float, Dict[str, int]]:

@@ -14,12 +14,16 @@ are always on:
   all_reduce      collectives through a Mesh (parallel/mesh.py)
   broadcast       likewise
   neq_sweeps      refinement sweeps of every normal solve (ops/chol.py)
+  poly_tri_products  triangle products (syrk, syrkx) of the poly filter's
+                  one-triangle route (ops/polyfilter.py), on any device
+  sym_mirror      mirror-kernel launches (ops/sym_products.py)
   graph_captures  recordings the chunk runner made (solver/step.py)
   graph_replays   replays of those recordings
   graph_launches  CUDA graph parts launched by those replays
 
 A kernel wrapper counts its launches on CUDA tensors only (its CPU
-fallback counts nothing). A CUDA graph's kernels launch on replay, where
+fallback counts nothing); ``poly_tri_products`` counts the route's work,
+not launches, so on the CPU too. A CUDA graph's kernels launch on replay, where
 no wrapper runs: the chunk runner takes a capture's counts back and adds
 them, times the replays, once a chunk.
 
@@ -56,7 +60,7 @@ COUNTS: Dict[str, int] = dict(
     k1=0, k2=0, k3=0, k4=0, k4_f32=0,
     cg_solves=0, cg_steps=0, cg_waits=0,
     all_reduce=0, broadcast=0,
-    neq_sweeps=0, graph_captures=0, graph_replays=0, graph_launches=0,
+    neq_sweeps=0, poly_tri_products=0, sym_mirror=0, graph_captures=0, graph_replays=0, graph_launches=0,
 )
 
 
