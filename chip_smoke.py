@@ -268,7 +268,7 @@ from cuadmm_tpu_torch.io.sdpa import load_sdpa
 from cuadmm_tpu_torch.io.sedumi import load_sedumi_mat
 from cuadmm_tpu_torch.k1_ab import unit_lower
 from cuadmm_tpu_torch.k4_ab import graph_ms
-from cuadmm_tpu_torch.models.chordal import maxcut_chordal, objective_svec
+from cuadmm_tpu_torch.models.chordal import maxcut_chordal, maxcut_chordal_family
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
@@ -1647,33 +1647,28 @@ def certified_f32() -> None:
 
 def standin_family() -> list:
     """BATCH stand-ins: the banded graph of standin_problem with edge
-    weights from uniform(0.5, 1.5) under seeds 0..BATCH-1 (one A, BATCH C).
-    The first is converted whole; the others share its clique tree and
-    constraints and take only their own objective (-L/4, as maxcut_chordal
-    forms it), which gives maxcut_chordal's problem in a tenth of the
-    time."""
+    weights from uniform(0.5, 1.5) under seeds 0..BATCH-1 (one A, BATCH C),
+    through maxcut_chordal_family: the first is converted whole, the others
+    share its clique tree and constraints and take only their own
+    objective, in a tenth of the time."""
     n = 1560
-    probs = []
+    Ws = []
     for seed in range(BATCH):
         rng = np.random.default_rng(seed)
         W = sp.diags([rng.uniform(0.5, 1.5, n - k) for k in (1, 2, 3, 4)], [1, 2, 3, 4], shape=(n, n))
-        W = (W + W.T).tocsr()
-        if not probs:
-            base, info = maxcut_chordal(W)
-            probs.append(base)
-            continue
-        C = -0.25 * (sp.diags(np.asarray(W.sum(axis=1)).ravel()) - W)
-        pos, vals = objective_svec(info.tree, info.block_offsets, C)
-        probs.append(dataclasses.replace(base, C_indices=pos.astype(np.int32), C_vals=vals, name=f"stand-in {seed}"))
-    return probs
+        Ws.append((W + W.T).tocsr())
+    return maxcut_chordal_family(Ws, name="stand-in")[0]
 
 
 def batched() -> tuple:
     """BatchedSDPSolver on BATCH stand-ins, f64 plain ADMM (precond + K1,
-    eigh): 20 warm and 100 timed iterations; K1 exactly BATCH times a
-    sweep; each instance's last errRp within 1e-9 of its own single
-    SDPSolver(projection="eigh") run of 100 iterations. Returns the timed
-    run's K1 launches, the stand-ins and the single runs' last errRp."""
+    the "auto" projection resolved at the batch's bucket sizes): 20 warm
+    and 100 timed iterations; K1 exactly BATCH times a sweep, one
+    right-hand side a launch; one eigh segment an iteration for each
+    bucket resolved to eigh; each instance's last errRp within 1e-9 of its
+    own single SDPSolver run of 100 iterations with the batch's methods.
+    Returns the timed run's K1 launches, the stand-ins and the single
+    runs' last errRp."""
     iters = BIG_BLOCK_ITERS
     t0 = time.perf_counter()
     probs = standin_family()
@@ -1695,10 +1690,14 @@ def batched() -> tuple:
     check(batch.chunk_runner == "graphs", f"batched: chunks ran {batch.chunk_runner!r}, not as graphs")
     sweeps = BATCH * iters * neq.applies
     check(k1 == sweeps, f"batched: K1 launched {k1} times, not {BATCH} x {iters} x {neq.applies}")
+    check(COUNTS["k1_rhs"] == k1, f"batched: K1 served {COUNTS['k1_rhs']} right-hand sides in {k1} launches")
+    waits = iters * _eigh_buckets(batch._base.structure, batch._projection)
+    check(COUNTS["eigh_waits"] == waits, f"batched: {COUNTS['eigh_waits']} eigh segments, not {waits}")
     single_rates, rel, single_errrp = [], [], []
     for i, (prob, rb) in enumerate(zip(probs, results)):
         _gates(rb, prob.vec_len, f"batched instance {i}")
-        single = SDPSolver(prob, cfg.replace(projection="eigh"), device="cuda")
+        single = SDPSolver(prob, cfg, device="cuda")
+        single._projection = batch._projection
         t0 = time.perf_counter()
         rs = single.solve(max_iter=iters, stop_tol=0.0)
         torch.cuda.synchronize()
@@ -1709,6 +1708,7 @@ def batched() -> tuple:
               f"batched instance {i}: errRp {rb.errRp!r} against single {rs.errRp!r} (rel {rel[-1]:.2e})")
         del single
     emit("batched", dict(instances=BATCH, host_build_s=host_s, init_s=init_s, applies=neq.applies,
+                         projection=batch._projection, eigh_waits=COUNTS["eigh_waits"],
                          k1_launches=k1, instance_it_per_s=BATCH * iters / elapsed,
                          batch_it_per_s=iters / elapsed, single_it_per_s=single_rates,
                          single_it_per_s_mean=float(np.mean(single_rates)), errRp_rel_to_single=rel))

@@ -510,25 +510,50 @@ def complete_gram_vectors(info: CTCInfo, X_svec: np.ndarray, eps: float = 1e-9) 
 # ----------------------------------------------------------------------
 
 
+def _maxcut_graph(W, signed: bool) -> Tuple[sp.csr_matrix, sp.csr_matrix]:
+    """(the edge weights the objective takes, the graph's 0/1 pattern): W
+    symmetrised with its diagonal dropped, as |W| (genMAXCUT.m) or with
+    its signs (``signed``); the pattern is that of |W|, whatever the signs."""
+    Wm = sp.csr_matrix(W, dtype=np.float64)
+    absW = (abs(Wm) + abs(Wm).T) / 2.0
+    absW.setdiag(0.0)
+    absW.eliminate_zeros()
+    pattern = absW.copy()
+    pattern.data[:] = 1.0
+    if not signed:
+        return absW, pattern
+    Ws = ((Wm + Wm.T) / 2.0).tocsr()
+    Ws.setdiag(0.0)
+    Ws.eliminate_zeros()
+    return Ws, pattern
+
+
+def _maxcut_objective(Wm: sp.spmatrix, k: int) -> sp.spmatrix:
+    """C = -(k-1)/(2k) (Diag(W e) - W), the weighted Laplacian's multiple."""
+    deg = np.asarray(Wm.sum(axis=1)).ravel()
+    return (-(k - 1) / (2.0 * k)) * (sp.diags(deg) - Wm)
+
+
 def maxcut_chordal(
-    W: np.ndarray | sp.spmatrix, k: int = 2, name: str = "maxcut-ctc"
+    W: np.ndarray | sp.spmatrix, k: int = 2, name: str = "maxcut-ctc", signed: bool = False
 ) -> Tuple[Problem, CTCInfo]:
     """Chordally-decomposed max-k-cut SDP relaxation.
 
     Reference: examples/max-cut/genMAXCUT.m (problem data; k=2 gives the
     Goemans-Williamson relaxation with the same -L/4 objective as
     ``maxcut_sdp``) piped through ctc (run_maxcut.m:11-12).
+
+    genMAXCUT.m takes |W|. ``signed`` keeps W's signs in the objective,
+    C = -(k-1)/(2k) (Diag(W e) - W) with W symmetrised: the max-cut of a
+    graph with negative weights, such as a +-J spin glass, which under |W|
+    becomes another problem. The tree decomposition and the constraints
+    depend only on the graph's pattern (plus the diagonal) either way.
     """
     if k < 2 or k != int(k):
         raise ValueError("meaningless choice of k")
-    Wm = sp.csr_matrix(W, dtype=np.float64)
+    Wm, pattern = _maxcut_graph(W, signed)
     n = Wm.shape[0]
-    Wm = (abs(Wm) + abs(Wm).T) / 2.0
-    Wm.setdiag(0.0)
-    Wm.eliminate_zeros()
-    deg = np.asarray(Wm.sum(axis=1)).ravel()
-    L = sp.diags(deg) - Wm
-    C = (-(k - 1) / (2.0 * k)) * L
+    C = _maxcut_objective(Wm, k)
 
     A_list: List[sp.spmatrix] = [
         sp.coo_matrix(([1.0], ([i], [i])), shape=(n, n)) for i in range(n)
@@ -538,7 +563,7 @@ def maxcut_chordal(
     if k > 2:
         # Edge constraints X_ij >= -1/(k-1) (genMAXCUT.m:33-42, stated as
         # 2 X_ij >= -2/(k-1) with both triangles carrying coefficient 1).
-        Wl = sp.tril(Wm, -1).tocoo()
+        Wl = sp.tril(pattern, -1).tocoo()
         for i, j in zip(Wl.row, Wl.col):
             A_list.append(
                 sp.coo_matrix(([1.0, 1.0], ([i, j], [j, i])), shape=(n, n))
@@ -547,9 +572,33 @@ def maxcut_chordal(
             ub.append(np.inf)
 
     # Aggregate pattern = graph + diagonal (the objective covers it).
-    pat = (Wm + sp.eye(n)).tocsr()
+    pat = (pattern + sp.eye(n)).tocsr()
     pat.data[:] = 1.0
     tree = tree_decomposition(pat)
     return clique_tree_conversion(
         C, A_list, np.array(lb), np.array(ub), tree=tree, name=name
     )
+
+
+def maxcut_chordal_family(
+    Ws: Sequence[np.ndarray | sp.spmatrix], k: int = 2, name: str = "maxcut-ctc", signed: bool = False
+) -> Tuple[List[Problem], CTCInfo]:
+    """``maxcut_chordal`` of each graph in ``Ws``, from one tree
+    decomposition: the instances of a family whose graphs share their
+    pattern and differ in their weights (disorder realizations of one
+    lattice). The first is converted whole; the others share its blk and
+    constraint arrays (the same objects, so A is bitwise equal, as
+    ``BatchedSDPSolver`` needs) and take only their own objective
+    (``objective_svec``). Raises ValueError if the patterns differ."""
+    if not len(Ws):
+        raise ValueError("empty family")
+    base, info = maxcut_chordal(Ws[0], k, name=f"{name}-0", signed=signed)
+    pattern0 = _maxcut_graph(Ws[0], signed)[1]
+    probs = [base]
+    for i, W in enumerate(Ws[1:], 1):
+        Wm, pattern = _maxcut_graph(W, signed)
+        if pattern.shape != pattern0.shape or (pattern != pattern0).nnz:
+            raise ValueError(f"instance {i}'s graph has another pattern than instance 0's")
+        pos, vals = objective_svec(info.tree, info.block_offsets, _maxcut_objective(Wm, k))
+        probs.append(dataclasses.replace(base, C_indices=pos.astype(np.int32), C_vals=vals, name=f"{name}-{i}"))
+    return probs, info

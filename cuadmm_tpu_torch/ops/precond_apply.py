@@ -181,6 +181,7 @@ def fused_spd_apply(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
             err = lib.cuadmm_fused_spd_apply(*args, stream)
     _check(lib, err, "kernel launch")
     trace.COUNTS["k1"] += 1
+    trace.COUNTS["k1_rhs"] += 1
     return out[k * n_pad:]
 
 

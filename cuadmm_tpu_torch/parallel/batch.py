@@ -13,11 +13,22 @@ to one eigh call, and the normal solve takes (B, con_num) right-hand sides
 that converges is frozen by its own done guard and keeps its own
 convergence iteration and ``SDPResult``.
 
-As in the JAX package the step projects with "eigh" and has no divergence
-recovery and no rp_hp; ``config.dtype`` sets the state dtype. Chunks run
-through the chunk runner as ``SDPSolver``'s do (CUDA graphs split at each
-eigh bucket on the card; eager over a mesh or with cg or host);
+The projection is resolved as ``SDPSolver`` resolves it
+(``solver/driver.py::resolve_projection``): "eigh" when ``eig_rank`` is
+set, and under "auto" the calibrated per-bucket dispatch at the batch's
+own bucket sizes, each bucket's blocks times this rank's instances, which
+the projection folds into one batch (K4 on max-cut's cliques on the card).
+As in the JAX package there is no divergence recovery and no rp_hp;
+``config.dtype`` sets the state dtype. Chunks run through the chunk runner
+as ``SDPSolver``'s do (one CUDA graph an iteration on the card, split at
+each "eigh" bucket; eager over a mesh or with cg or host);
 ``chunk_runner`` says which ran last.
+
+Tracing (cuadmm_tpu_torch/trace.py): a solve is the root span ``batch``
+with ``batch.start`` (the step and the stacked initial states),
+``batch.chunk`` (each chunk), ``batch.check`` (the host's convergence
+scan) and ``batch.finish`` (the unscaled results); ``trace.solve_record
+("batch")`` returns them and the device gaps between chunks.
 
 Over a rank mesh (``mesh=``, parallel/mesh.py) the instance axis is split
 (cuadmm_tpu/parallel/batch.py:138-175): rank r solves its contiguous share
@@ -38,12 +49,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.ops.svec import pool_from_svec, svec_from_pool
 from cuadmm_tpu_torch.parallel.mesh import Mesh, mesh_device, shard_bounds
 from cuadmm_tpu_torch.problem import Problem
 from cuadmm_tpu_torch.solver import scaling as scaling_mod
-from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver
+from cuadmm_tpu_torch.solver.driver import SDPResult, SDPSolver, resolve_projection
 from cuadmm_tpu_torch.solver.state import INFO_FIELDS, SolveParams, SolverState
 from cuadmm_tpu_torch.solver.step import ChunkRunners, make_step
 
@@ -87,8 +99,11 @@ class BatchedSDPSolver:
         self._base = SDPSolver(base, config, device=device)
         self.dtype = self._base.dtype
         self.device = self._base.device
+        self._projection = resolve_projection(config, self._base.structure, self.device,
+                                              instances=self._hi - self._lo)
 
         # Per-instance scaling; normA depends only on A, so it is shared.
+        t0 = time.perf_counter()
         normA = self._base.scaling.normA
         self._scalings, b_list, C_list, self._init_list = [], [], [], []
         for p in problems[self._lo:self._hi]:
@@ -118,6 +133,9 @@ class BatchedSDPSolver:
             norm_borg=scal("norm_borg"),
             norm_Corg=scal("norm_Corg"),
         )
+        # The base solver's set-up stages, and the instances' scaling and
+        # upload after it (seconds).
+        self.init_breakdown = dict(self._base.init_breakdown, instances=round(time.perf_counter() - t0, 3))
 
     @property
     def chunk_runner(self) -> Optional[str]:
@@ -152,41 +170,54 @@ class BatchedSDPSolver:
         """Run every instance from its own starting point; one SDPResult per
         instance, in order. The batch stops when every instance converged or
         at ``max_iter``."""
-        cfg = self.config
-        max_iter = cfg.max_iter if max_iter is None else int(max_iter)
-        stop_tol = cfg.stop_tol if stop_tol is None else float(stop_tol)
-        sig = cfg.sig if sig is None else float(sig)
-        B = len(self.problems)
-        step = make_step(
-            stop_tol=stop_tol,
-            switch_admm=cfg.switch_admm,
-            sig_update_threshold=cfg.sig_update_threshold,
-            sig_update_stage_1=cfg.sig_update_stage_1,
-            sig_min=cfg.sig_min,
-            sig_max=cfg.sig_max,
-        )
+        with trace.span("batch"):
+            return self._solve(max_iter, stop_tol, sig)
 
-        state = self._initial_states(sig)
-        info_rows = []
-        t0 = time.perf_counter()
-        it_done = 0
-        conv_iter = np.full(B, -1, dtype=np.int64)
+    def _solve(self, max_iter, stop_tol, sig) -> List[SDPResult]:
+        with trace.span("batch.start"):
+            cfg = self.config
+            max_iter = cfg.max_iter if max_iter is None else int(max_iter)
+            stop_tol = cfg.stop_tol if stop_tol is None else float(stop_tol)
+            sig = cfg.sig if sig is None else float(sig)
+            B = len(self.problems)
+            step = make_step(
+                stop_tol=stop_tol,
+                switch_admm=cfg.switch_admm,
+                sig_update_threshold=cfg.sig_update_threshold,
+                sig_update_stage_1=cfg.sig_update_stage_1,
+                sig_min=cfg.sig_min,
+                sig_max=cfg.sig_max,
+                eig_rank=cfg.eig_rank,
+                projection=self._projection,
+            )
+            state = self._initial_states(sig)
+            info_rows = []
+            t0 = time.perf_counter()
+            it_done = 0
+            conv_iter = np.full(B, -1, dtype=np.int64)
         while it_done < max_iter:
             chunk = min(cfg.check_every, max_iter - it_done)
-            state, info = self._runners.run(step, state, self.params, it_done, chunk, self.mesh)
-            info_np = self._gather(info, 1).cpu().numpy().astype(np.float64)  # (chunk, B, 8)
-            kkt = np.maximum(np.maximum(info_np[:, :, 2], info_np[:, :, 3]), info_np[:, :, 4])
-            for b in range(B):
-                if conv_iter[b] < 0:
-                    hits = np.nonzero(kkt[:, b] < stop_tol)[0]
-                    if hits.size:
-                        conv_iter[b] = it_done + int(hits[0]) + 1
-            info_rows.append(info_np)
-            it_done += chunk
+            with trace.span("batch.chunk"):
+                state, info = self._runners.run(step, state, self.params, it_done, chunk, self.mesh)
+            with trace.span("batch.check"):
+                info_np = self._gather(info, 1).cpu().numpy().astype(np.float64)  # (chunk, B, 8)
+                kkt = np.maximum(np.maximum(info_np[:, :, 2], info_np[:, :, 3]), info_np[:, :, 4])
+                for b in range(B):
+                    if conv_iter[b] < 0:
+                        hits = np.nonzero(kkt[:, b] < stop_tol)[0]
+                        if hits.size:
+                            conv_iter[b] = it_done + int(hits[0]) + 1
+                info_rows.append(info_np)
+                it_done += chunk
             if np.all(conv_iter >= 0):
                 break
-        total_time = time.perf_counter() - t0
+        with trace.span("batch.finish"):
+            return self._results(state, info_rows, conv_iter, it_done, time.perf_counter() - t0)
 
+    def _results(self, state: SolverState, info_rows: list, conv_iter: np.ndarray, it_done: int,
+                 total_time: float) -> List[SDPResult]:
+        """Every instance's ``SDPResult`` from the final (local) state."""
+        B = len(self.problems)
         info_mat = np.concatenate(info_rows, axis=0) if info_rows else np.empty((0, B, len(INFO_FIELDS)))
         # This rank's instances unscaled, one row each: X, y, S and the
         # scalars; then every instance's rows on every rank.

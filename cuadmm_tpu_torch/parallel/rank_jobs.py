@@ -226,7 +226,8 @@ def chip_mesh(mesh: Mesh, grid: Problem, large: Problem, quasar: Problem, family
     - quasar: QUASAR-500, projection "poly" (its one block split by rows),
       split + K1; ``warm`` untimed iterations, then ``timed`` from the
       start, timed;
-    - batched: ``BatchedSDPSolver`` on ``family`` (precond + K1, eigh),
+    - batched: ``BatchedSDPSolver`` on ``family`` (precond + K1, the
+      "auto" projection at this rank's share of the instances),
       ``warm`` then ``timed`` iterations, each from the start.
 
     Each entry has the result (or results), the seconds, the kernel and

@@ -31,7 +31,7 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import scipy.sparse as sp
@@ -105,6 +105,29 @@ def precision_stall(trail: List[float], chunk_kkt: np.ndarray, last_row: np.ndar
     return max(last_row[2], last_row[3]) < stop_tol and min(trail) > STALL_GAIN * trail[0]
 
 
+def resolve_projection(config: SolverConfig, structure: BlockStructure, device: torch.device,
+                       instances: int = 1, verbose: bool = False) -> Union[str, Dict[int, str]]:
+    """The projection the step runs: "eigh" when ``config.eig_rank`` is set
+    (it needs explicit eigenvalues); under "auto" the calibrated per-bucket
+    dispatch from the committed sweep of the device's backend, each bucket
+    at its blocks times ``instances`` (a batch's instances form one batch
+    of each bucket), or "eigh" where no table exists (as the JAX driver
+    does off a TPU); else ``config.projection``."""
+    if config.eig_rank is not None:
+        return "eigh"
+    if config.projection != "auto":
+        return config.projection
+    per_bucket = choose_methods(
+        [(bk.n, bk.count * instances) for bk in structure.buckets], device.type, config.dtype
+    )
+    if per_bucket is None and verbose:
+        print(
+            f"projection='auto': no calibration table for {device.type}/{config.dtype} "
+            "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
+        )
+    return "eigh" if per_bucket is None else per_bucket
+
+
 class SDPSolver:
     """sGS-ADMM solver for one problem on one device or a rank mesh.
 
@@ -151,22 +174,9 @@ class SDPSolver:
             # eig_rank needs explicit eigenvalues and per-block top-k, so it
             # forces eigh and no packing. pack_to=None means off away from a TPU
             # (cuadmm_tpu/solver/driver.py:101-106).
-            self._projection = "eigh" if cfg.eig_rank is not None else cfg.projection
             pack_to = 0 if cfg.pack_to is None or cfg.eig_rank is not None else cfg.pack_to
             self.structure = BlockStructure(prob.blk, cfg.bucket_rounding, cfg.exact_above, pack_to)
-            if self._projection == "auto":
-                # Calibrated per-bucket dispatch from the committed sweep of this
-                # device's backend; without a table, eigh (as the JAX driver does
-                # off a TPU).
-                per_bucket = choose_methods(
-                    [(bk.n, bk.count) for bk in self.structure.buckets], self.device.type, cfg.dtype
-                )
-                self._projection = "eigh" if per_bucket is None else per_bucket
-                if per_bucket is None and self._verbose:
-                    print(
-                        f"projection='auto': no calibration table for {self.device.type}/{cfg.dtype} "
-                        "(python -m cuadmm_tpu_torch.eig_sweep makes one); using 'eigh'"
-                    )
+            self._projection = resolve_projection(cfg, self.structure, self.device, verbose=self._verbose)
             if self.structure.vec_len != prob.vec_len:
                 raise ValueError("block structure does not match problem vec_len")
             vec_len, con_num = prob.vec_len, prob.con_num

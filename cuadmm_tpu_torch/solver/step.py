@@ -352,6 +352,7 @@ class _EighSegment:
 
     def run(self) -> None:
         torch.linalg.eigh(self.x, out=(self.w, self.v))
+        trace.COUNTS["eigh_waits"] += 1
 
     replay = run  # between two graphs: eigh checks its status on the host, one wait a bucket
 

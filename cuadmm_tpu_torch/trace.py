@@ -4,6 +4,7 @@ Counters. ``COUNTS`` holds every count the port keeps, as plain ints that
 are always on:
 
   k1              fused_spd_apply launches (ops/precond_apply.py)
+  k1_rhs          the right-hand sides those launches served (one a launch)
   k2              packed_solve launches (ops/tri_stream.py; one call queues both sweeps)
   k3              band_solve launches (ops/tri_stream.py; likewise)
   k4              jacobi_eigh launches (ops/jacobi.py), every dtype
@@ -20,10 +21,13 @@ are always on:
   graph_captures  recordings the chunk runner made (solver/step.py)
   graph_replays   replays of those recordings
   graph_launches  CUDA graph parts launched by those replays
+  eigh_waits      eigh segments the chunk runner ran between two graph parts,
+                  one host wait each on CUDA (the CPU's plain replay runs
+                  the same segments), on any device
 
 A kernel wrapper counts its launches on CUDA tensors only (its CPU
 fallback counts nothing); ``poly_tri_products`` counts the route's work,
-not launches, so on the CPU too. A CUDA graph's kernels launch on replay, where
+not launches, so on the CPU too, and ``eigh_waits`` likewise. A CUDA graph's kernels launch on replay, where
 no wrapper runs: the chunk runner takes a capture's counts back and adds
 them, times the replays, once a chunk.
 
@@ -57,10 +61,11 @@ import torch.autograd.profiler as _profiler
 from cuadmm_tpu_torch.device import synchronize
 
 COUNTS: Dict[str, int] = dict(
-    k1=0, k2=0, k3=0, k4=0, k4_f32=0,
+    k1=0, k1_rhs=0, k2=0, k3=0, k4=0, k4_f32=0,
     cg_solves=0, cg_steps=0, cg_waits=0,
     all_reduce=0, broadcast=0,
     neq_sweeps=0, poly_tri_products=0, sym_mirror=0, graph_captures=0, graph_replays=0, graph_launches=0,
+    eigh_waits=0,
 )
 
 

@@ -65,7 +65,7 @@ def test_batched_matches_jax_and_single_solves():
     probs_j = [cuadmm_tpu.Problem.from_dense(blk, A, b, C) for blk, A, b, C, _ in data]
     probs_t, objs = _port_family(3)
     res_j = JBatched(probs_j, cuadmm_tpu.SolverConfig(**CFG)).solve(max_iter=6000, stop_tol=1e-6)
-    res_t = BatchedSDPSolver(probs_t, cuadmm_tpu_torch.SolverConfig(**CFG), device="cpu").solve(
+    res_t = BatchedSDPSolver(probs_t, cuadmm_tpu_torch.SolverConfig(projection="eigh", **CFG), device="cpu").solve(
         max_iter=6000, stop_tol=1e-6)
     cfg1 = cuadmm_tpu_torch.SolverConfig(projection="eigh", normal_solver="auto", **CFG)
     for i, (rj, rt, obj) in enumerate(zip(res_j, res_t, objs)):
@@ -81,15 +81,14 @@ def test_batched_matches_jax_and_single_solves():
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_batch_of_one_equals_single_solve(dtype):
-    """One instance through the batch is SDPSolver with projection "eigh"
+    """One instance through the batch is SDPSolver, both with projection "eigh"
     (1e-12 in f64; in f32 to the state's rounding, the single solve's
     probe and stall detector never engaging in 200 iterations at
     stop_tol 0)."""
     probs, _ = _port_family(1)
-    cfg = cuadmm_tpu_torch.SolverConfig(dtype=dtype, **CFG)
+    cfg = cuadmm_tpu_torch.SolverConfig(dtype=dtype, projection="eigh", **CFG)
     rb = BatchedSDPSolver(probs, cfg, device="cpu").solve(max_iter=200, stop_tol=0.0)[0]
-    rs = cuadmm_tpu_torch.SDPSolver(probs[0], cfg.replace(projection="eigh"), device="cpu").solve(
-        max_iter=200, stop_tol=0.0)
+    rs = cuadmm_tpu_torch.SDPSolver(probs[0], cfg, device="cpu").solve(max_iter=200, stop_tol=0.0)
     tol = 1e-12 if dtype == "float64" else 1e-6
     assert rb.iterations == rs.iterations == 200
     for f in FIELDS:
@@ -140,7 +139,7 @@ def test_batched_precond_launches_k1_per_instance_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K1 has no CPU or interpret mode")
     probs, _ = _port_family(4)
-    cfg = cuadmm_tpu_torch.SolverConfig(normal_solver="precond", check_every=10, **{
+    cfg = cuadmm_tpu_torch.SolverConfig(normal_solver="precond", projection="eigh", check_every=10, **{
         k: v for k, v in CFG.items() if k != "check_every"})
     batch = BatchedSDPSolver(probs, cfg)
     applies = batch.params.neq.applies
@@ -151,7 +150,7 @@ def test_batched_precond_launches_k1_per_instance_on_card():
     torch.cuda.synchronize()
     assert COUNTS["k1"] - before == 4 * 20 * 2 * applies  # sGS: two solves an iteration
     for i, rb in enumerate(res):
-        rs = cuadmm_tpu_torch.SDPSolver(probs[i], cfg.replace(projection="eigh")).solve(max_iter=20, stop_tol=0.0)
+        rs = cuadmm_tpu_torch.SDPSolver(probs[i], cfg).solve(max_iter=20, stop_tol=0.0)
         np.testing.assert_allclose(rb.info["errRp"], rs.info["errRp"], rtol=1e-9, atol=0)
 
 

@@ -209,7 +209,8 @@ def _checks(D, refs):
         ("sharded_own", rank_jobs.solve, dict(prob=sharded, config=SHARDED_CFG, runs=[(SHARDED_JAX_ITERS, 0.0)])),
         ("auto", rank_jobs.solve, dict(prob=t_certified(**_full_problem())[0],
                                config=dict(FULL_CFG, normal_solver="auto"), runs=[(1, 0.0)])),
-        ("batch", rank_jobs.batch, dict(problems=_family(4), config=BATCH_CFG, max_iter=BATCH_ITERS, stop_tol=0.0)),
+        ("batch", rank_jobs.batch, dict(problems=_family(4), config=dict(BATCH_CFG, projection="eigh"),
+                                        max_iter=BATCH_ITERS, stop_tol=0.0)),
     ]
     if D == 2:  # the runs to convergence: a collective costs about 1 ms at 2 CPU ranks, 4 at 4
         cgrid, capplies, _ = refs["sharded_conv"]
