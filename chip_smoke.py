@@ -295,6 +295,10 @@ K1_REL_TOL = 1e-5  # f32 sums taken in another order than cuBLAS's
 K1_REPS = 20
 APPLY_PADDED_SIZES = (1000, 5001)  # apply_padded's r: not multiples of 128
 STANDIN_N_PAD = 17152  # the stand-in's padded factor: the main path's K1 shape
+# K1 over B right-hand sides: (n_pad, B), checked at each and timed at B = 8;
+# 18,816 is G11's factor, the benchmark's family cell's K1 shape.
+K1_RHS_SHAPES = ((5120, 8), (18816, 3), (18816, 8), (18816, 11), (44416, 8))
+K1_RHS_MAIN = (18816, 8)
 PROFILE_ITERS = 50
 PROFILE_TOP = 10  # device ops listed per mode, by self time
 K4_REPS = 5
@@ -471,7 +475,60 @@ def compare_k1() -> dict:
         del m, r, y, ref
         torch.cuda.empty_cache()
     compare_apply_padded()
+    report["k1_rhs_main"] = compare_k1_rhs()
     return at_main_shape
+
+
+def compare_k1_rhs() -> dict:
+    """K1 over B right-hand sides at K1_RHS_SHAPES: on M with NaN above the
+    diagonal the same checks as compare_k1 for every column (finite, the
+    same bits twice, within K1_REL_TOL of the plain version on tril(M)),
+    one launch a group of ``rhs_groups`` serving B right-hand sides; at
+    B = 8 the time beside the bound (the triangle once, R in and Y out),
+    the B one-RHS launches it replaces, the plain version and
+    ``torch.linalg.multi_dot`` (M^T (M R^T), two cuBLAS GEMMs over the
+    square). Returns the row at K1_RHS_MAIN."""
+    main = None
+    for i, (n, b) in enumerate(K1_RHS_SHAPES):
+        m, _ = _k1_operands(n, seed=70 + i)
+        gen = torch.Generator(device="cuda").manual_seed(80 + i)
+        rr = torch.randn(b, n, device="cuda", generator=gen)
+        before = dict(COUNTS)
+        y = precond_apply.fused_spd_apply(m, rr)
+        again = precond_apply.fused_spd_apply(m, rr)
+        torch.cuda.synchronize()
+        groups = precond_apply.rhs_groups(n, b)
+        launches, served = COUNTS["k1"] - before["k1"], COUNTS["k1_rhs"] - before["k1_rhs"]
+        check(launches == 2 * len(groups) and served == 2 * b,
+              f"K1 over B n_pad={n} B={b}: {launches} launches served {served} right-hand sides")
+        check(bool(torch.isfinite(y).all()), f"K1 over B n_pad={n} B={b}: non-finite output")
+        check(torch.equal(y, again), f"K1 over B n_pad={n} B={b}: two calls differ")
+        del again
+        m.tril_()
+        ref = precond_apply.fused_spd_apply_ref(m, rr)
+        rel = [float(torch.linalg.norm(y[j] - ref[j]) / torch.linalg.norm(ref[j])) for j in range(b)]
+        check(max(rel) <= K1_REL_TOL, f"K1 over B n_pad={n} B={b}: rel err {max(rel):.3e}")
+        row = dict(n_pad=n, rhs=b, groups=groups, rel_err=max(rel), deterministic=True)
+        if b == 8:
+            k1 = lambda: precond_apply.fused_spd_apply(m, rr)
+            each = lambda: [precond_apply.fused_spd_apply(m, rr[j]) for j in range(b)]
+            plain = lambda: precond_apply.fused_spd_apply_ref(m, rr)
+            library = lambda: torch.linalg.multi_dot([m.T, m, rr.T])
+            for fn in (k1, each, plain, library):
+                fn()
+            p1, k_1, k_2, p2 = (_time_ms(fn, K1_REPS) for fn in (plain, k1, k1, plain))
+            e_ms, l_ms = _time_ms(each, K1_REPS), _time_ms(library, K1_REPS)
+            bound_ms = (4.0 * n * (n + 1) / 2 + 8.0 * b * n) / HBM_BYTES_PER_S * 1e3
+            k_ms = (k_1 + k_2) / 2
+            row.update(k1_ms=k_ms, one_rhs_launches_ms=e_ms, plain_ms=(p1 + p2) / 2, library_ms=l_ms,
+                       bound_ms=bound_ms, bound_by="bytes", share=bound_ms / k_ms)
+        print("K1 over B " + json.dumps(row), flush=True)
+        report.setdefault("k1_rhs", []).append(row)
+        if (n, b) == K1_RHS_MAIN:
+            main = row
+        del m, rr, y, ref
+        torch.cuda.empty_cache()
+    return main
 
 
 def compare_apply_padded() -> None:
@@ -1663,8 +1720,8 @@ def standin_family() -> list:
 def batched() -> tuple:
     """BatchedSDPSolver on BATCH stand-ins, f64 plain ADMM (precond + K1,
     the "auto" projection resolved at the batch's bucket sizes): 20 warm
-    and 100 timed iterations; K1 exactly BATCH times a sweep, one
-    right-hand side a launch; one eigh segment an iteration for each
+    and 100 timed iterations; K1 exactly once a sweep, BATCH right-hand
+    sides a launch (K1 over B); one eigh segment an iteration for each
     bucket resolved to eigh; each instance's last errRp within 1e-9 of its
     own single SDPSolver run of 100 iterations with the batch's methods.
     Returns the timed run's K1 launches, the stand-ins and the single
@@ -1688,9 +1745,10 @@ def batched() -> tuple:
     elapsed = time.perf_counter() - t0
     k1 = COUNTS["k1"]
     check(batch.chunk_runner == "graphs", f"batched: chunks ran {batch.chunk_runner!r}, not as graphs")
-    sweeps = BATCH * iters * neq.applies
-    check(k1 == sweeps, f"batched: K1 launched {k1} times, not {BATCH} x {iters} x {neq.applies}")
-    check(COUNTS["k1_rhs"] == k1, f"batched: K1 served {COUNTS['k1_rhs']} right-hand sides in {k1} launches")
+    sweeps = iters * neq.applies
+    check(k1 == sweeps, f"batched: K1 launched {k1} times, not {iters} x {neq.applies}")
+    check(COUNTS["k1_rhs"] == BATCH * k1,
+          f"batched: K1 served {COUNTS['k1_rhs']} right-hand sides in {k1} launches, not {BATCH} a launch")
     waits = iters * _eigh_buckets(batch._base.structure, batch._projection)
     check(COUNTS["eigh_waits"] == waits, f"batched: {COUNTS['eigh_waits']} eigh segments, not {waits}")
     single_rates, rel, single_errrp = [], [], []
@@ -2541,8 +2599,8 @@ def mesh(large: Problem, quasar_prob: Problem, family: list, single_errrp: list)
     for r, br in enumerate(bs):
         share = br["local"][1] - br["local"][0]
         check(share == len(family) // MESH_RANKS, f"mesh batched rank {r}: instances {br['local']}")
-        check(br["counts"]["k1"] == share * iters * br["applies"],
-              f"mesh batched rank {r}: K1 launched {br['counts']['k1']} times, not {share} x {iters} x {br['applies']}")
+        check(br["counts"]["k1"] == iters * br["applies"],  # K1 over the rank's share, once a sweep
+              f"mesh batched rank {r}: K1 launched {br['counts']['k1']} times, not {iters} x {br['applies']}")
     for i, (res, rl) in enumerate(zip(bs[0]["results"], rels)):
         check(res["iterations"] == iters and rl <= MESH_ONE_RANK_REL,
               f"mesh batched instance {i}: errRp {res['errRp']!r} against its single run's (rel {rl:.2e})")
@@ -2608,6 +2666,11 @@ def main() -> None:
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),
              launches_by_path=k1_paths, **k1),
+        dict(name="fused_spd_apply_rhs", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
+             replaces="none (K1 over B right-hand sides)",
+             launches=k1_batched + ms["batched_k1"],
+             launches_by_path={"batched f64": k1_batched, "batched mesh 2": ms["batched_k1"]},
+             **report["k1_rhs_main"]),
         dict(name="jacobi_eigh", route="cuda", source="cuadmm_tpu_torch/csrc/jacobi_eigh.cu",
              replaces="cuadmm_tpu/ops/jacobi.py:147", launches=sum(k4_paths.values()),
              launches_by_path=k4_paths, **k4),

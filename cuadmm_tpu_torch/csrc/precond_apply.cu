@@ -59,6 +59,54 @@
 //   partials per column in a fixed order.
 // - Full f32 FMA on the CUDA cores; no TF32, no tensor cores (a
 //   matrix-vector product has no reuse for them). Offsets are 64-bit.
+//
+// K1 over B right-hand sides, fused_spd_apply_kernel_rhs<R, BT>: Y[b] =
+// M^T (M R[b]) for b < nb <= B = 2 BT (2, 4 or 8) in one pass over the
+// triangle, for a batch of instances that share M (the batched solver's
+// sweeps). It replaces no TPU kernel: the JAX package's _kernel serves one
+// right-hand side, and its batch calls it once an instance. Bound: still the
+// triangle's bytes, read once for all B (0.2117 ms at n_pad 18,816 on an
+// H100); the flops, 4 B an entry, take 0.085 ms at B = 8 on the CUDA cores,
+// so issue slots, not the FMA pipe, are what the design has to spare. As
+// built it does not reach that bound: 0.83 ms there, 26% (8 one-RHS
+// launches take 2.07 ms). Its time falls with the number of SMs it runs
+// on, not with bytes: each step's phases (copies, the CTA barrier, the
+// exchange, the two passes) run one after another in every warp, at 2.5
+// warps an SM sub-partition, so the SM waits more than it issues.
+//
+// - Registers: a column needs r and y for each of its B right-hand sides.
+//   One thread keeping both for B = 8 over the one-RHS kernel's ten slots
+//   would need 640 registers. Here a CTA has two groups of at most 5 warps
+//   (320 threads, 168 registers each: three warps share an SM
+//   sub-partition's 64 KB); both groups cover the same
+//   columns, group g the right-hand sides g BT .. g BT + BT - 1, and a
+//   thread keeps r and y of its BT for 16 / BT float4 slots (128
+//   registers). The clusters are larger to match: at n_pad 18,816, B = 8,
+//   C = 8 and each member owns 18 or 19 chunks.
+// - Both groups read the same row stages, so the stages are shared: group g
+//   copies rows g, g + 2, ... of a step (cp.async at each thread's own
+//   slots, stopping at the diagonal as above), and one __syncthreads a step
+//   makes them visible to both. That barrier waits for no copy in flight
+//   (the ring still holds S - 2 steps in flight), and it also closes the
+//   CTA's partial sums of the step before.
+// - A warp's R x BT partial dots are reduced by a transpose-reduce (a
+//   reduce-scatter butterfly): log2(R BT) shuffle levels, each halving the
+//   values a lane holds, leave lane l with the warp's sum of value l; R BT
+//   separate trees would take 5 shuffles each. Lane l stores it for its
+//   warp; after the barrier the CTA's sums (a fixed order over the group's
+//   warps) go with st.async into every member's inbox, counted on its
+//   mbarrier as in the one-RHS kernel, and a step later every warp sums the
+//   C members' values in member order. The exchange of step s overlaps the
+//   first pass of step s + 1. Every sum has a fixed order, so the result is
+//   bitwise repeatable.
+// - Each cluster writes its nb y-partials, and sum_partials_kernel sums
+//   the K clusters' partials of all nb rows in one launch. Fewer, larger
+//   clusters (K = 15 at C = 8 on an H100) keep the scratch at K nb n_pad
+//   floats, about the one-RHS launch's K n_pad at K = 132.
+// - ops/precond_apply.py's plan serves any B in groups: launches of the
+//   largest B that fits n_pad, then the rest (one column left over goes to
+//   the one-RHS kernel, another remainder to the next B up, its spare
+//   columns zero).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -353,6 +401,285 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
   }
 }
 
+// ---- K1 over B right-hand sides (the note at the top) ----
+
+constexpr int kGroups = 2;          // right-hand-side groups of a CTA
+constexpr int kGroupWarps = 5;      // warps a group at most
+constexpr int kThreadsRhs = kGroups * kGroupWarps * 32;
+constexpr int kMaxSmemRhs = 432 * kChunk * 4;  // 216 KB: with the 10.5 KB of sums, inbox and mbarriers, within 227 KB
+
+// Float4 slots a thread keeps r and y for, at BT right-hand sides a thread:
+// 16 float4 of each.
+template <int BT>
+__host__ __device__ constexpr int slots_rhs() {
+  return 16 / BT;
+}
+
+// Lane l ends with the warp's sum of x[l % V] (V a power of two <= 32): at
+// level H a lane keeps the half of its values that its bit H selects and
+// adds its partner's copies of them; past the values' bits, plain sums.
+// Each level is its own instance, so every index into x is a constant and
+// x stays in registers.
+template <int V, int H>
+__device__ __forceinline__ void scatter_level(float (&x)[V], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = (lane & H) != 0;
+#pragma unroll
+    for (int e = 0; e < H; ++e) {
+      const float send = up ? x[e] : x[e + H];
+      const float keep = up ? x[e + H] : x[e];
+      x[e] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    scatter_level<V, H / 2>(x, lane);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ float reduce_scatter(float (&x)[V], int lane) {
+  scatter_level<V, V / 2>(x, lane);
+  float v = x[0];
+#pragma unroll
+  for (int o = V; o < 32; o *= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// R rows a step, BT right-hand sides a thread, 2 BT a CTA (nb of them
+// real: the rest read as zero and are not written). blockDim.x = 64 Wg:
+// warps 0..Wg-1 are group 0, Wg..2Wg-1 group 1. Thread (g, wl, lane)'s
+// slots are j < 16 / BT at member-local chunk wl + j Wg, float4 column
+// (member + (wl + j Wg) C) * 32 + lane; a stage row holds the member's
+// chunks in local order, ``cap`` float4.
+template <int R, int BT>
+__global__ void __launch_bounds__(kThreadsRhs, 1)
+    fused_spd_apply_kernel_rhs(const float* __restrict__ m, const float* __restrict__ r,
+                               float* __restrict__ partial, int n_pad, int nb, int cap, int n_stages) {
+  constexpr int kVec = slots_rhs<BT>();
+  constexpr int V = R * BT;  // sums a warp reduces a step, value i BT + b for row i, right-hand side b
+  static_assert(V <= 32 && R % kGroups == 0, "one value a lane; rows split between the groups");
+  extern __shared__ float4 stages[];
+  __shared__ float part[2][kGroups * kGroupWarps][32];     // each warp's V sums of step s, half s % 2
+  __shared__ float inbox[2][kMaxCluster][kGroups * 32];    // each member's CTA sums of step s (group, value)
+  __shared__ alignas(8) unsigned long long bar[2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int log_c = __ffs(C) - 1;
+  const int member = static_cast<int>(cluster.block_rank());
+  const int K = gridDim.x >> log_c, k = blockIdx.x >> log_c;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Wg = blockDim.x >> 6, W = 2 * Wg;
+  const int g = warp >= Wg ? 1 : 0, wl = warp - g * Wg;
+  const int tg = (wl << 5) + lane;  // the thread's index in its group's stage row
+  const int64_t n4 = n_pad / 4;
+  const int panels = n_pad / R, pairs = panels / 2;
+  const int steps = pairs > k ? 2 * ((pairs - 1 - k) / K + 1) : 0;
+  const int inbox_bytes = (C * kGroups * V) << 2;
+  const int q0 = ((member + (wl << log_c)) << 5) + lane;  // the thread's first float4 column
+  const int stride = (Wg << log_c) << 5;                   // float4 columns between its slots
+  const int sstride = Wg << 5;                              // and between them in a stage row
+  const float4* m_col = reinterpret_cast<const float4*>(m) + q0;
+
+  // The member's local chunks through chunk c, a step's first row, and how
+  // many of the thread's slots lie in ``lc`` local chunks.
+  auto local_through = [&](int c) { return c >= member ? ((c - member) >> log_c) + 1 : 0; };
+  auto first_row = [&](int s) {
+    const int p = k + (s >> 1) * K;
+    return ((s & 1) ? panels - 1 - p : p) * R;
+  };
+  auto active = [&](int lc) {
+    int n = 0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) n += wl + j * Wg < lc ? 1 : 0;
+    return n;
+  };
+
+  // Group g queues rows g, g + 2, ... of step s at its slots as one copy
+  // group into stage ``st``; an empty group past the last step keeps the
+  // wait counts uniform.
+  auto issue = [&](int s, float4* st) {
+    if (s < steps) {
+      const int row0 = first_row(s);
+      const int nj = active(local_through((row0 + R - 1) >> 7));
+#pragma unroll
+      for (int ii = 0; ii < R / kGroups; ++ii) {
+        const int i = kGroups * ii + g;
+        const int row = row0 + i;
+        const float4* src = m_col + static_cast<int64_t>(row) * n4;
+        float4* dst = st + i * cap + tg;
+        const int left0 = row + 1 - 4 * q0;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          if (j >= nj) break;
+          const int left = left0 - 4 * j * stride;
+          const int bytes = min(max(left, 0), 4) << 2;
+          copy16(dst + j * sstride, src + static_cast<int64_t>(j) * stride, bytes);
+        }
+      }
+    }
+    copy_commit();
+  };
+
+  float4 rv[kVec][BT], yv[kVec][BT];
+  // Pass 2 of a step: y_b += t_{i,b} M[i, slot].
+  auto accumulate = [&](const float4* st, int nj, const float (&t)[V]) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 a = st[i * cap + tg + j * sstride];
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          const float ti = t[i * BT + b];
+          yv[j][b].x = fmaf(ti, a.x, yv[j][b].x);
+          yv[j][b].y = fmaf(ti, a.y, yv[j][b].y);
+          yv[j][b].z = fmaf(ti, a.z, yv[j][b].z);
+          yv[j][b].w = fmaf(ti, a.w, yv[j][b].w);
+        }
+      }
+    }
+  };
+  // The CTA's sums of step s (each group's warps in order) into every
+  // member's inbox: job = (member p, group gg), dealt to the warps in turn.
+  auto push_all = [&](int s) {
+    const int h = s & 1;
+    for (int job = warp; job < kGroups * C; job += W) {
+      const int p = job >> 1, gg = job & 1;
+      if (lane < V) {
+        float sum = 0.f;
+        for (int w = 0; w < Wg; ++w) sum += part[h][gg * Wg + w][lane];
+        const unsigned slot = smem_addr(&inbox[h][member][gg * V + lane]);
+        push(peer_addr(slot, p), sum, peer_addr(smem_addr(&bar[h]), p));
+      }
+    }
+    if (tid == 0) bar_expect(smem_addr(&bar[h]), inbox_bytes);
+  };
+  // t of step s: wait for every member's sums, add them in member order
+  // (lane l value l % V of the thread's group), then hand each lane all V.
+  auto receive = [&](int s, float (&t)[V]) {
+    bar_wait(smem_addr(&bar[s & 1]), (s >> 1) & 1);
+    const float* in = &inbox[s & 1][0][g * V + (lane & (V - 1))];
+    float sum = 0.f;
+    for (int p = 0; p < C; ++p) sum += in[p * kGroups * 32];
+#pragma unroll
+    for (int v = 0; v < V; ++v) t[v] = __shfl_sync(0xffffffffu, sum, v);
+  };
+
+  // The ring holds step s - 1 (pass 2 still to come), s, and S - 2 steps in
+  // flight; step s + S - 2 is queued after the step's barrier, into the
+  // stage of step s - 2, which every warp has finished with by then.
+  auto next = [&](int i) { return i + 1 == n_stages ? 0 : i + 1; };
+  int st_issue = 0;
+  for (int s = 0; s < n_stages - 2; ++s) {
+    issue(s, stages + st_issue * R * cap);
+    st_issue = next(st_issue);
+  }
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[0])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[1])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int total = active(local_through(n_pad / kChunk - 1));
+  const float4* r4 = reinterpret_cast<const float4*>(r);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      const int rhs = g * BT + b;
+      rv[j][b] = j < total && rhs < nb ? __ldg(r4 + rhs * n4 + q0 + static_cast<int64_t>(j) * stride) : zero4();
+      yv[j][b] = zero4();
+    }
+  }
+  cluster.sync();  // every member's mbarriers are set up before anyone pushes
+  int st_cur = 0, st_prev = 0, nj_prev = 0;
+  for (int s = 0; s < steps; ++s) {
+    if (n_stages == 3) {
+      copy_wait<0>();
+    } else {
+      copy_wait_n(n_stages - 3);  // this thread's copies of step s have landed
+    }
+    __syncthreads();  // everyone's copies of step s, and every warp's sums of step s - 1
+    issue(s + n_stages - 2, stages + st_issue * R * cap);
+    st_issue = next(st_issue);
+    if (s > 0) push_all(s - 1);
+    const float4* st = stages + st_cur * R * cap;
+    const int nj = active(local_through((first_row(s) + R - 1) >> 7));
+
+    // Pass 1: the warp's partial dots of the R rows with its BT r's.
+    float x[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) x[v] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 a = st[i * cap + tg + j * sstride];
+#pragma unroll
+        for (int b = 0; b < BT; ++b) x[i * BT + b] = dot4(a, rv[j][b], x[i * BT + b]);
+      }
+    }
+    const float sum = reduce_scatter<V>(x, lane);
+    if (lane < V) part[s & 1][warp][lane] = sum;
+
+    // Step s - 1 while step s - 1's sums travel between the members.
+    if (s > 0) {
+      float t[V];
+      receive(s - 1, t);
+      accumulate(stages + st_prev * R * cap, nj_prev, t);
+    }
+    st_prev = st_cur;
+    nj_prev = nj;
+    st_cur = next(st_cur);
+  }
+  if (steps > 0) {
+    __syncthreads();
+    push_all(steps - 1);
+    float t[V];
+    receive(steps - 1, t);
+    accumulate(stages + st_prev * R * cap, nj_prev, t);
+  }
+  copy_wait<0>();
+
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    const int rhs = g * BT + b;
+    if (rhs >= nb) continue;
+    float4* out = reinterpret_cast<float4*>(partial + (static_cast<int64_t>(k) * nb + rhs) * n_pad) + q0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (j < total) out[static_cast<int64_t>(j) * stride] = yv[j][b];
+    }
+  }
+  // No member exits while a peer may still push to it.
+  cluster.sync();
+}
+
+template <int R, int BT>
+void* rhs_kernel_of() {
+  return reinterpret_cast<void*>(fused_spd_apply_kernel_rhs<R, BT>);
+}
+
+// The B kernel for ``rows`` a step and ``rhs`` (2, 4, 8) right-hand sides.
+void* rhs_kernel_for(int rows, int rhs) {
+  switch (rhs * 16 + rows) {
+    case 2 * 16 + 2: return rhs_kernel_of<2, 1>();
+    case 2 * 16 + 4: return rhs_kernel_of<4, 1>();
+    case 2 * 16 + 8: return rhs_kernel_of<8, 1>();
+    case 4 * 16 + 2: return rhs_kernel_of<2, 2>();
+    case 4 * 16 + 4: return rhs_kernel_of<4, 2>();
+    case 4 * 16 + 8: return rhs_kernel_of<8, 2>();
+    case 8 * 16 + 2: return rhs_kernel_of<2, 4>();
+    case 8 * 16 + 4: return rhs_kernel_of<4, 4>();
+    case 8 * 16 + 8: return rhs_kernel_of<8, 4>();
+    default: return nullptr;
+  }
+}
+
+int rhs_slots_for(int rhs) {
+  return rhs == 2 ? slots_rhs<1>() : (rhs == 4 ? slots_rhs<2>() : slots_rhs<4>());
+}
+
 template <int R>
 void* kernel_of() {
   return reinterpret_cast<void*>(fused_spd_apply_kernel<R>);
@@ -377,10 +704,11 @@ void* kernel_for(int rows) {
   }
 }
 
-cudaLaunchConfig_t config_for(int cluster, int clusters, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t config_for(int cluster, int clusters, int smem, cudaStream_t s, cudaLaunchAttribute* attr,
+                              int threads = kThreads) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
-  config.blockDim = dim3(kThreads);
+  config.blockDim = dim3(static_cast<unsigned>(threads));
   config.dynamicSmemBytes = static_cast<size_t>(smem);
   config.stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -405,6 +733,14 @@ int cuadmm_fused_spd_apply_init(void) {
     cudaError_t err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess) err = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  for (int rhs : {2, 4, 8}) {
+    for (int rows : {2, 4, 8}) {
+      const void* f = rhs_kernel_for(rows, rhs);
+      cudaError_t err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemRhs);
+      if (err == cudaSuccess) err = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaSuccess);
 }
@@ -450,6 +786,55 @@ int cuadmm_fused_spd_apply(const float* m, const float* r, float* partial, float
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_partials_kernel<<<n_pad / kSumCols, dim3(kSumCols, kSumGroups), 0, s>>>(partial, y, n_pad, clusters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As cuadmm_fused_spd_apply_resident_clusters, for the B kernel at ``rhs``
+// right-hand sides and ``warps`` warps a group (CTAs of 64 x warps threads).
+int cuadmm_fused_spd_apply_rhs_resident_clusters(int cluster, int rows, int rhs, int warps, int smem, int* out) {
+  const void* f = rhs_kernel_for(rows, rhs);
+  if (f == nullptr || cluster < 1 || cluster > kMaxCluster || warps < 1 || warps > kGroupWarps || smem <= 0 ||
+      smem > kMaxSmemRhs || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = config_for(cluster, 1, smem, nullptr, &attr, kGroups * 32 * warps);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, f, &config));
+}
+
+// Y[b] = m^T (m R[b]) for b < nb: R and Y (nb, n_pad), row-major, f32,
+// contiguous and 16-byte aligned, m as for cuadmm_fused_spd_apply; partial
+// is (clusters, nb, n_pad) scratch. ``rhs`` (2, 4, 8; nb <= rhs) the
+// kernel's right-hand sides, ``rows`` (2, 4, 8; rows x rhs / 2 <= 32) a
+// step, ``cluster`` (1..16, a power of two) CTAs of ``warps`` (1..5) warps
+// a group, whose warps x 16 / (rhs / 2) slots must cover the largest
+// member's chunks; ``stages`` (3..8) and ``smem`` as for
+// cuadmm_fused_spd_apply. One launch of the B kernel, one of
+// sum_partials_kernel over all nb rows; returns cudaGetLastError().
+int cuadmm_fused_spd_apply_rhs(const float* m, const float* r, float* partial, float* y, int n_pad, int nb,
+                               int rhs, int cluster, int clusters, int rows, int warps, int stages, int smem,
+                               void* stream) {
+  const bool cluster_ok = cluster > 0 && cluster <= kMaxCluster && (cluster & (cluster - 1)) == 0;
+  const void* f = rhs_kernel_for(rows, rhs);
+  if (n_pad <= 0 || n_pad % kChunk != 0 || !cluster_ok || f == nullptr || nb < 1 || nb > rhs || clusters <= 0 ||
+      warps < 1 || warps > kGroupWarps || stages < 3 || stages > kMaxStages) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int chunks = (n_pad / kChunk + cluster - 1) / cluster;  // the largest member's
+  int cap = chunks * kChunk4;
+  if (chunks > warps * rhs_slots_for(rhs) || smem != stages * rows * cap * 16 || smem > kMaxSmemRhs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = config_for(cluster, clusters, smem, s, &attr, kGroups * 32 * warps);
+  void* args[] = {&m, &r, &partial, &n_pad, &nb, &cap, &stages};
+  cudaError_t err = cudaLaunchKernelExC(&config, f, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = nb * n_pad;
+  sum_partials_kernel<<<n / kSumCols, dim3(kSumCols, kSumGroups), 0, s>>>(partial, y, n, clusters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -246,12 +246,13 @@ class NormalEqSolver:
         the gathers are skipped when the permutation is the identity.
         sharded: the distributed sweeps over the mesh, r padded to the
         grid's n_pad as the buffer is (cuadmm_tpu/ops/chol.py:257-266). A
-        buffer with an instance axis (B, n_pad) takes one launch per
-        instance."""
-        if r.dim() > 1:
-            return torch.stack([self._apply_factor(row) for row in r])
+        buffer with an instance axis (B, n_pad) takes K1 over its B
+        right-hand sides, one read of the factor for up to 8 of them; the
+        other factors one launch per instance."""
         if self.inv_l is not None:
             return fused_spd_apply(self.inv_l, r)
+        if r.dim() > 1:
+            return torch.stack([self._apply_factor(row) for row in r])
         if self.packed_tiles is not None:
             lay = tri_stream.PackedLayout(*self.packed_layout)
             return tri_stream.packed_solve(self.packed_tiles, r, lay)
@@ -268,9 +269,10 @@ class NormalEqSolver:
     def _apply_prefix(self, r: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
         """The dense factor applied to the f64 vector ``r`` (all of it in
         dense mode, the coupled prefix in split mode): through ``r_pad`` and
-        K1 for an f32 inverse factor, else an f64 cholesky_solve, one per
-        instance of a batch (a batched right-hand side takes MAGMA's batched
-        solve on CUDA, which a CUDA graph cannot capture)."""
+        K1 for an f32 inverse factor (over a batch's instances at once),
+        else an f64 cholesky_solve, one per instance of a batch (a batched
+        right-hand side takes MAGMA's batched solve on CUDA, which a CUDA
+        graph cannot capture)."""
         if self.inv_l is not None:
             p = r.shape[-1]
             r_pad[..., :p] = r

@@ -4,7 +4,7 @@ Counters. ``COUNTS`` holds every count the port keeps, as plain ints that
 are always on:
 
   k1              fused_spd_apply launches (ops/precond_apply.py)
-  k1_rhs          the right-hand sides those launches served (one a launch)
+  k1_rhs          the right-hand sides those launches served (a batch's B, up to 8, a launch)
   k2              packed_solve launches (ops/tri_stream.py; one call queues both sweeps)
   k3              band_solve launches (ops/tri_stream.py; likewise)
   k4              jacobi_eigh launches (ops/jacobi.py), every dtype

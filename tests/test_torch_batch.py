@@ -133,9 +133,9 @@ def test_batched_normal_solve_is_per_instance():
 
 @pytest.mark.cuda
 def test_batched_precond_launches_k1_per_instance_on_card():
-    """On the card a batch of B instances in precond launches K1 B times a
-    refinement sweep, and each instance's iterate matches its own single
-    solve."""
+    """On the card a batch of B instances in precond launches K1 once a
+    refinement sweep for all B (K1 over B), and each instance's iterate
+    matches its own single solve."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K1 has no CPU or interpret mode")
     probs, _ = _port_family(4)
@@ -145,10 +145,11 @@ def test_batched_precond_launches_k1_per_instance_on_card():
     applies = batch.params.neq.applies
     batch.solve(max_iter=2, stop_tol=0.0)  # builds the kernel
     torch.cuda.synchronize()
-    before = COUNTS["k1"]
+    before, served = COUNTS["k1"], COUNTS["k1_rhs"]
     res = batch.solve(max_iter=20, stop_tol=0.0)
     torch.cuda.synchronize()
-    assert COUNTS["k1"] - before == 4 * 20 * 2 * applies  # sGS: two solves an iteration
+    assert COUNTS["k1"] - before == 20 * 2 * applies  # sGS: two solves an iteration
+    assert COUNTS["k1_rhs"] - served == 4 * (COUNTS["k1"] - before)
     for i, rb in enumerate(res):
         rs = cuadmm_tpu_torch.SDPSolver(probs[i], cfg).solve(max_iter=20, stop_tol=0.0)
         np.testing.assert_allclose(rb.info["errRp"], rs.info["errRp"], rtol=1e-9, atol=0)

@@ -260,10 +260,10 @@ def test_k1_counts_its_right_hand_sides_on_the_cpu_nowhere():
 @pytest.mark.cuda
 def test_family_on_card_auto_k1_rhs_and_layer_cut_graphs():
     """On the card: under "auto" the batch runs one graph an iteration with
-    no eigh segment; K1 serves one right-hand side a launch, eight a sweep
-    for eight instances; the graphs cut at each layer boundary give the
-    same results bit for bit; under "eigh" each eigh bucket is one segment
-    an iteration."""
+    no eigh segment; K1 runs once a sweep and serves the eight instances'
+    right-hand sides in that one launch (K1 over B); the graphs cut at each
+    layer boundary give the same results bit for bit; under "eigh" each
+    eigh bucket is one segment an iteration."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K1 and K4 have no CPU or interpret mode")
     probs, _ = _family(8, 10, 8)
@@ -277,7 +277,8 @@ def test_family_on_card_auto_k1_rhs_and_layer_cut_graphs():
     torch.cuda.synchronize()
     applies = batch.params.neq.applies
     assert batch.chunk_runner == "graphs" and trace.COUNTS["eigh_waits"] == 0
-    assert trace.COUNTS["k1"] == trace.COUNTS["k1_rhs"] == 8 * 20 * 2 * applies
+    assert trace.COUNTS["k1"] == 20 * 2 * applies
+    assert trace.COUNTS["k1_rhs"] == 8 * trace.COUNTS["k1"]
     assert trace.COUNTS["graph_launches"] == trace.COUNTS["graph_replays"]
     try:
         trace.enable(layers=True)
