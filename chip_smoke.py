@@ -877,7 +877,7 @@ def standin(prob: Problem) -> int:
         init_s = time.perf_counter() - t0
         neq = solver.params.neq
         check(neq.mode == "precond", f"normal solver resolved to {neq.mode!r}, not precond")
-        check(neq.inv_l.shape[0] == STANDIN_N_PAD, f"factor n_pad {neq.inv_l.shape[0]}")
+        check(neq.factor.inv_l.shape[0] == STANDIN_N_PAD, f"factor n_pad {neq.factor.inv_l.shape[0]}")
         resid = _probe_normal_solve(solver, prob.con_num)
         res, elapsed, counts = timed_run(solver, iters)
         _gates(res, prob.vec_len, f"stand-in {mode}")
@@ -942,7 +942,7 @@ def grid() -> int:
         init_s = time.perf_counter() - t0
         neq = solver.params.neq
         check(neq.mode == "precond", f"{what}: normal solver resolved to {neq.mode!r}")
-        check(neq.inv_l.shape[0] == GRID_N_PAD, f"{what}: factor n_pad {neq.inv_l.shape[0]}")
+        check(neq.factor.inv_l.shape[0] == GRID_N_PAD, f"{what}: factor n_pad {neq.factor.inv_l.shape[0]}")
         buckets = [(bk.n, bk.count) for bk in solver.structure.buckets]
         if pack_to == 0:
             check(tuple(buckets) == GRID_BUCKETS, f"{what}: buckets {buckets}")
@@ -1207,12 +1207,12 @@ def large_grid(prob: Problem) -> dict:
         neq = solver.params.neq
         check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
         if mode == "banded":
-            lay = tri_stream.BandLayout(*neq.band_layout)
+            lay = neq.factor.layout
             check((lay.block, lay.nb, lay.nbw) == LARGE_GRID_BAND, f"{what}: band layout {lay}")
-            check(neq.band_form == "chain" and neq.band_chain is not None,
-                  f"{what}: {neq.band_form} form: nbw 1 takes K3's one-hop form with its derived tiles")
+            check(neq.factor.form == "chain" and neq.factor.chain is not None,
+                  f"{what}: {neq.factor.form} form: nbw 1 takes K3's one-hop form with its derived tiles")
         else:
-            lay = tri_stream.PackedLayout(*neq.packed_layout)
+            lay = neq.factor.layout
             check((lay.nb, lay.T) == (67, 2278), f"{what}: packed layout {lay}")
         resid = _probe_normal_solve(solver, prob.con_num)
         res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
@@ -1222,7 +1222,7 @@ def large_grid(prob: Problem) -> dict:
         last[ns] = float(res.info["errRp"][-1])
         out = dict(
             it_per_s=GRID_ITERS / elapsed, init_s=init_s, mode=neq.mode, layout=lay._asdict(),
-            band_permuted=neq.band_perm is not None if mode == "banded" else None,
+            band_permuted=neq.factor.perm is not None if mode == "banded" else None,
             methods=_methods(solver), applies=neq.applies, eps_used=neq.eps_used, launches=counts,
             residual_norm=resid, errRp_first=float(res.info["errRp"][0]), errRp_last=last[ns],
             init_breakdown=solver.init_breakdown, host_syncs=host_syncs_per_iteration(solver),
@@ -1271,8 +1271,8 @@ def big_block_run(prob: Problem, projection: str, split_p: int, what: str, dtype
     if dtype == "float32":
         _no_tf32()
     neq = solver.params.neq
-    check(neq.mode == "split" and neq.split_p == split_p and neq.split_perm is None,
-          f"{what}: resolved to {neq.mode!r} with p={neq.split_p}, permuted={neq.split_perm is not None}")
+    check(neq.mode == "split" and neq.split_p == split_p and neq.factor.perm is None,
+          f"{what}: resolved to {neq.mode!r} with p={neq.split_p}, permuted={neq.factor.perm is not None}")
     n_pad = None if neq.inv_l is None else neq.inv_l.shape[0]
     check(n_pad == (-(-split_p // 128) * 128 if split_p else None), f"{what}: prefix n_pad {n_pad}")
     resid = _probe_normal_solve(solver, prob.con_num)
@@ -1342,7 +1342,7 @@ def grid_past_cap() -> Problem:
         neq = solver.params.neq
         check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
         if mode == "precond":
-            check(neq.inv_l.shape[0] == PAST_CAP_N_PAD, f"{what}: factor n_pad {neq.inv_l.shape[0]}")
+            check(neq.factor.inv_l.shape[0] == PAST_CAP_N_PAD, f"{what}: factor n_pad {neq.factor.inv_l.shape[0]}")
             check(solver.init_breakdown.get("neq.aat") == "device",
                   f"{what}: AA^T formed on the {solver.init_breakdown.get('neq.aat')}, not from dense A on the card")
         resid = _probe_normal_solve(solver, prob.con_num)
@@ -1422,7 +1422,7 @@ def limits_phase(large: Problem, cap: Problem, quasar_prob: Problem) -> None:
     out["grid precond and banded"] = dict(
         con_num=grid.con_num, precond_it_per_s=precond["it_per_s"], precond_applies=precond["applies"],
         banded_it_per_s=GRID_ITERS / elapsed, banded_applies=neq.applies, banded_init_s=init_s,
-        band_layout=tri_stream.BandLayout(*neq.band_layout)._asdict(), banded_launches=counts,
+        band_layout=neq.factor.layout._asdict(), banded_launches=counts,
         banded_residual_norm=resid, banded_errRp_last=float(res.info["errRp"][-1]),
         precond_errRp_last=precond["errRp_last"])
     del solver, neq, res
@@ -1474,8 +1474,8 @@ def standin_cg(prob: Problem) -> None:
     solver = SDPSolver(prob, cfg, device="cuda")
     init_s = time.perf_counter() - t0
     neq = solver.params.neq
-    check(neq.mode == "cg" and neq.fsai_g is not None, f"stand-in cg: mode {neq.mode!r}, FSAI built: "
-                                                       f"{neq.fsai_g is not None}")
+    check(neq.mode == "cg" and neq.factor.fsai_g is not None, f"stand-in cg: mode {neq.mode!r}, FSAI built: "
+                                                              f"{neq.factor.fsai_g is not None}")
     COUNTS.update(cg_solves=0, cg_steps=0, cg_waits=0)
     resid = _probe_normal_solve(solver, prob.con_num)
     probe = {k[3:]: COUNTS[k] for k in ("cg_solves", "cg_steps", "cg_waits")}
@@ -1492,7 +1492,7 @@ def standin_cg(prob: Problem) -> None:
     _gates(res, prob.vec_len, "stand-in cg")
     emit("stand-in normal_solver=cg", dict(
         it_per_s=CG_ITERS / elapsed, init_s=init_s, init_breakdown=solver.init_breakdown,
-        cg_tol=neq.cg_tol, cg_max_iter=neq.cg_max_iter, residual_norm=resid, probe_cg=probe,
+        cg_tol=neq.factor.tol, cg_max_iter=neq.factor.max_iter, residual_norm=resid, probe_cg=probe,
         solves=st["solves"], cg_steps_per_solve=st["steps"] / st["solves"],
         host_waits_per_solve=st["waits"] / st["solves"], steps_queued_per_wait=chol.CG_BLOCK,
         errRp_first=float(res.info["errRp"][0]), errRp_last=float(res.info["errRp"][-1]),
@@ -1534,7 +1534,7 @@ def certified() -> None:
     solver = SDPSolver(prob, base.replace(normal_solver="dense"), device="cuda")
     neq = solver.params.neq
     solver.params = dataclasses.replace(solver.params, neq=dataclasses.replace(
-        neq, chol_l=torch.zeros_like(neq.chol_l)))
+        neq, factor=chol.CholFactor(torch.zeros_like(neq.factor.chol_l))))
     res = solver.solve(max_iter=8000, stop_tol=1e-6)
     check(res.recoveries >= 1 and solver.params.neq.mode == "cg",
           f"certified recovery: {res.recoveries} recoveries, ended in {solver.params.neq.mode!r}")
@@ -1565,7 +1565,7 @@ def standin_f32(prob: Problem) -> int:
         solver = SDPSolver(prob, cfg, device="cuda")
         init_s = time.perf_counter() - t0
         neq = solver.params.neq
-        check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD,
+        check(neq.mode == "precond" and neq.factor.inv_l.shape[0] == STANDIN_N_PAD,
               f"stand-in {dt}: {neq.mode!r} at n_pad {None if neq.inv_l is None else neq.inv_l.shape[0]}")
         solvers[dt] = solver
         lines[dt] = dict(init_s=init_s, applies=neq.applies, methods=_methods(solver),
@@ -1613,7 +1613,7 @@ def grid_f32() -> int:
         init_s = time.perf_counter() - t0
         _no_tf32()
         neq = solver.params.neq
-        check(neq.mode == "precond" and neq.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
+        check(neq.mode == "precond" and neq.factor.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
         resid = _probe_normal_solve(solver, prob.con_num)
         res, elapsed, counts = timed_run(solver, GRID_ITERS, GRID_WARM)
         _gates(res, prob.vec_len, what)
@@ -1735,7 +1735,7 @@ def batched() -> tuple:
     batch = BatchedSDPSolver(probs, cfg)
     init_s = time.perf_counter() - t0
     neq = batch.params.neq
-    check(neq.mode == "precond" and neq.inv_l.shape[0] == STANDIN_N_PAD, f"batched: {neq.mode!r}")
+    check(neq.mode == "precond" and neq.factor.inv_l.shape[0] == STANDIN_N_PAD, f"batched: {neq.mode!r}")
     batch.solve(max_iter=BIG_BLOCK_WARM, stop_tol=0.0)
     torch.cuda.synchronize()
     reset_counts()
@@ -2296,7 +2296,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
     (solver,) = made
     neq = solver.params.neq
     what = "front ends: grid through cuadmm"
-    check(neq.mode == "precond" and neq.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
+    check(neq.mode == "precond" and neq.factor.inv_l.shape[0] == GRID_N_PAD, f"{what}: {neq.mode!r}")
     buckets = tuple((bk.n, bk.count) for bk in solver.structure.buckets)
     check(buckets == GRID_BUCKETS and set(_methods(solver)) == {"jacobi"}, f"{what}: buckets {buckets}")
     check(info["iter_num"] == FE_GRID_ITERS and len(info["errRp_arr"]) == FE_GRID_ITERS, f"{what}: iterations")
@@ -2460,7 +2460,7 @@ def mesh_one_rank_nccl(large: Problem) -> dict:
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
-    return dict(gates, mode=neq.mode, grid=list(neq.shard_grid.shape), applies=neq.applies, residual_norm=resid,
+    return dict(gates, mode=neq.mode, grid=list(neq.factor.grid.shape), applies=neq.applies, residual_norm=resid,
                 collectives_per_normal_solve=per_solve, collectives_per_run=run,
                 dryrun=dict(iterations=dry["iterations"], pobj=dry["pobj"], optimum=dry["optimum"],
                             tri_solve_all_reduces=dry["tri_solve_all_reduces"]),

@@ -71,12 +71,12 @@ def grid_problem(shape):
 def _factor_bytes(neq) -> int:
     """The factor's f32 bytes: precond's padded square, else its tiles (a
     band's derived tiles included, ``tri_stream.band_bytes``)."""
+    f = neq.factor
     if neq.mode == "precond":
-        return neq.inv_l.numel() * 4
+        return f.inv_l.numel() * 4
     if neq.mode == "banded":
-        return tri_stream.band_bytes(tri_stream.BandLayout(*neq.band_layout), neq.band_form)
-    lay = tri_stream.PackedLayout(*neq.packed_layout)
-    return lay.T * lay.block * lay.block * 4
+        return tri_stream.band_bytes(f.layout, f.form)
+    return f.layout.T * f.layout.block * f.layout.block * 4
 
 
 def build_peak(prob, mode: str, device: torch.device) -> dict:

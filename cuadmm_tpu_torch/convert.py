@@ -19,7 +19,10 @@ import numpy as np
 import torch
 
 from cuadmm_tpu_torch.ops import tri_stream
-from cuadmm_tpu_torch.ops.chol import NormalEqSolver, _tri_inv, chain_tiles
+from cuadmm_tpu_torch.ops.chol import (
+    BandFactor, CGSolver, CholFactor, InverseFactor, NormalEqSolver, PackedFactor, ShardedFactor, SplitFactor,
+    _tri_inv, chain_tiles,
+)
 from cuadmm_tpu_torch.ops.limits import card_limits
 from cuadmm_tpu_torch.ops.precond_apply import pad_factor
 from cuadmm_tpu_torch.ops.sparse import EllTable, SparseA
@@ -89,66 +92,45 @@ def normal_solver_from_numpy(neq, device, mesh: Mesh = None) -> NormalEqSolver:
     JAX mesh's: it must divide nb. The grid's dtype carries over (f64 from
     a CPU build, f32 from an accelerator's).
 
-    precond: the JAX package keeps the padded f32 inverse factor only on an
-    accelerator; from a CPU build (f64 factor ``chol_l``) the port's inverse
-    factor is formed the port's way. Either way, and for split's prefix, the
-    inverse factor goes through ``pad_factor``, so it is exactly zero above
-    the diagonal, as K1 requires. dense: ``chol_l``. split: the prefix
-    as ``inv_l`` (accelerator build) or ``chol_l`` (CPU build, applied by
-    an f64 cholesky_solve), the tail's inverse diagonal and the
-    permutations. packed and banded: the (T+1, B, B) tiles one to one, the
-    layout tuples, and the band's permutations; a band also gets K3's form
-    and derived tiles (``chol.chain_tiles``) for the card it lands on
-    (``card_limits``; no limit on the CPU). cg: the Jacobi and
-    block-Jacobi pieces, the AA^T and FSAI tables, the tolerance and step
-    cap."""
-    common = dict(
-        mode=neq.mode,
-        sparse_a=sparse_a_from_numpy(neq.sparse_a, device),
-        applies=int(neq.applies),
-        eps_used=float(neq.eps_used),
-    )
+    Each mode's factor is the port's class (ops/chol.py). The JAX package
+    keeps precond's padded f32 inverse factor only on an accelerator; from
+    a CPU build (f64 factor ``chol_l``) the port forms it the port's way.
+    Either way, and for split's prefix, it goes through ``pad_factor``, so
+    it is exactly zero above the diagonal, as K1 requires. split's prefix
+    from a CPU build is a ``CholFactor``. packed and banded: the tiles one
+    to one; a band also gets K3's form and derived tiles
+    (``chol.chain_tiles``) for the card it lands on (``card_limits``)."""
     f32 = lambda x: _tensor(x, device).to(torch.float32)
     table = lambda t: None if t is None else ell_table_from_numpy(t, device)
+    inverse = lambda: InverseFactor(pad_factor(_tri_inv(f32(neq.chol_l)) if neq.inv_l is None else f32(neq.inv_l)))
     if neq.mode == "precond":
-        inv_l = f32(neq.inv_l) if neq.inv_l is not None else _tri_inv(f32(neq.chol_l))
-        return NormalEqSolver(inv_l=pad_factor(inv_l), **common)
-    if neq.mode == "dense":
-        return NormalEqSolver(chol_l=_tensor(neq.chol_l, device), **common)
-    if neq.mode == "split":
-        return NormalEqSolver(
-            inv_l=None if neq.inv_l is None else pad_factor(f32(neq.inv_l)),
-            chol_l=_opt(neq.chol_l, device), split_p=int(neq.split_p),
-            tail_inv_diag=_tensor(neq.tail_inv_diag, device).to(torch.float64),
-            split_perm=_opt(neq.split_perm, device), split_inv_perm=_opt(neq.split_inv_perm, device),
-            **common,
-        )
-    if neq.mode == "packed":
-        return NormalEqSolver(
-            packed_tiles=f32(neq.packed_tiles), packed_layout=tuple(int(v) for v in neq.packed_layout),
-            **common,
-        )
-    if neq.mode == "banded":
-        band_layout = tuple(int(v) for v in neq.band_layout)
+        factor = inverse()
+    elif neq.mode == "dense":
+        factor = CholFactor(_tensor(neq.chol_l, device))
+    elif neq.mode == "split":
+        prefix = None if neq.chol_l is None else CholFactor(_tensor(neq.chol_l, device))
+        factor = SplitFactor(prefix if neq.inv_l is None else inverse(), int(neq.split_p),
+                             _tensor(neq.tail_inv_diag, device).to(torch.float64),
+                             _opt(neq.split_perm, device), _opt(neq.split_inv_perm, device))
+    elif neq.mode == "packed":
+        factor = PackedFactor(f32(neq.packed_tiles), tri_stream.PackedLayout(*(int(v) for v in neq.packed_layout)))
+    elif neq.mode == "banded":
+        lay = tri_stream.BandLayout(*(int(v) for v in neq.band_layout))
         tiles = f32(neq.band_tiles)
         max_bytes = card_limits(tiles.device).band_max_bytes if tiles.device.type == "cuda" else None
-        form, chain = chain_tiles(tiles, tri_stream.BandLayout(*band_layout), max_bytes)
-        return NormalEqSolver(
-            band_tiles=tiles, band_layout=band_layout, band_form=form, band_chain=chain,
-            band_perm=_opt(neq.band_perm, device), band_inv_perm=_opt(neq.band_inv_perm, device),
-            **common,
-        )
-    if neq.mode == "sharded":
+        factor = BandFactor(tiles, lay, *chain_tiles(tiles, lay, max_bytes), _opt(neq.band_perm, device),
+                            _opt(neq.band_inv_perm, device))
+    elif neq.mode == "sharded":
         if mesh is None:
             raise ValueError("a sharded solver carries over onto a rank mesh: pass mesh=")
-        return NormalEqSolver(shard_grid=shard_factor(neq.shard_grid, mesh), shard_mesh=mesh, **common)
-    if neq.mode == "cg":
-        return NormalEqSolver(
-            inv_diag=_tensor(neq.inv_diag, device), bj_inv=_opt(neq.bj_inv, device),
-            aat_tbl=table(neq.aat_tbl), fsai_g=table(neq.fsai_g), fsai_gt=table(neq.fsai_gt),
-            cg_tol=float(neq.cg_tol), cg_max_iter=int(neq.cg_max_iter), **common,
-        )
-    raise ValueError(f"a {neq.mode!r} solver does not carry over (every mode but host does)")
+        factor = ShardedFactor(shard_factor(neq.shard_grid, mesh), mesh)
+    elif neq.mode == "cg":
+        factor = CGSolver(_tensor(neq.inv_diag, device), _opt(neq.bj_inv, device), table(neq.aat_tbl),
+                          table(neq.fsai_g), table(neq.fsai_gt), float(neq.cg_tol), int(neq.cg_max_iter))
+    else:
+        raise ValueError(f"a {neq.mode!r} solver does not carry over (every mode but host does)")
+    return NormalEqSolver(neq.mode, sparse_a_from_numpy(neq.sparse_a, device), factor, int(neq.applies),
+                          float(neq.eps_used))
 
 
 def state_from_numpy(state, device) -> SolverState:

@@ -7,35 +7,20 @@ sweeps per solve
 
     y <- y + P^{-1} (rhs - A (A^T y))
 
-with the residual accumulated in f64 through the exact sparse A
-(``NormalEqSolver._sweep``):
-
-- ``precond`` (con_num <= dense_chol_max): an f32 factor, its triangular
-  inverse zero-padded, M = inv(L); M^T M r by the fused kernel K1
-  (ops/precond_apply.py).
-- ``dense``: an f64 factor and ``torch.cholesky_solve`` (the JAX
-  package's CPU parity path; the H100 has f64, so it runs on the card too).
-- ``split``: AA^T is block-diagonal under the permutation [S, S^c], S the
-  rows that share an svec column with another row; the coupled prefix
-  takes the precond route (K1 on an f32 inverse factor of A_S A_S^T), the
-  rest a diagonal inverse in f64. Exact but for the prefix's factor.
-- ``packed``: the factor's lower triangle as packed B x B tiles with
-  inverted diagonal tiles (ops/tri_stream.py); a forward and a backward
-  streaming sweep by K2.
-- ``banded``: the same over the block band of AA^T under a reverse
-  Cuthill-McKee permutation, swept by K3.
-- ``sharded``: an f32 factor over a rank mesh, its block columns split
-  over the ranks, factored by the distributed blocked Cholesky and swept
-  by the distributed triangular solves of parallel/tri_shard.py (torch
-  matmuls and collectives, as the JAX package's are einsums and psums).
-
-The rhs of every ADMM solve lies in range(A), so each sweep contracts the
-residual by about eps even where AA^T is numerically singular.
-
-Two modes have no factor: ``cg`` (preconditioned conjugate gradient in
-f64 over an explicit ELL table of AA^T, preconditioned by FSAI
-(ops/fsai.py), block-Jacobi or Jacobi) and ``host`` (a scipy sparse LU of
-AA^T + eps I; each solve copies rhs to the host and the answer back).
+with the residual accumulated in f64 through the exact sparse A. The rhs
+of every ADMM solve lies in range(A), so each sweep contracts the residual
+by about eps even where AA^T is numerically singular. Each mode has one
+builder and one class for its factor, which owns the buffer it reads and
+its sweep (``NormalEqSolver`` runs the sweeps): ``precond``
+(con_num <= dense_chol_max) an ``InverseFactor`` for K1, ``dense`` an f64
+``CholFactor``, ``split`` a ``SplitFactor`` (AA^T block-diagonal under
+[S, S^c], S the rows that share an svec column with another row),
+``packed`` and ``banded`` K2's and K3's tiles (``PackedFactor``,
+``BandFactor``; ops/tri_stream.py), ``sharded`` a ``ShardedFactor`` over
+a rank mesh (parallel/tri_shard.py). ``cg`` and ``host`` have no factor
+and no sweeps: ``CGSolver`` (preconditioned CG in f64 over an ELL table
+of AA^T, preconditioned by FSAI (ops/fsai.py), block-Jacobi or Jacobi)
+and ``HostSolver`` (a scipy sparse LU of AA^T + eps I on the host).
 
 The JAX package takes the f32 routes only on an accelerator (on the CPU it
 keeps precond's and split's factors in the state dtype); the port takes
@@ -168,180 +153,186 @@ def _pcg(op, rhs, apply_m, x0, tol: float, max_iter: int, block: int = CG_BLOCK)
             return x, steps, waits
 
 
-@dataclasses.dataclass
-class NormalEqSolver:
-    """A prepared AA^T solve (one of the modes above) and the f64 A."""
+def _each(fn: Callable, x: torch.Tensor, *rest) -> torch.Tensor:
+    """``fn`` on one right-hand side ``x``, or on each instance of a batch
+    (B, ·) with the matching rows of ``rest`` (batched like ``x``, or None),
+    stacked: the one batch loop, for factors of one right-hand side, cg, host."""
+    if x.dim() == 1:
+        return fn(x, *rest)
+    rest = [[None] * len(x) if a is None else a for a in rest]
+    return torch.stack([fn(*args) for args in zip(x, *rest)])
 
-    mode: str
-    sparse_a: SparseA  # f64, for the refinement residuals
-    # precond, and split's prefix: (n_pad, n_pad) f32, zero-padded inv(L),
-    # exactly zero above the diagonal (``pad_factor``).
-    inv_l: Optional[torch.Tensor] = None
-    # dense, and split's prefix carried over from an f64 JAX build: the f64
-    # lower Cholesky factor.
-    chol_l: Optional[torch.Tensor] = None
-    # packed: (T+1, B, B) f32 tiles with inverted diagonal tiles, and the
-    # PackedLayout as a tuple.
-    packed_tiles: Optional[torch.Tensor] = None
-    packed_layout: Optional[tuple] = None
-    # banded: (T+1, B, B) f32 band tiles, the BandLayout as a tuple, K3's
-    # form ("chain" or "two_hop", ``tri_stream.band_form``) with the one-hop
-    # form's derived tiles (``tri_stream.band_chain``; None in the two-hop
-    # form), and the RCM permutation (solver
-    # row of each band row) with its inverse; None when the natural order
-    # is already the band's.
-    band_tiles: Optional[torch.Tensor] = None
-    band_layout: Optional[tuple] = None
-    band_form: Optional[str] = None
-    band_chain: Optional[torch.Tensor] = None
-    band_perm: Optional[torch.Tensor] = None
-    band_inv_perm: Optional[torch.Tensor] = None
-    # sharded: this rank's (nb, ncl, B, B) f32 column slab of the factor
-    # grid (parallel/tri_shard.py) and the mesh its solves run over.
-    shard_grid: Optional[torch.Tensor] = None
-    shard_mesh: Optional[Mesh] = None
-    # split: the coupled rows' count p, the f64 inverse diagonal of the
-    # con_num - p others, and the permutation [S, S^c] with its inverse;
-    # None when S is already the prefix (QUASAR).
-    split_p: int = 0
-    tail_inv_diag: Optional[torch.Tensor] = None
-    split_perm: Optional[torch.Tensor] = None
-    split_inv_perm: Optional[torch.Tensor] = None
-    # cg: the Jacobi inverse diagonal (f64), the f32 block-Jacobi inverses
-    # (nb, bs, bs) of a prefix of diagonal blocks, AA^T as an f64 ELL table,
-    # and FSAI's G and G^T (when present they replace the Jacobi pieces).
-    inv_diag: Optional[torch.Tensor] = None
-    bj_inv: Optional[torch.Tensor] = None
-    aat_tbl: Optional[EllTable] = None
-    fsai_g: Optional[EllTable] = None
-    fsai_gt: Optional[EllTable] = None
-    cg_tol: float = 0.0
-    cg_max_iter: int = 400
-    # host: rhs (numpy) -> y (numpy).
-    host_solve: Optional[Callable] = None
-    applies: int = 2  # refinement sweeps per solve
-    eps_used: float = 0.0
 
-    def _residual_buffer(self, lead: tuple = ()) -> Optional[torch.Tensor]:
-        """A zeroed f32 buffer (*lead, n_pad) of the f32 factor's padded
-        length, which ``_apply_factor`` reads as it is; the sweeps write only
-        its head. None for the f64 factors, which read the f64 residual."""
-        if self.inv_l is not None:
-            return self.inv_l.new_zeros(lead + (self.inv_l.shape[0],))
-        if self.packed_tiles is not None:
-            return self.packed_tiles.new_zeros(lead + (tri_stream.PackedLayout(*self.packed_layout).n_pad,))
-        if self.band_tiles is not None:
-            return self.band_tiles.new_zeros(lead + (tri_stream.BandLayout(*self.band_layout).n_pad,))
-        if self.shard_grid is not None:
-            nb, _, B, _ = self.shard_grid.shape
-            return self.shard_grid.new_zeros(lead + (nb * B,))
+class _Factor:
+    """What the sweeps apply: ``buffer(lead)`` the zeroed f32 (*lead, n_pad)
+    buffer an f32 factor reads (None for an f64 one), ``sweep`` one sweep
+    y + P^{-1} (rhs - AA^T y), in f64 but for an f32 factor. A CUDA graph
+    holds every factor's solve (``eager`` None)."""
+
+    sweeps = True
+    eager = None
+
+    def buffer(self, lead: tuple = ()) -> Optional[torch.Tensor]:
         return None
 
-    def _apply_factor(self, r: torch.Tensor) -> torch.Tensor:
-        """Approximate P^{-1} r for the f32 residual buffer ``r``; the first
-        con_num entries of the result are the answer.
 
-        precond: M^T (M r) by K1. packed: the two streaming sweeps by K2.
-        banded: r gathered into the band's order, K3, and gathered back;
-        the gathers are skipped when the permutation is the identity.
-        sharded: the distributed sweeps over the mesh, r padded to the
-        grid's n_pad as the buffer is (cuadmm_tpu/ops/chol.py:257-266). A
-        buffer with an instance axis (B, n_pad) takes K1 over its B
-        right-hand sides, one read of the factor for up to 8 of them; the
-        other factors one launch per instance."""
-        if self.inv_l is not None:
-            return fused_spd_apply(self.inv_l, r)
-        if r.dim() > 1:
-            return torch.stack([self._apply_factor(row) for row in r])
-        if self.packed_tiles is not None:
-            lay = tri_stream.PackedLayout(*self.packed_layout)
-            return tri_stream.packed_solve(self.packed_tiles, r, lay)
-        if self.shard_grid is not None:
-            return tri_shard.sharded_tri_solve(self.shard_grid, r, self.shard_mesh)
-        lay = tri_stream.BandLayout(*self.band_layout)
-        if self.band_perm is None:
-            return tri_stream.band_solve(self.band_tiles, r, lay, chain=self.band_chain, form=self.band_form)
-        n = self.band_perm.shape[0]
-        y = tri_stream.band_solve(self.band_tiles, r[:n][self.band_perm], lay, chain=self.band_chain,
-                                  form=self.band_form)
-        return y[self.band_inv_perm]
+class _PaddedFactor(_Factor):
+    """An f32 factor over every row: the f64 residual is rounded into the
+    buffer's head in one kernel, ``apply`` reads the buffer as it is, and
+    its f32 result's head is added to the f64 y in one more. The sweeps
+    contract P^{-1}'s error, ~ cond(L) * eps32, against the exact AA^T."""
 
-    def _apply_prefix(self, r: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
-        """The dense factor applied to the f64 vector ``r`` (all of it in
-        dense mode, the coupled prefix in split mode): through ``r_pad`` and
-        K1 for an f32 inverse factor (over a batch's instances at once),
-        else an f64 cholesky_solve, one per instance of a batch (a batched
-        right-hand side takes MAGMA's batched solve on CUDA, which a CUDA
-        graph cannot capture)."""
-        if self.inv_l is not None:
-            p = r.shape[-1]
-            r_pad[..., :p] = r
-            return self._apply_factor(r_pad)[..., :p]
-        if r.dim() > 1:
-            return torch.stack([self._apply_prefix(row, None) for row in r])
-        return torch.cholesky_solve(r.unsqueeze(-1), self.chol_l).squeeze(-1)
-
-    def _sweep(self, rhs: torch.Tensor, y: torch.Tensor, r_pad: Optional[torch.Tensor]) -> torch.Tensor:
-        """One refinement sweep: y + P^{-1} (rhs - AA^T y), in f64 but for
-        an f32 factor.
-
-        ``r_pad`` is the ``_residual_buffer``. With an f32 factor over every
-        row, the f64 residual is rounded into its head in one kernel, the
-        factor reads the buffer as it is, and its f32 result is added to the
-        f64 y in one more. P^{-1} approximates (AA^T + eps I)^{-1} with
-        error ~ cond(L) * eps32, which the sweeps contract against the
-        exact AA^T. In split mode the update is formed in the residual's own
-        storage: the tail scaled in place, the prefix's answer written over
-        its head; only a permutation that is not the identity copies the
-        vector (two gathers).
-        """
+    def sweep(self, sparse_a: SparseA, rhs: torch.Tensor, y: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
         n = y.shape[-1]
-        if self.tail_inv_diag is None and self.chol_l is None:
-            torch.sub(rhs, aat_matvec(self.sparse_a, y), out=r_pad[..., :n])
-            return y + self._apply_factor(r_pad)[..., :n]
-        r = rhs - aat_matvec(self.sparse_a, y)
-        if self.tail_inv_diag is None:  # dense
-            return y + self._apply_prefix(r, r_pad)
-        p = self.split_p
-        if self.split_perm is not None:
-            r = r[..., self.split_perm]
-        r[..., p:] *= self.tail_inv_diag
-        if p:
-            r[..., :p] = self._apply_prefix(r[..., :p], r_pad)
-        if self.split_inv_perm is not None:
-            r = r[..., self.split_inv_perm]
+        torch.sub(rhs, aat_matvec(sparse_a, y), out=buf[..., :n])
+        return y + self.apply(buf)[..., :n]
+
+
+@dataclasses.dataclass
+class InverseFactor(_PaddedFactor):
+    """precond's, and split's f32 prefix: (n_pad, n_pad) zero-padded inv(L),
+    exactly zero above the diagonal (``pad_factor``). M^T (M r) by K1, one
+    read of the factor for up to 8 of a batch's right-hand sides."""
+
+    inv_l: torch.Tensor
+
+    def buffer(self, lead: tuple = ()) -> torch.Tensor:
+        return self.inv_l.new_zeros(lead + (self.inv_l.shape[0],))
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return fused_spd_apply(self.inv_l, r)
+
+    def apply_head(self, r: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+        p = r.shape[-1]
+        buf[..., :p] = r
+        return self.apply(buf)[..., :p]
+
+
+@dataclasses.dataclass
+class CholFactor(_Factor):
+    """dense's f64 lower factor, and split's prefix carried over from an f64
+    JAX build: one cholesky_solve an instance (a batched one takes MAGMA's
+    batched solve on CUDA, which a CUDA graph cannot capture)."""
+
+    chol_l: torch.Tensor
+
+    def apply_head(self, r: torch.Tensor, buf: None = None) -> torch.Tensor:
+        return _each(lambda v: torch.cholesky_solve(v.unsqueeze(-1), self.chol_l).squeeze(-1), r)
+
+    def sweep(self, sparse_a: SparseA, rhs: torch.Tensor, y: torch.Tensor, buf: None) -> torch.Tensor:
+        return y + self.apply_head(rhs - aat_matvec(sparse_a, y))
+
+
+@dataclasses.dataclass
+class PackedFactor(_PaddedFactor):
+    """packed: (T+1, B, B) f32 tiles with inverted diagonal tiles; the two
+    streaming sweeps by K2."""
+
+    tiles: torch.Tensor
+    layout: tri_stream.PackedLayout
+
+    def buffer(self, lead: tuple = ()) -> torch.Tensor:
+        return self.tiles.new_zeros(lead + (self.layout.n_pad,))
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return _each(lambda v: tri_stream.packed_solve(self.tiles, v, self.layout), r)
+
+
+@dataclasses.dataclass
+class BandFactor(_PaddedFactor):
+    """banded: (T+1, B, B) f32 band tiles, K3's form (``chain_tiles``) with
+    the one-hop form's derived tiles, and the RCM permutation (solver row
+    of each band row) with its inverse, None when the natural order is
+    already the band's (else r is gathered in and out of it)."""
+
+    tiles: torch.Tensor
+    layout: tri_stream.BandLayout
+    form: str
+    chain: Optional[torch.Tensor]
+    perm: Optional[torch.Tensor] = None
+    inv_perm: Optional[torch.Tensor] = None
+
+    def buffer(self, lead: tuple = ()) -> torch.Tensor:
+        return self.tiles.new_zeros(lead + (self.layout.n_pad,))
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return _each(self._apply_one, r)
+
+    def _apply_one(self, r: torch.Tensor) -> torch.Tensor:
+        if self.perm is not None:
+            r = r[: self.perm.shape[0]][self.perm]
+        y = tri_stream.band_solve(self.tiles, r, self.layout, chain=self.chain, form=self.form)
+        return y if self.inv_perm is None else y[self.inv_perm]
+
+
+@dataclasses.dataclass
+class ShardedFactor(_PaddedFactor):
+    """sharded: this rank's (nb, ncl, B, B) f32 column slab of the factor
+    grid and the mesh its distributed sweeps run over, r padded to the
+    grid's n_pad (cuadmm_tpu/ops/chol.py:257-266)."""
+
+    grid: torch.Tensor
+    mesh: Mesh
+
+    def buffer(self, lead: tuple = ()) -> torch.Tensor:
+        nb, _, B, _ = self.grid.shape
+        return self.grid.new_zeros(lead + (nb * B,))
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return _each(lambda v: tri_shard.sharded_tri_solve(self.grid, v, self.mesh), r)
+
+
+@dataclasses.dataclass
+class SplitFactor(_Factor):
+    """split: the p coupled rows' factor (None when p = 0), the f64 inverse
+    diagonal of the others, and the permutation [S, S^c] with its inverse,
+    None when S is already the prefix (QUASAR). The update is formed in the
+    residual's own storage; only a permutation copies it (two gathers)."""
+
+    prefix: "Optional[InverseFactor | CholFactor]"
+    p: int
+    tail_inv_diag: torch.Tensor
+    perm: Optional[torch.Tensor] = None
+    inv_perm: Optional[torch.Tensor] = None
+
+    def buffer(self, lead: tuple = ()) -> Optional[torch.Tensor]:
+        return None if self.prefix is None else self.prefix.buffer(lead)
+
+    def sweep(self, sparse_a: SparseA, rhs: torch.Tensor, y: torch.Tensor, buf) -> torch.Tensor:
+        r = rhs - aat_matvec(sparse_a, y)
+        if self.perm is not None:
+            r = r[..., self.perm]
+        r[..., self.p:] *= self.tail_inv_diag
+        if self.prefix is not None:
+            r[..., : self.p] = self.prefix.apply_head(r[..., : self.p], buf)
+        if self.inv_perm is not None:
+            r = r[..., self.inv_perm]
         return y + r
 
-    def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """y with (AA^T) y ~= rhs, in rhs's dtype, from ``warm`` (or 0).
 
-        ``rhs`` (con_num,) or, for a batch of instances, (B, con_num): the
-        refinement sweeps then run on the whole batch, the factor once per
-        instance; cg and host solve one instance at a time."""
-        hp = torch.float64
-        if rhs.dim() > 1 and self.mode in ("cg", "host"):
-            warms = [None] * len(rhs) if warm is None else warm
-            return torch.stack([self.solve(r, w) for r, w in zip(rhs, warms)])
-        if self.mode == "host":
-            y = self.host_solve(rhs.detach().to("cpu", hp).numpy())
-            return torch.as_tensor(y, device=rhs.device).to(rhs.dtype)
-        rhs_hp = rhs.to(hp)
-        y = torch.zeros_like(rhs_hp) if warm is None else warm.to(hp)
-        if self.mode == "cg":
-            y, steps, waits = _pcg(
-                lambda v: _ell_matvec(self.aat_tbl, v), rhs_hp, self._precond(), y,
-                self.cg_tol, self.cg_max_iter,
-            )
-            trace.COUNTS["cg_solves"] += 1
-            trace.COUNTS["cg_steps"] += steps
-            trace.COUNTS["cg_waits"] += waits
-            return y.to(rhs.dtype)
-        # Refinement through the composed A (A^T y): its rounding stays in
-        # range(A), which the regularized factor does not amplify.
-        r_pad = self._residual_buffer(tuple(rhs.shape[:-1]))
-        trace.COUNTS["neq_sweeps"] += self.applies
-        for _ in range(self.applies):
-            y = self._sweep(rhs_hp, y, r_pad)
+@dataclasses.dataclass
+class CGSolver:
+    """cg: AA^T's f64 ELL table, the Jacobi inverse diagonal (f64), the f32
+    block-Jacobi inverses (nb, bs, bs) of a prefix of diagonal blocks, and
+    FSAI's G and G^T (when present they replace the Jacobi pieces)."""
+
+    inv_diag: torch.Tensor
+    bj_inv: Optional[torch.Tensor]
+    aat_tbl: EllTable
+    fsai_g: Optional[EllTable]
+    fsai_gt: Optional[EllTable]
+    tol: float
+    max_iter: int
+
+    sweeps = False
+    eager = "cg: reads the host once per 16 queued CG steps"
+
+    def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor]) -> torch.Tensor:
+        rhs_hp = rhs.to(torch.float64)
+        y = torch.zeros_like(rhs_hp) if warm is None else warm.to(torch.float64)
+        y, steps, waits = _pcg(lambda v: _ell_matvec(self.aat_tbl, v), rhs_hp, self._precond(), y,
+                               self.tol, self.max_iter)
+        trace.add(dict(cg_solves=1, cg_steps=steps, cg_waits=waits))
         return y.to(rhs.dtype)
 
     def _precond(self) -> Callable:
@@ -364,6 +355,71 @@ class NormalEqSolver:
             return z
 
         return apply_m
+
+
+@dataclasses.dataclass
+class HostSolver:
+    """host: scipy's LU, rhs (numpy) -> y (numpy), through the host."""
+
+    lu: Callable
+
+    sweeps = False
+    eager = "host: the normal solve runs in numpy"
+
+    def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor]) -> torch.Tensor:
+        y = self.lu(rhs.detach().to("cpu", torch.float64).numpy())
+        return torch.as_tensor(y, device=rhs.device).to(rhs.dtype)
+
+
+@dataclasses.dataclass
+class NormalEqSolver:
+    """A prepared AA^T solve: the mode, the f64 A of the refinement, the
+    mode's factor or factor-free solver, the sweeps a solve and the jitter
+    the factor took."""
+
+    mode: str
+    sparse_a: SparseA
+    factor: "_Factor | CGSolver | HostSolver"
+    applies: int = 2
+    eps_used: float = 0.0
+
+    @property
+    def has_sweeps(self) -> bool:
+        """Whether the solve is ``applies`` refinement sweeps of a factor."""
+        return self.factor.sweeps
+
+    @property
+    def eager_reason(self) -> Optional[str]:
+        """Why a CUDA graph cannot hold the solve, or None."""
+        return self.factor.eager
+
+    @property
+    def inv_l(self) -> Optional[torch.Tensor]:
+        """K1's factor (precond's, split's f32 prefix), else None."""
+        f = self.factor.prefix if isinstance(self.factor, SplitFactor) else self.factor
+        return f.inv_l if isinstance(f, InverseFactor) else None
+
+    @property
+    def split_p(self) -> int:
+        """split's coupled rows, 0 in every other mode."""
+        return self.factor.p if isinstance(self.factor, SplitFactor) else 0
+
+    def solve(self, rhs: torch.Tensor, warm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y with (AA^T) y ~= rhs, in rhs's dtype, from ``warm`` (or 0).
+
+        ``rhs`` (con_num,) or, for a batch of instances, (B, con_num): the
+        sweeps then run on the whole batch; cg and host solve one instance
+        at a time. The sweeps' residuals go through the composed A (A^T y),
+        whose rounding stays in range(A), which the factor does not amplify."""
+        if not self.factor.sweeps:
+            return _each(self.factor.solve, rhs, warm)
+        rhs_hp = rhs.to(torch.float64)
+        y = torch.zeros_like(rhs_hp) if warm is None else warm.to(torch.float64)
+        buf = self.factor.buffer(tuple(rhs.shape[:-1]))
+        trace.COUNTS["neq_sweeps"] += self.applies
+        for _ in range(self.applies):
+            y = self.factor.sweep(self.sparse_a, rhs_hp, y, buf)
+        return y.to(rhs.dtype)
 
     def residual_norm(self, rhs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """|| rhs - AA^T y || / || rhs ||, in f64."""
@@ -488,15 +544,15 @@ def _calibrate_applies(
     if even ``CALIBRATE_MAX_APPLIES`` sweeps cannot reach 1e-2.
     """
     target = CALIBRATE_TARGET if target is None else float(target)
-    sa = neq.sparse_a
-    r_pad = neq._residual_buffer()
+    sa, factor = neq.sparse_a, neq.factor
+    buf = factor.buffer()
     rng = np.random.default_rng(0)
     v = torch.as_tensor(rng.standard_normal(con_num), dtype=torch.float64, device=device)
     rhs = aat_matvec(sa, v)
     y = torch.zeros_like(rhs)
     resids = []
     for _ in range(CALIBRATE_MAX_APPLIES):
-        y = neq._sweep(rhs, y, r_pad)
+        y = factor.sweep(sa, rhs, y, buf)
         resids.append(torch.linalg.norm(rhs - aat_matvec(sa, y)))
     curve = (torch.stack(resids) / torch.linalg.norm(rhs)).cpu().numpy()
     ok = np.isfinite(curve) & (curve < target)
@@ -597,14 +653,35 @@ def _check_precond_fits(n: int, limits: Optional[CardLimits], mode: str) -> None
         )
 
 
-def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, dense_chol_max,
-                  precond_eps, applies, device, limits) -> NormalEqSolver:
+def _precond_factor(a: tuple, precond_eps, device, limits, timings, stages):
+    """precond: AA^T's f32 factor with the jitter ladder from
+    max(precond_eps, 1e-5), inverted for K1 (only the inverse is kept:
+    ``del l`` frees n^2 of device memory)."""
+    l, eps_used = _device_factorize(*a, max(precond_eps, 1e-5), device, torch.float32,
+                                    None if limits is None else limits.dense_a_budget, timings)
+    stages.begin("tri_inv")
+    inv_l = pad_factor(_tri_inv(l))
+    del l
+    stages.begin("calibrate")
+    return InverseFactor(inv_l), eps_used
+
+
+def _dense_factor(a: tuple, eps, device, limits, timings, stages):
+    """dense: AA^T's f64 factor with the jitter ladder from max(eps, 1e-14)."""
+    l, eps_used = _device_factorize(*a, max(eps, 1e-14), device, torch.float64,
+                                    None if limits is None else limits.dense_a_budget, timings)
+    stages.begin("calibrate")
+    return CholFactor(l), eps_used
+
+
+def _split_factor(a: tuple, dense_chol_max, precond_eps, device, limits, stages):
     """split (cuadmm_tpu/ops/chol.py:922-1031): the coupled set S from the
     shared-column probe, the p x p prefix A_S A_S^T formed on the host and
     factored in f32 with the jitter ladder from max(precond_eps, 1e-5)
     (relative to the mean diagonal of AA^T), inverted for K1; the other rows'
     diagonal inverse in f64 with the JAX package's floor. p = 0 (a diagonal
     AA^T) builds no factor."""
+    at_svec_idx, at_con_idx, vals, con_num, vec_len = a
     col_mult = np.bincount(at_svec_idx, minlength=vec_len)
     S = np.unique(at_con_idx[col_mult[at_svec_idx] >= 2])
     p = len(S)
@@ -618,27 +695,76 @@ def _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a, den
     perm = np.concatenate([S, np.setdiff1d(np.arange(con_num), S)])
     identity = bool(np.array_equal(perm, np.arange(con_num)))
     eps_used = max(precond_eps, 1e-5)
-    inv_l = None
+    prefix = None
     if p:
         a_s = sp.csr_matrix((vals, (at_con_idx, at_svec_idx)), shape=(con_num, vec_len))[S]
         sub = torch.as_tensor((a_s @ a_s.T).toarray(), dtype=torch.float32, device=device)
         l, eps_used = _jitter_cholesky(sub, scale, eps_used, "split-prefix ")
         del sub
-        inv_l = pad_factor(_tri_inv(l))
+        prefix = InverseFactor(pad_factor(_tri_inv(l)))
     td = diag[perm[p:]]
     td = np.where(td > 1e-12 * scale, td, scale)
-    as_idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
-    return NormalEqSolver(
-        mode="split", sparse_a=sparse_a, inv_l=inv_l, split_p=p,
-        tail_inv_diag=torch.as_tensor(1.0 / td, dtype=torch.float64, device=device),
-        split_perm=None if identity else as_idx(perm),
-        split_inv_perm=None if identity else as_idx(np.argsort(perm)),
-        applies=applies, eps_used=eps_used,
+    as_idx = lambda v: None if identity else torch.as_tensor(v, dtype=torch.int64, device=device)
+    factor = SplitFactor(prefix, p, torch.as_tensor(1.0 / td, dtype=torch.float64, device=device),
+                         as_idx(perm), as_idx(np.argsort(perm)))
+    stages.begin("calibrate")
+    return factor, eps_used
+
+
+def _packed_factor(aat, con_num, precond_eps, device, stages):
+    """packed: AA^T's lower triangle in B x B tiles (B 1024 past 2,048
+    rows, else 256), factored in f32 with the jitter ladder from
+    max(precond_eps, 1e-5)."""
+    coo = aat.tocoo()
+    diag_mean = float(aat.diagonal().mean())
+    lay = tri_stream.make_layout(con_num, 1024 if con_num > 2048 else 256)
+    rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
+    tiles, eps_used = _tile_factorize(
+        lambda e: tri_stream.scatter_packed_aat(rows, cols, coo.data, lay, e, diag_mean, torch.float32, device),
+        lambda tl: tri_stream.packed_cholesky(tl, lay),
+        tri_stream.tid(lay.nb - 1, lay.nb - 1),
+        max(precond_eps, 1e-5),
+        "packed",
     )
+    stages.begin("calibrate")
+    return PackedFactor(tiles, lay), eps_used
 
 
-def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,
-               fsai_cap, fsai_pattern_power, device, stages, timings) -> NormalEqSolver:
+def _band_factor(aat, con_num, band_probe, precond_eps, device, limits, timings, stages):
+    """banded: AA^T's block band under its RCM permutation (``band_probe``,
+    computed here when ``auto`` did not), its block picked by ``limits``'
+    band model, factored in f32, and K3's form for the card."""
+    coo = aat.tocoo()
+    diag_mean = float(aat.diagonal().mean())
+    bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
+    pinv = np.empty_like(perm)
+    pinv[perm] = np.arange(con_num)
+    lay = tri_stream.make_band_layout(con_num, bw, model=None if limits is None else limits.bound_band_model())
+    rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
+    # The jitter ladder starts at 1e-5 rather than precond_eps: a
+    # band factors fine there, and the looser 1e-4 costs a sweep.
+    tiles, eps_used = _tile_factorize(
+        lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, torch.float32, device),
+        lambda tl: tri_stream.band_cholesky(tl, lay),
+        tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
+        max(min(precond_eps, 1e-5), 1e-7),
+        "band",
+    )
+    stages.begin("calibrate")
+    form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
+    if timings is not None:
+        timings["band_bw"] = int(bw)
+        timings["band_layout"] = (
+            f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
+            f"form={'one-hop' if form == 'chain' else 'two-hop'}"
+        )
+    identity = bool(np.array_equal(perm, np.arange(con_num)))
+    as_idx = lambda p: None if identity else torch.as_tensor(np.asarray(p, np.int64), device=device)
+    return BandFactor(tiles, lay, form, chain, as_idx(perm), as_idx(pinv)), eps_used
+
+
+def _cg_solver(aat, con_num, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,
+               fsai_cap, fsai_pattern_power, device, stages, timings):
     """cg (cuadmm_tpu/ops/chol.py:1260-1356), f64 throughout but for the
     f32 block-Jacobi inverses. ``cg_precond`` "auto" builds FSAI and drops
     to block-Jacobi if the build fails; "fsai" raises then; "block_jacobi"
@@ -664,18 +790,20 @@ def _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi
     scale = max(float(diag.mean()), 1e-30)
     d = np.where(diag > 1e-12 * scale, diag, scale)
     coo = aat.tocoo()
-    return NormalEqSolver(
-        mode="cg", sparse_a=sparse_a,
-        inv_diag=torch.as_tensor(1.0 / d, dtype=f64, device=device), bj_inv=bj,
-        aat_tbl=_build_ell(
-            coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data, con_num, con_num, f64, device
-        ),
-        fsai_g=fsai_g, fsai_gt=fsai_gt, cg_tol=cg_tol, cg_max_iter=cg_max_iter,
-    )
+    tbl = _build_ell(coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data, con_num, con_num, f64, device)
+    return CGSolver(torch.as_tensor(1.0 / d, dtype=f64, device=device), bj, tbl, fsai_g, fsai_gt,
+                    cg_tol, cg_max_iter), 0.0
 
 
-def _sharded_solver(aat, con_num, sparse_a, mesh: Mesh, precond_eps, applies, device,
-                    timings) -> NormalEqSolver:
+def _host_solver(aat, con_num, eps, on_accel):
+    """host: scipy's sparse LU of AA^T + max(eps, 1e-14) I."""
+    if on_accel:
+        warnings.warn("normal_solver='host' factorizes on the host: every solve copies rhs to the host and the "
+                      "answer back; prefer 'auto' on CUDA.")
+    return HostSolver(spla.factorized((aat + max(eps, 1e-14) * sp.eye(con_num, format="csr")).tocsc())), 0.0
+
+
+def _sharded_factor(aat, con_num, mesh: Mesh, precond_eps, device, timings, stages):
     """sharded (cuadmm_tpu/ops/chol.py:1188-1256), with the JAX package's
     block size (1024 from 64k rows, else a power of two near con_num / 4
     ranks, at least 64), nb a multiple of the mesh size, the f32 factor's jitter
@@ -709,8 +837,8 @@ def _sharded_solver(aat, con_num, sparse_a, mesh: Mesh, precond_eps, applies, de
             raise RuntimeError("sharded AA^T Cholesky failed even with jitter 1e-1")
     if timings is not None:
         timings["sharded_layout"] = f"nb={nb} B={blk} ranks={D} bytes_per_rank={slab_bytes}"
-    return NormalEqSolver(mode="sharded", sparse_a=sparse_a, shard_grid=slab, shard_mesh=mesh,
-                          applies=applies, eps_used=cur)
+    stages.begin("calibrate")
+    return ShardedFactor(slab, mesh), cur
 
 
 def build_normal_solver(
@@ -787,102 +915,23 @@ def build_normal_solver(
     first = dict(precond="factorize", dense="factorize", split="split_factorize", sharded="sharded_factorize",
                  packed="packed_factorize", banded="band_factorize",
                  cg="fsai_build" if cg_precond in ("auto", "fsai") else None).get(mode)
+    a = (at_svec_idx, at_con_idx, vals, con_num, vec_len)
+    host_aat = lambda: build_aat_host(*a) if aat is None else aat
     with trace.Stages("neq", timings, device, builds=True) as stages:
         stages.begin(first)
-        if mode in ("cg", "host", "sharded") and aat is None:
-            aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
-        if mode == "cg":
-            return _cg_solver(aat, con_num, sparse_a, eps, cg_tol, cg_max_iter, cg_block_jacobi,
-                              cg_precond, fsai_cap, fsai_pattern_power, device, stages, timings)
-        if mode == "host":
-            if on_accel:
-                warnings.warn(
-                    "normal_solver='host' factorizes on the host: every solve copies "
-                    "rhs to the host and the answer back; prefer 'auto' on CUDA."
-                )
-            lu = spla.factorized((aat + max(eps, 1e-14) * sp.eye(con_num, format="csr")).tocsc())
-            return NormalEqSolver(mode="host", sparse_a=sparse_a, host_solve=lu)
-
-        f32 = torch.float32
-        applies_0 = max(applies, 1)
-        if mode in ("precond", "dense"):
-            jitter, fdt = (max(precond_eps, 1e-5), f32) if mode == "precond" else (max(eps, 1e-14), torch.float64)
-            l, eps_used = _device_factorize(
-                at_svec_idx, at_con_idx, vals, con_num, vec_len, jitter, device, fdt,
-                None if limits is None else limits.dense_a_budget, timings,
-            )
-            stages.begin("tri_inv" if mode == "precond" else "calibrate")
-            if mode == "precond":
-                inv_l = pad_factor(_tri_inv(l))
-                del l  # only the inverse is kept: frees n^2 of device memory
-                stages.begin("calibrate")
-                neq = NormalEqSolver(
-                    mode="precond", sparse_a=sparse_a, inv_l=inv_l, applies=applies_0, eps_used=eps_used
-                )
-            else:
-                neq = NormalEqSolver(
-                    mode="dense", sparse_a=sparse_a, chol_l=l, applies=applies_0, eps_used=eps_used
-                )
-        elif mode == "split":
-            neq = _split_solver(at_svec_idx, at_con_idx, vals, con_num, vec_len, sparse_a,
-                                dense_chol_max, precond_eps, applies_0, device, limits)
-            stages.begin("calibrate")
-        elif mode == "sharded":
-            neq = _sharded_solver(aat, con_num, sparse_a, mesh, precond_eps, applies_0, device, timings)
-            stages.begin("calibrate")
-        else:
-            if aat is None:
-                aat = build_aat_host(at_svec_idx, at_con_idx, vals, con_num, vec_len)
-            coo = aat.tocoo()
-            diag_mean = float(aat.diagonal().mean())
-            if mode == "packed":
-                lay = tri_stream.make_layout(con_num, 1024 if con_num > 2048 else 256)
-                rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
-                tiles, eps_used = _tile_factorize(
-                    lambda e: tri_stream.scatter_packed_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
-                    lambda tl: tri_stream.packed_cholesky(tl, lay),
-                    tri_stream.tid(lay.nb - 1, lay.nb - 1),
-                    max(precond_eps, 1e-5),
-                    "packed",
-                )
-                stages.begin("calibrate")
-                neq = NormalEqSolver(
-                    mode="packed", sparse_a=sparse_a, packed_tiles=tiles, packed_layout=tuple(lay),
-                    applies=applies_0, eps_used=eps_used,
-                )
-            else:
-                bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
-                pinv = np.empty_like(perm)
-                pinv[perm] = np.arange(con_num)
-                model = None if limits is None else limits.bound_band_model()
-                lay = tri_stream.make_band_layout(con_num, bw, model=model)
-                rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
-                # The jitter ladder starts at 1e-5 rather than precond_eps: a
-                # band factors fine there, and the looser 1e-4 costs a sweep.
-                tiles, eps_used = _tile_factorize(
-                    lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, f32, device),
-                    lambda tl: tri_stream.band_cholesky(tl, lay),
-                    tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
-                    max(min(precond_eps, 1e-5), 1e-7),
-                    "band",
-                )
-                stages.begin("calibrate")
-                form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
-                if timings is not None:
-                    timings["band_bw"] = int(bw)
-                    timings["band_layout"] = (
-                        f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
-                        f"form={'one-hop' if form == 'chain' else 'two-hop'}"
-                    )
-                identity = bool(np.array_equal(perm, np.arange(con_num)))
-                as_idx = lambda p: torch.as_tensor(np.asarray(p, np.int64), device=device)
-                neq = NormalEqSolver(
-                    mode="banded", sparse_a=sparse_a, band_tiles=tiles, band_layout=tuple(lay), band_form=form,
-                    band_chain=chain,
-                    band_perm=None if identity else as_idx(perm),
-                    band_inv_perm=None if identity else as_idx(pinv),
-                    applies=applies_0, eps_used=eps_used,
-                )
-        if applies <= 0:
-            neq = _calibrate_applies(neq, con_num, device, calibrate_target)
-    return neq
+        factor, eps_used = dict(
+            precond=lambda: _precond_factor(a, precond_eps, device, limits, timings, stages),
+            dense=lambda: _dense_factor(a, eps, device, limits, timings, stages),
+            split=lambda: _split_factor(a, dense_chol_max, precond_eps, device, limits, stages),
+            packed=lambda: _packed_factor(host_aat(), con_num, precond_eps, device, stages),
+            banded=lambda: _band_factor(host_aat(), con_num, band_probe, precond_eps, device, limits, timings,
+                                        stages),
+            sharded=lambda: _sharded_factor(host_aat(), con_num, mesh, precond_eps, device, timings, stages),
+            cg=lambda: _cg_solver(host_aat(), con_num, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,
+                                  fsai_cap, fsai_pattern_power, device, stages, timings),
+            host=lambda: _host_solver(host_aat(), con_num, eps, on_accel),
+        )[mode]()
+        if not factor.sweeps:
+            return NormalEqSolver(mode, sparse_a, factor)
+        neq = NormalEqSolver(mode, sparse_a, factor, max(applies, 1), eps_used)
+        return neq if applies > 0 else _calibrate_applies(neq, con_num, device, calibrate_target)

@@ -25,6 +25,7 @@ import torch
 from cuadmm_tpu_torch import trace
 from cuadmm_tpu_torch.config import SolverConfig
 from cuadmm_tpu_torch.device import synchronize
+from cuadmm_tpu_torch.ops.chol import ShardedFactor
 from cuadmm_tpu_torch.ops.sparse import aat_matvec
 from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool
 from cuadmm_tpu_torch.ops.svec import device_maps, pool_from_svec, svec_from_pool
@@ -77,7 +78,8 @@ def solve(mesh: Mesh, prob: Problem, config: dict, runs: Sequence[Tuple[int, flo
     solver = SDPSolver(prob, SolverConfig(**config), mesh=mesh)
     neq = solver.params.neq
     if grid is not None:
-        neq = dataclasses.replace(neq, shard_grid=tri_shard.shard_factor(grid, mesh), applies=int(applies))
+        neq = dataclasses.replace(neq, factor=ShardedFactor(tri_shard.shard_factor(grid, mesh), mesh),
+                                  applies=int(applies))
         solver.params = dataclasses.replace(solver.params, neq=neq)
     out = []
     for max_iter, stop_tol in runs:
@@ -88,7 +90,7 @@ def solve(mesh: Mesh, prob: Problem, config: dict, runs: Sequence[Tuple[int, flo
                         all_reduces=trace.COUNTS["all_reduce"] - before))
     return dict(runs=out, mode=neq.mode, applies=neq.applies, eps_used=neq.eps_used,
                 projection=solver._projection,
-                grid_shape=None if neq.shard_grid is None else tuple(neq.shard_grid.shape))
+                grid_shape=tuple(neq.factor.grid.shape) if neq.mode == "sharded" else None)
 
 
 def escalated(mesh: Mesh, prob: Problem, config: dict, max_iter: int, stop_tol: float) -> Dict[str, Any]:
@@ -209,8 +211,8 @@ def sharded_large(mesh: Mesh, large: Problem, warm: int, timed: int) -> Dict[str
     synchronize(dev)
     return dict(result_dict(res), seconds=time.perf_counter() - t0, counts=_counts(), init_s=init_s,
                 init_breakdown=solver.init_breakdown, mode=neq.mode, applies=neq.applies,
-                eps_used=neq.eps_used, slab_shape=tuple(neq.shard_grid.shape),
-                slab_gb=neq.shard_grid.numel() * neq.shard_grid.element_size() / 1e9,
+                eps_used=neq.eps_used, slab_shape=tuple(neq.factor.grid.shape),
+                slab_gb=neq.factor.grid.numel() * neq.factor.grid.element_size() / 1e9,
                 solve_ms=solve_ms, solve_counts=solve_counts, residual_norm=resid,
                 methods=solver._projection, peak_mem_gb_init=peak_init, peak_mem_gb=_peak_gb(dev))
 

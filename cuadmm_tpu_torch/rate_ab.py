@@ -87,7 +87,11 @@ def rate(pkg, prob, projection: str, iters: int, **config) -> dict:
                            **config)
     solver = pkg.SDPSolver(prob, cfg, device="cuda")
     neq = solver.params.neq
-    band = dict(band_layout=list(neq.band_layout), applies=neq.applies) if neq.mode == "banded" else {}
+    if neq.mode == "banded":  # an older ROOT's solver keeps the layout as band_layout
+        band = dict(band_layout=list(neq.factor.layout if hasattr(neq, "factor") else neq.band_layout),
+                    applies=neq.applies)
+    else:
+        band = {}
     solver.solve(max_iter=WARM, stop_tol=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -341,7 +341,7 @@ class SDPSolver:
         cfg, prob = self.config, self.problem
         neq = self.params.neq
         if level == 1:
-            if neq.mode not in ("cg", "host"):
+            if neq.has_sweeps:
                 neq = dataclasses.replace(neq, applies=neq.applies + 2)
         else:
             neq = self._normal_solver("cg", max(cfg.cg_max_iter, 800))

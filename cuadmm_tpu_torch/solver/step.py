@@ -321,16 +321,13 @@ def run_chunk(step, state: SolverState, params: SolveParams, it_host: int, chunk
 
 def eager_reason(params: SolveParams, mesh: Optional[Mesh]) -> Optional[str]:
     """Why a chunk must run eagerly (``run_chunk``), or None when the chunk
-    runner can record it: cg reads the host between its queued steps, host
-    solves in numpy, and a mesh's collectives (gloo) cannot be captured (a
-    one-card NCCL world has one rank)."""
+    runner can record it: a mesh's collectives (gloo) cannot be captured (a
+    one-card NCCL world has one rank), and the normal solver says when a
+    graph cannot hold its solve (``NormalEqSolver.eager_reason``: cg reads
+    the host between its queued steps, host solves in numpy)."""
     if mesh is not None:
         return "mesh: collectives between ranks are not captured"
-    if params.neq.mode == "cg":
-        return "cg: reads the host once per 16 queued CG steps"
-    if params.neq.mode == "host":
-        return "host: the normal solve runs in numpy"
-    return None
+    return params.neq.eager_reason
 
 
 @dataclasses.dataclass

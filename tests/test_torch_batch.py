@@ -115,20 +115,22 @@ def test_batch_rejects_mismatched_pattern_and_mesh():
         BatchedSDPSolver([p1, p1], cfg, mesh=object(), device="cpu")
 
 
-def test_batched_normal_solve_is_per_instance():
-    """(B, con_num) right-hand sides through each mode: the same answers as
-    one instance at a time."""
+@pytest.mark.parametrize("mode", ["precond", "dense", "auto", "cg", "host", "split", "packed", "banded"])
+def test_batched_normal_solve_is_per_instance(mode):
+    """(B, con_num) right-hand sides through each mode that serves a batch
+    on the CPU (sharded needs a mesh: tests/test_torch_parallel.py): the
+    same answers as one instance at a time."""
     probs, _ = _port_family(3)
     rng = np.random.default_rng(4)
-    for mode in ("precond", "dense", "auto", "cg", "host"):
-        s = cuadmm_tpu_torch.SDPSolver(probs[0], cuadmm_tpu_torch.SolverConfig(
-            verbose=False, normal_solver=mode), device="cpu")
-        rhs = torch.as_tensor(rng.standard_normal((3, probs[0].con_num)))
-        warm = torch.as_tensor(rng.standard_normal((3, probs[0].con_num)))
-        batched = s.params.neq.solve(rhs, warm=warm)
-        for b in range(3):
-            one = s.params.neq.solve(rhs[b], warm=warm[b])
-            np.testing.assert_allclose(batched[b].numpy(), one.numpy(), rtol=1e-12, atol=1e-12, err_msg=mode)
+    s = cuadmm_tpu_torch.SDPSolver(probs[0], cuadmm_tpu_torch.SolverConfig(
+        verbose=False, normal_solver=mode), device="cpu")
+    assert s.params.neq.mode == ("split" if mode == "auto" else mode)
+    rhs = torch.as_tensor(rng.standard_normal((3, probs[0].con_num)))
+    warm = torch.as_tensor(rng.standard_normal((3, probs[0].con_num)))
+    batched = s.params.neq.solve(rhs, warm=warm)
+    for b in range(3):
+        one = s.params.neq.solve(rhs[b], warm=warm[b])
+        np.testing.assert_allclose(batched[b].numpy(), one.numpy(), rtol=1e-12, atol=1e-12, err_msg=mode)
 
 
 @pytest.mark.cuda

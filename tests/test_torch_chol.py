@@ -82,7 +82,8 @@ def test_calibrated_precond_reaches_target(make):
     vals, _, sa = _operands(prob)
     neq = _port_solver(prob, vals, sa, applies=0)
     assert neq.mode == "precond" and 1 <= neq.applies <= 6
-    assert neq.inv_l.dtype == torch.float32 and neq.inv_l.shape[0] % 128 == 0
+    assert isinstance(neq.factor, tchol.InverseFactor) and neq.inv_l is neq.factor.inv_l
+    assert neq.factor.inv_l.dtype == torch.float32 and neq.factor.inv_l.shape[0] % 128 == 0
     # A fresh consistent rhs of the calibration probe's kind, (AA^T) v.
     rng = np.random.default_rng(1)
     rhs = tsparse.aat_matvec(sa, torch.as_tensor(rng.standard_normal(prob.con_num)))
@@ -168,8 +169,8 @@ def test_inverse_factor_is_exactly_lower_triangular(mode):
         r, c, v, con, vec_len = _split_at()
         sa = tsparse.build_sparse_a(r, c, v, con, vec_len, torch.float64, CPU)
         neq = tchol.build_normal_solver(r, c, v, con, vec_len, sa, "split", torch.float64, CPU, applies=2)
-        con = neq.split_p
-    m = neq.inv_l
+        con = neq.factor.p
+    m = (neq.factor.prefix if mode == "split" else neq.factor).inv_l
     assert m.dtype == torch.float32 and m.shape[0] % 128 == 0 and m.is_contiguous() and _upper_is_zero(m)
     assert not m[con:].any() and not m[:, con:].any()
     l = torch.linalg.inv(m[:con, :con].double())  # L, lower triangular up to rounding
@@ -202,9 +203,9 @@ def test_convert_keeps_only_the_lower_triangle(mode, build, monkeypatch):
         assert neq_j.inv_l is None and neq_j.chol_l is not None
     neq_t = convert.normal_solver_from_numpy(neq_j, CPU)
     if build == "cpu" and mode == "split":  # the f64 prefix factor is carried as it is
-        assert neq_t.inv_l is None and neq_t.chol_l is not None
+        assert isinstance(neq_t.factor.prefix, tchol.CholFactor) and neq_t.inv_l is None
         return
-    m = neq_t.inv_l
+    m = (neq_t.factor.prefix if mode == "split" else neq_t.factor).inv_l
     assert m.dtype == torch.float32 and m.is_contiguous() and _upper_is_zero(m)
     if build == "accelerator":
         assert np.array_equal(m.numpy(), np.tril(inv_j))
@@ -330,19 +331,19 @@ def test_packed_and_banded_solvers_match_jax(mode, make):
     neq_t = tchol.build_normal_solver(*args, sa_t, mode, torch.float64, CPU, applies=4, timings=timings)
     assert neq_t.mode == mode and neq_t.applies == 4
     if mode == "packed":
-        assert neq_t.packed_layout == tuple(neq_j.packed_layout) and "packed_factorize" in timings
-        assert neq_t.packed_tiles.dtype == torch.float32
+        assert neq_t.factor.layout == tuple(neq_j.packed_layout) and "packed_factorize" in timings
+        assert neq_t.factor.tiles.dtype == torch.float32
     else:
         bw, perm = jchol._rcm_bandwidth(jchol.build_aat_host(*args))
-        assert neq_t.band_layout == tuple(neq_j.band_layout) and timings["band_bw"] == bw
-        assert timings["band_layout"].startswith(f"nb={neq_t.band_layout[3]} ")
+        assert neq_t.factor.layout == tuple(neq_j.band_layout) and timings["band_bw"] == bw
+        assert timings["band_layout"].startswith(f"nb={neq_t.factor.layout.nb} ")
         if make is _chain_shuffled:
-            assert neq_t.band_perm is not None
-        if neq_t.band_perm is None:
+            assert neq_t.factor.perm is not None
+        if neq_t.factor.perm is None:
             assert neq_j.band_perm is None and np.array_equal(perm, np.arange(con))
         else:
-            np.testing.assert_array_equal(neq_t.band_perm.numpy(), perm)
-            np.testing.assert_array_equal(neq_t.band_inv_perm.numpy(), np.asarray(neq_j.band_inv_perm))
+            np.testing.assert_array_equal(neq_t.factor.perm.numpy(), perm)
+            np.testing.assert_array_equal(neq_t.factor.inv_perm.numpy(), np.asarray(neq_j.band_inv_perm))
     rng = np.random.default_rng(5)
     rhs = A @ rng.standard_normal(A.shape[1])  # consistent
     y_t = neq_t.solve(torch.as_tensor(rhs))
@@ -438,12 +439,12 @@ def test_convert_carries_packed_and_banded_solvers(mode, make):
     neq_t = convert.normal_solver_from_numpy(neq_j, CPU)
     assert neq_t.mode == mode and neq_t.applies == 4 and neq_t.eps_used == neq_j.eps_used
     if mode == "packed":
-        assert neq_t.packed_layout == tuple(neq_j.packed_layout)
-        np.testing.assert_array_equal(neq_t.packed_tiles.numpy(), np.asarray(neq_j.packed_tiles, np.float32))
+        assert neq_t.factor.layout == tuple(neq_j.packed_layout)
+        np.testing.assert_array_equal(neq_t.factor.tiles.numpy(), np.asarray(neq_j.packed_tiles, np.float32))
     else:
-        assert neq_t.band_layout == tuple(neq_j.band_layout)
-        np.testing.assert_array_equal(neq_t.band_tiles.numpy(), np.asarray(neq_j.band_tiles, np.float32))
-        for mine, theirs in ((neq_t.band_perm, neq_j.band_perm), (neq_t.band_inv_perm, neq_j.band_inv_perm)):
+        assert neq_t.factor.layout == tuple(neq_j.band_layout)
+        np.testing.assert_array_equal(neq_t.factor.tiles.numpy(), np.asarray(neq_j.band_tiles, np.float32))
+        for mine, theirs in ((neq_t.factor.perm, neq_j.band_perm), (neq_t.factor.inv_perm, neq_j.band_inv_perm)):
             assert (mine is None) == (theirs is None)
             if mine is not None:
                 np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
@@ -519,7 +520,7 @@ def test_dense_semidefinite_solve_is_finite():
     r, c, v, _ = _semidefinite_at()
     sa = tsparse.build_sparse_a(r, c, v, 4, 10, torch.float64, CPU)
     neq = tchol.build_normal_solver(r, c, v, 4, 10, sa, "dense", torch.float64, CPU)
-    assert neq.chol_l.dtype == torch.float64 and neq.eps_used >= 1e-14
+    assert neq.factor.chol_l.dtype == torch.float64 and neq.eps_used >= 1e-14
     assert torch.isfinite(neq.solve(torch.ones(4, dtype=torch.float64))).all()
 
 
@@ -562,17 +563,19 @@ def test_split_matches_jax(case):
     # the residual only by 1e-2.
     neq_j = jchol.build_normal_solver(r, c, v, con, vec_len, sa_j, "split", jnp.float64, applies=6)
     neq_t = tchol.build_normal_solver(r, c, v, con, vec_len, sa_t, "split", torch.float64, CPU, applies=6)
-    p = neq_t.split_p
-    assert p == neq_j.split_p == {"permuted": 10, "quasar": 31, "diagonal": 0}[case]
-    np.testing.assert_array_equal(neq_t.tail_inv_diag.numpy(), np.asarray(neq_j.tail_inv_diag))
-    for mine, theirs in ((neq_t.split_perm, neq_j.split_perm), (neq_t.split_inv_perm, neq_j.split_inv_perm)):
+    p = neq_t.factor.p
+    assert p == neq_t.split_p == neq_j.split_p == {"permuted": 10, "quasar": 31, "diagonal": 0}[case]
+    np.testing.assert_array_equal(neq_t.factor.tail_inv_diag.numpy(), np.asarray(neq_j.tail_inv_diag))
+    for mine, theirs in ((neq_t.factor.perm, neq_j.split_perm), (neq_t.factor.inv_perm, neq_j.split_inv_perm)):
         assert (mine is None) == (theirs is None) == (case != "permuted")
         if mine is not None:
             np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
     if p:
-        assert neq_t.inv_l.dtype == torch.float32 and neq_t.inv_l.shape[0] == 128 and neq_t.chol_l is None
+        prefix = neq_t.factor.prefix
+        assert isinstance(prefix, tchol.InverseFactor) and neq_t.inv_l is prefix.inv_l
+        assert prefix.inv_l.dtype == torch.float32 and prefix.inv_l.shape[0] == 128
     else:
-        assert neq_t.inv_l is None and neq_t._residual_buffer() is None
+        assert neq_t.factor.prefix is None and neq_t.inv_l is None and neq_t.factor.buffer() is None
     rng = np.random.default_rng(3)
     rhs = np.array(jsparse.spmv_a(sa_j, jnp.asarray(rng.standard_normal(vec_len))))
     warm = rng.standard_normal(con)
@@ -597,7 +600,7 @@ def test_split_calibrates_on_quasar():
         prob.At_rows, prob.At_cols, vals, prob.con_num, prob.vec_len, sa, "auto", torch.float64, CPU,
         applies=0, timings=timings,
     )
-    assert neq.mode == "split" and neq.split_perm is None and 1 <= neq.applies <= tchol.CALIBRATE_MAX_APPLIES
+    assert neq.mode == "split" and neq.factor.perm is None and 1 <= neq.applies <= tchol.CALIBRATE_MAX_APPLIES
     assert "split_factorize" in timings and "calibrate" in timings
     rhs = tsparse.aat_matvec(sa, torch.as_tensor(np.random.default_rng(1).standard_normal(prob.con_num)))
     assert float(neq.residual_norm(rhs, neq.solve(rhs))) < 1e-10
@@ -630,12 +633,13 @@ def test_cg_matches_jax(precond):
     neq_j = jchol.build_normal_solver(r, c, v, con, vec_len, sa_j, "cg", jnp.float64, **kw)
     timings = {}
     neq_t = tchol.build_normal_solver(r, c, v, con, vec_len, sa_t, "cg", torch.float64, CPU, timings=timings, **kw)
-    assert neq_t.cg_tol == neq_j.cg_tol == 64 * np.finfo(np.float64).eps
-    np.testing.assert_array_equal(neq_t.inv_diag.numpy(), np.asarray(neq_j.inv_diag))
-    assert (neq_t.bj_inv is None) == (neq_j.bj_inv is None) == (precond != "block_jacobi")
-    assert (neq_t.fsai_g is None) == (neq_j.fsai_g is None) == (precond != "fsai")
+    cg = neq_t.factor
+    assert cg.tol == neq_j.cg_tol == 64 * np.finfo(np.float64).eps
+    np.testing.assert_array_equal(cg.inv_diag.numpy(), np.asarray(neq_j.inv_diag))
+    assert (cg.bj_inv is None) == (neq_j.bj_inv is None) == (precond != "block_jacobi")
+    assert (cg.fsai_g is None) == (neq_j.fsai_g is None) == (precond != "fsai")
     if precond == "block_jacobi":
-        np.testing.assert_array_equal(neq_t.bj_inv.numpy(), np.asarray(neq_j.bj_inv))
+        np.testing.assert_array_equal(cg.bj_inv.numpy(), np.asarray(neq_j.bj_inv))
     if precond == "fsai":
         assert timings["fsai_nnz"] > con and "fsai_build" in timings
     rhs = rng.standard_normal(con)
@@ -655,7 +659,7 @@ def test_cg_auto_falls_back_to_block_jacobi(monkeypatch):
 
     monkeypatch.setattr(tchol, "build_fsai", broken)
     neq = tchol.build_normal_solver(r, c, v, 96, 400, sa, "cg", torch.float64, CPU, cg_block_jacobi=32)
-    assert neq.fsai_g is None and neq.bj_inv.shape == (3, 32, 32)
+    assert neq.factor.fsai_g is None and neq.factor.bj_inv.shape == (3, 32, 32)
     with pytest.raises(np.linalg.LinAlgError):
         tchol.build_normal_solver(r, c, v, 96, 400, sa, "cg", torch.float64, CPU, cg_precond="fsai")
 
@@ -734,14 +738,15 @@ def test_convert_carries_dense_split_and_cg_solvers(mode):
     neq_t = convert.normal_solver_from_numpy(neq_j, CPU)
     assert neq_t.mode == mode and neq_t.applies == neq_j.applies
     if mode in ("dense", "split"):  # the JAX package's f64 CPU factor
-        np.testing.assert_array_equal(neq_t.chol_l.numpy(), np.asarray(neq_j.chol_l))
-        assert neq_t.chol_l.dtype == torch.float64 and neq_t.inv_l is None
+        chol_l = (neq_t.factor.prefix if mode == "split" else neq_t.factor).chol_l
+        np.testing.assert_array_equal(chol_l.numpy(), np.asarray(neq_j.chol_l))
+        assert chol_l.dtype == torch.float64 and neq_t.inv_l is None
     if mode == "split":
-        assert neq_t.split_p == neq_j.split_p == 31 and neq_t.split_perm is None
-        np.testing.assert_array_equal(neq_t.tail_inv_diag.numpy(), np.asarray(neq_j.tail_inv_diag))
+        assert neq_t.factor.p == neq_j.split_p == 31 and neq_t.factor.perm is None
+        np.testing.assert_array_equal(neq_t.factor.tail_inv_diag.numpy(), np.asarray(neq_j.tail_inv_diag))
     if mode == "cg":
-        assert (neq_t.cg_tol, neq_t.cg_max_iter) == (neq_j.cg_tol, neq_j.cg_max_iter)
-        assert neq_t.fsai_g is not None and neq_t.aat_tbl.out_len == prob.con_num
+        assert (neq_t.factor.tol, neq_t.factor.max_iter) == (neq_j.cg_tol, neq_j.cg_max_iter)
+        assert neq_t.factor.fsai_g is not None and neq_t.factor.aat_tbl.out_len == prob.con_num
     rhs = np.array(jsparse.spmv_a(sa_j, jnp.asarray(np.random.default_rng(6).standard_normal(sa_j.vec_len))))
     y_t = neq_t.solve(torch.as_tensor(rhs)).numpy()
     y_j = np.asarray(neq_j.solve(jnp.asarray(rhs)))

@@ -124,7 +124,7 @@ def test_plain_replay_matches_run_chunk(case):
     make, cfg, opts, chunks = CASES[case]
     solver = _solver(make(), **cfg)
     if case == "split":
-        assert solver.params.neq.mode == "split" and solver.params.neq.split_p == 61
+        assert solver.params.neq.mode == "split" and solver.params.neq.factor.p == 61
     step = _step(solver, **opts)
     runner = _runner_vs_eager(step, solver.params, _start(solver), chunks)
     branches = {step.in_sgs(k) for k in range(sum(chunks))}
@@ -255,8 +255,8 @@ def test_recovery_swaps_the_step_and_matches_eager(monkeypatch):
     def run():
         s = _solver(_grid(), check_every=4, switch_admm=10**9)
         good = s.params.neq
-        s.params = dataclasses.replace(
-            s.params, neq=dataclasses.replace(good, inv_l=torch.full_like(good.inv_l, float("nan"))))
+        bad = dataclasses.replace(good.factor, inv_l=torch.full_like(good.factor.inv_l, float("nan")))
+        s.params = dataclasses.replace(s.params, neq=dataclasses.replace(good, factor=bad))
 
         def restart_and_repair(self, state, level):
             out = restart(self, state, level)
@@ -409,7 +409,8 @@ def test_recovery_recaptures_on_card():
         pytest.skip("needs a CUDA device")
     s = _solver(_certified(), device="cuda", check_every=5, switch_admm=10**9)
     neq = s.params.neq
-    s.params = dataclasses.replace(s.params, neq=dataclasses.replace(neq, inv_l=torch.full_like(neq.inv_l, float("nan"))))
+    bad = dataclasses.replace(neq.factor, inv_l=torch.full_like(neq.factor.inv_l, float("nan")))
+    s.params = dataclasses.replace(s.params, neq=dataclasses.replace(neq, factor=bad))
     res = s.solve(max_iter=30, stop_tol=0.0)
     assert res.recoveries >= 1 and res.iterations == 30
     assert s.chunk_runner == ("eager" if s.params.neq.mode == "cg" else "graphs")

@@ -290,8 +290,8 @@ def test_rp_hp_survives_recovery_and_probation(monkeypatch):
         if len(calls) == 1:  # first check: a stall; rp_hp goes on
             return True
         if len(calls) == 2:  # poison the factor: the next chunk diverges
-            s.params = dataclasses.replace(
-                s.params, neq=dataclasses.replace(good, inv_l=torch.full_like(good.inv_l, float("nan"))))
+            bad = dataclasses.replace(good.factor, inv_l=torch.full_like(good.factor.inv_l, float("nan")))
+            s.params = dataclasses.replace(s.params, neq=dataclasses.replace(good, factor=bad))
         return False
 
     good = s.params.neq

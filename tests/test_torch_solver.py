@@ -22,6 +22,7 @@ from cuadmm_tpu.models.chordal import maxcut_chordal
 from cuadmm_tpu.models.random_sdp import random_certified_sdp
 
 import cuadmm_tpu_torch
+from cuadmm_tpu_torch.ops import chol as tchol
 
 torch.set_num_threads(1)
 
@@ -192,9 +193,8 @@ def test_probation_window_after_recovery(monkeypatch):
     )
     s = cuadmm_tpu_torch.SDPSolver(_grid(), cfg, device="cpu")
     good = s.params.neq
-    s.params = dataclasses.replace(
-        s.params, neq=dataclasses.replace(good, inv_l=torch.full_like(good.inv_l, float("nan")))
-    )
+    bad = dataclasses.replace(good.factor, inv_l=torch.full_like(good.factor.inv_l, float("nan")))
+    s.params = dataclasses.replace(s.params, neq=dataclasses.replace(good, factor=bad))
     restart = driver.SDPSolver._recovery_restart
 
     def restart_and_repair(self, state, level):
@@ -249,7 +249,7 @@ def _record_restarts(monkeypatch) -> list:
     def recording(self, state, level):
         out = restart(self, state, level)
         neq = self.params.neq
-        seen.append((level, neq.mode, neq.applies, neq.cg_max_iter))
+        seen.append((level, neq.mode, neq.applies, getattr(neq.factor, "max_iter", None)))
         return out
 
     monkeypatch.setattr(driver.SDPSolver, "_recovery_restart", recording)
@@ -268,7 +268,8 @@ def test_divergence_guard_and_recovery_levels(monkeypatch):
     def poisoned(config):
         s = cuadmm_tpu_torch.SDPSolver(_certified(), config, device="cpu")
         neq = s.params.neq
-        bad = dataclasses.replace(neq, inv_l=torch.full_like(neq.inv_l, float("nan")))
+        poisoned = dataclasses.replace(neq.factor, inv_l=torch.full_like(neq.factor.inv_l, float("nan")))
+        bad = dataclasses.replace(neq, factor=poisoned)
         s.params = dataclasses.replace(s.params, neq=bad)
         return s
 
@@ -278,7 +279,7 @@ def test_divergence_guard_and_recovery_levels(monkeypatch):
     s = poisoned(cfg)
     applies = s.params.neq.applies
     res = s.solve(max_iter=50, stop_tol=1e-6)
-    assert seen == [(1, "precond", applies + 2, 400), (2, "cg", 2, 800)]
+    assert seen == [(1, "precond", applies + 2, None), (2, "cg", 2, 800)]
     assert res.recoveries == 2 and not res.diverged and res.iterations == 50
     assert np.all(np.isfinite(res.info["errRp"][2:]))
 
@@ -294,15 +295,15 @@ def test_level2_recovery_converges_like_jax():
     )
     s = cuadmm_tpu_torch.SDPSolver(prob, cfg, device="cpu")
     neq = s.params.neq
-    assert neq.mode == "dense" and neq.chol_l.dtype == torch.float64
-    zero = dataclasses.replace(neq, chol_l=torch.zeros_like(neq.chol_l))
+    assert neq.mode == "dense" and neq.factor.chol_l.dtype == torch.float64
+    zero = dataclasses.replace(neq, factor=tchol.CholFactor(torch.zeros_like(neq.factor.chol_l)))
     s.params = dataclasses.replace(s.params, neq=zero)
     res = s.solve(max_iter=8000, stop_tol=1e-6)
     assert res.recoveries >= 1 and s.params.neq.mode == "cg"
     assert res.converged and not res.diverged
     assert abs(res.pobj - opt) / (1 + abs(opt)) < 1e-4
     s2 = cuadmm_tpu_torch.SDPSolver(prob, cfg.replace(divergence_recovery=False), device="cpu")
-    s2.params = dataclasses.replace(s2.params, neq=dataclasses.replace(s2.params.neq, chol_l=zero.chol_l))
+    s2.params = dataclasses.replace(s2.params, neq=dataclasses.replace(s2.params.neq, factor=zero.factor))
     res2 = s2.solve(max_iter=200, stop_tol=1e-6)
     assert res2.diverged and res2.recoveries == 0
 
@@ -318,9 +319,9 @@ def test_grid_packed_and_banded_match_jax(mode):
     neq = t.params.neq
     assert neq.mode == j.params.neq.mode == mode
     if mode == "packed":
-        assert neq.packed_layout[2:4] == (256, 6)
+        assert neq.factor.layout[2:4] == (256, 6)
     else:
-        assert neq.band_layout[2:5] == (512, 3, 1) and neq.band_perm is not None
+        assert neq.factor.layout[2:5] == (512, 3, 1) and neq.factor.perm is not None
         assert t.init_breakdown["neq.band_bw"] == 4
     rj = j.solve(max_iter=50, stop_tol=0.0)
     rt = t.solve(max_iter=50, stop_tol=0.0)
@@ -336,7 +337,7 @@ def test_auto_past_the_ceiling_raises_cg_on_the_cpu():
     64 eps64, the port's FSAI tables are the JAX package's)."""
     j, t = _both(_grid(8, 12), normal_solver="auto", dense_chol_max=1000, switch_admm=10, check_every=10)
     neq = t.params.neq
-    assert neq.mode == j.params.neq.mode == "cg" and neq.fsai_g is not None
+    assert neq.mode == j.params.neq.mode == "cg" and neq.factor.fsai_g is not None
     assert t.init_breakdown["neq.fsai_nnz"] > 1342
     rj = j.solve(max_iter=20, stop_tol=0.0)
     rt = t.solve(max_iter=20, stop_tol=0.0)
@@ -354,7 +355,8 @@ def test_banded_level1_recovery_adds_two_sweeps():
     s = cuadmm_tpu_torch.SDPSolver(_grid(), cfg, device="cpu")
     neq = s.params.neq
     assert neq.mode == "banded"
-    bad = dataclasses.replace(neq, band_tiles=torch.full_like(neq.band_tiles, float("nan")))
+    poisoned = dataclasses.replace(neq.factor, tiles=torch.full_like(neq.factor.tiles, float("nan")))
+    bad = dataclasses.replace(neq, factor=poisoned)
     s.params = dataclasses.replace(s.params, neq=bad)
     res = s.solve(max_iter=1, stop_tol=1e-6)
     assert res.recoveries == 1
@@ -390,8 +392,8 @@ def test_split_slice_matches_jax(make, p):
     iterations, the switch to ADMM at 100, info rows within rtol 1e-6."""
     j, t = _both(make(), normal_solver="auto", switch_admm=100, check_every=50)
     neq = t.params.neq
-    assert neq.mode == j.params.neq.mode == "split" and neq.split_p == p and neq.split_perm is None
-    assert (neq.inv_l is None) == (p == 0)
+    assert neq.mode == j.params.neq.mode == "split" and neq.factor.p == p and neq.factor.perm is None
+    assert (neq.factor.prefix is None) == (p == 0)
     rj = j.solve(max_iter=200, stop_tol=0.0)
     rt = t.solve(max_iter=200, stop_tol=0.0)
     assert rj.iterations == rt.iterations == 200

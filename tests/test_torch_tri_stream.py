@@ -418,16 +418,16 @@ def test_a_narrow_band_whose_derived_tiles_do_not_fit_runs_two_hop():
     small = dataclasses.replace(card, band_max_bytes=fits, band_model=lambda T, B, nb: -B)  # B 1024
     neq = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=2,
                                     limits=small)
-    assert tuple(neq.band_layout) == tuple(lay) and lay.nbw == 1
-    assert neq.band_form == "two_hop" and neq.band_chain is None
+    assert neq.factor.layout == lay and lay.nbw == 1
+    assert neq.factor.form == "two_hop" and neq.factor.chain is None
     full = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=2,
                                      limits=dataclasses.replace(small, band_max_bytes=tts.band_bytes(lay, "chain")))
-    assert full.band_form == "chain" and full.band_chain is not None
-    torch.testing.assert_close(neq.band_tiles, full.band_tiles, rtol=0, atol=0)
+    assert full.factor.form == "chain" and full.factor.chain is not None
+    torch.testing.assert_close(neq.factor.tiles, full.factor.tiles, rtol=0, atol=0)
     r = torch.as_tensor(np.random.default_rng(4).standard_normal(lay.n_pad), dtype=torch.float32)
-    y = neq._apply_factor(r)
+    y = neq.factor.apply(r)
     assert bool(torch.isfinite(y).all())
-    torch.testing.assert_close(y, full._apply_factor(r), rtol=0, atol=0)
+    torch.testing.assert_close(y, full.factor.apply(r), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("lay", CHAIN_LAYOUTS[:3], ids=CHAIN_IDS[:3])
@@ -553,17 +553,17 @@ def test_banded_solvers_from_the_build_and_convert_carry_chain_tiles():
     neq_j = jchol.build_normal_solver(*args, jsparse.build_sparse_a(*args, jnp.float64), "banded", jnp.float64,
                                       applies=2)
     neq_c = convert.normal_solver_from_numpy(neq_j, torch.device("cpu"))
-    lay = tts.BandLayout(*neq_t.band_layout)
-    assert tuple(neq_c.band_layout) == tuple(lay) and lay.nb > 1 and 0 < lay.nbw <= tts.NBW_CHAIN
+    lay = neq_t.factor.layout
+    assert neq_c.factor.layout == lay and lay.nb > 1 and 0 < lay.nbw <= tts.NBW_CHAIN
     for neq in (neq_t, neq_c):
-        assert neq.band_form == "chain"
-        assert neq.band_chain is not None and neq.band_chain.dtype == torch.float32
-        torch.testing.assert_close(neq.band_chain, tts.band_chain(neq.band_tiles, lay), rtol=0, atol=0)
+        assert neq.factor.form == "chain"
+        assert neq.factor.chain is not None and neq.factor.chain.dtype == torch.float32
+        torch.testing.assert_close(neq.factor.chain, tts.band_chain(neq.factor.tiles, lay), rtol=0, atol=0)
     used = [k for i in range(lay.nb) for j in range(max(0, i - lay.nbw), i)
             for k in (tts.chain_slot(i, j, lay), lay.nb * lay.nbw + tts.chain_slot(i, j, lay))]
     rel = lambda a, b: float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double()))
-    tiles_rel = rel(neq_t.band_tiles[: lay.T], neq_c.band_tiles[: lay.T])  # the JAX package's CPU factor is f64
-    assert rel(neq_t.band_chain[used], neq_c.band_chain[used]) <= 2 * tiles_rel + 1e-6
+    tiles_rel = rel(neq_t.factor.tiles[: lay.T], neq_c.factor.tiles[: lay.T])  # the JAX package's CPU factor is f64
+    assert rel(neq_t.factor.chain[used], neq_c.factor.chain[used]) <= 2 * tiles_rel + 1e-6
     wide = tts.make_band_layout(1000, 900, 128)  # nbw 7
     assert wide.nbw > tts.NBW_CHAIN and tchol.chain_tiles(torch.zeros(wide.T + 1, 128, 128), wide) == ("two_hop", None)
 
