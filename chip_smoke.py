@@ -86,6 +86,16 @@ Phases, in order; any failure raises and exits non-zero:
    1e-15 (f64) / 1e-6 (f32) of the largest |entry|; kernel and plain
    version timed as replayed CUDA graphs beside the bound (the triangles
    read and the square written, 48.2 MB in f64, at 3.35 TB/s);
+7c. hold the bucketed-ELL product kernel (csrc/ell_products.cu) against
+   its plain versions on the tables the solver builds for G11's torus
+   (the gset_g11 cells; also with 8 instances, as the family runs them),
+   QUASAR-500 and the G22-size max-cut (A^T placed by out_pos: the
+   compact AA^T), in f64 and f32: A x, A^T y and AA^T y, one launch a
+   product and two an AA^T y, the same bits twice, within 1e-14 (f64) /
+   1e-6 (f32) relative; kernel and plain version timed as replayed CUDA
+   graphs beside the byte bound (tables, maps, input and output once). Every
+   main-path run below is gated on the kernel's launches: 5 an sGS
+   iteration and 3 an ADMM one, two a refinement sweep;
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -272,7 +282,7 @@ from cuadmm_tpu_torch.models.chordal import maxcut_chordal, maxcut_chordal_famil
 from cuadmm_tpu_torch.models.maxcut import maxcut_sdp, random_graph
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
-from cuadmm_tpu_torch.ops import chol, jacobi, limits, polyfilter, precond_apply, sym_products, tri_stream
+from cuadmm_tpu_torch.ops import chol, jacobi, limits, polyfilter, precond_apply, sparse, sym_products, tri_stream
 from cuadmm_tpu_torch.ops.dispatch import bucket_method, choose_methods
 from cuadmm_tpu_torch.ops.projection import psd_project, psd_project_pool, reconstruct_clamped
 from cuadmm_tpu_torch.ops.sparse import aat_matvec, build_sparse_a, normalize_rows
@@ -287,6 +297,7 @@ from cuadmm_tpu_torch.solver.step import make_chunk_runner, run_chunk
 from cuadmm_tpu_torch.structure import BlockStructure
 from cuadmm_tpu_torch.trace import COUNTS, reset as reset_counts
 from cuadmm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from portbench.generators.toroidal_maxcut import toroidal_grid
 
 # 5120: QUASAR-500, 17152: stand-in, 32512: grid, 44416: the 20x80 grid.
 K1_SIZES = (128, 1024, 5120, 17152, 32512, 32768, 44416, 65536)
@@ -329,6 +340,8 @@ TRI_REPS = 5
 MIRROR_N = 2004  # QUASAR-500's block, the one the poly filter's one-triangle route takes
 # Of the largest |entry|: the kernel's one fma against mirror_ref's multiply and add.
 MIRROR_REL_TOL = {torch.float64: 1e-15, torch.float32: 1e-6}
+ELL_REL_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}  # sums in another order than the plain version's
+ELL_LEAD = 8  # the family cell's instances
 LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
 # The large grid's band (RCM bandwidth 4) as the card's band model picks it
@@ -382,7 +395,7 @@ def card() -> str:
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("precond_apply", "jacobi_eigh", "tri_stream")
+    names = ("precond_apply", "jacobi_eigh", "tri_stream", "ell_products")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -704,12 +717,16 @@ KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k4": ("jacobi_eigh_kernel", "jacobi_cta_kernel"),
     "k2k3": ("tri_sweep_kernel", "chain_sweep_kernel"),  # the two-hop and the one-hop sweep
     "sym_mirror": ("sym_mirror_kernel",),  # the poly filter's mirror pass
+    "ell": ("ell_gather_kernel",),  # the bucketed-ELL products
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
 # The device op one launch of each wrapper makes exactly once (K2/K3: twice,
 # one sweep kernel per sweep), which the profiler counts.
 # K4 launches one of its plans' kernels.
+# The ELL kernel's launches are gated by ``ell_schedule`` instead: 11 to 25
+# an iteration, they would make a dropped profiler event (below) hit a
+# counted kernel several times as often.
 KERNEL_EVENT = {"k1": ("fused_spd_apply_kernel",), "k4": KERNEL_OPS["k4"], "k2k3": KERNEL_OPS["k2k3"],
                 "sym_mirror": KERNEL_OPS["sym_mirror"]}
 
@@ -724,6 +741,13 @@ def _profiler_launches(dev_events) -> dict:
 # with the counters is traced again over half the iterations, up to
 # PROFILE_TRIES times.
 PROFILE_TRIES = 3
+# In a long-lived process the profiler also loses the first few kernel
+# records of a trace: in the graphs phase the first K1 of a graphed window,
+# six kernels into it, went missing in every trace on an H100.
+# PROFILE_SPINS spin kernels open each trace in its place and are left out
+# of every count and time.
+PROFILE_SPINS = 64
+SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
 def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
@@ -740,17 +764,22 @@ def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
         torch.cuda.synchronize()
         before = dict(COUNTS)
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(PROFILE_SPINS):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn(iters)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         counted = {k: v - before[k] for k, v in COUNTS.items()}
-        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and SPIN_KERNEL not in e.key]
         events = _profiler_launches(dev)
         want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]),
                     sym_mirror=counted["sym_mirror"])
         if events == want or not graphed:
             return dev, wall_us, counted, events, iters
+        print(f"{what}: {iters} iterations traced, launch counters {want} against the profiler's {events}")
         iters = max(iters // 2, 1)
     check(False, f"{what}: launch counters {want} against the profiler's {events} in {PROFILE_TRIES} traces")
 
@@ -824,10 +853,27 @@ def timed_run(solver, iters: int, warm: int = 100):
     return res, elapsed, counts
 
 
-def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str) -> None:
+def ell_schedule(solver, iters: int) -> int:
+    """The ELL kernel's launches in ``iters`` iterations of a cold solve:
+    the step's products (5 an sGS iteration, 3 an ADMM one; solver/step.py)
+    and two a refinement sweep (aat_matvec), ``applies`` a normal solve."""
+    sgs = min(iters, max(solver.config.switch_admm - 1, 0))
+    solves = 2 * sgs + (iters - sgs)
+    return 5 * sgs + 3 * (iters - sgs) + 2 * solver.params.neq.applies * solves
+
+
+def _gate_ell(solver, launched: int, iters: int, what: str, built: bool = False) -> None:
+    """``launched`` is the schedule's count, or at least it where the count
+    also covers the solver's build (``built``: its calibration's products)."""
+    want = ell_schedule(solver, iters)
+    check(launched >= want if built else launched == want,
+          f"{what}: the ELL kernel launched {launched} times, not {want}{' or more' if built else ''}")
+
+
+def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str, built: bool = False) -> None:
     """The normal solver's kernel (K1, K2 or K3 by its mode) on every
     refinement sweep; K4 on every jacobi bucket of every iteration, and
-    nowhere else."""
+    nowhere else; the ELL kernel as ``ell_schedule`` says (``_gate_ell``)."""
     applies = solver.params.neq.applies
     k = FACTOR_KERNEL[solver.params.neq.mode]
     check(counts[k] >= iters * solves * applies,
@@ -836,6 +882,7 @@ def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str) -> 
                      for m, bk in zip(_methods(solver), solver.structure.buckets))
     check(counts["k4"] >= iters * k4_buckets and (k4_buckets or counts["k4"] == 0),
           f"{what}: K4 launched {counts['k4']} times for {k4_buckets} jacobi buckets x {iters}")
+    _gate_ell(solver, counts["ell"], iters, what, built)
 
 
 def _probe_normal_solve(solver, con_num: int) -> float:
@@ -1169,6 +1216,102 @@ def compare_mirror() -> dict:
         torch.cuda.empty_cache()
     emit("sym_mirror", rows)
     return {k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+def _ell_tables(prob: Problem, dtype: torch.dtype) -> sparse.SparseA:
+    """A's tables as the solver builds them (solver/driver.py, init.ell_tables):
+    normalized rows in pool coordinates, an f32 copy the device cast of the
+    f64 one."""
+    cfg = SolverConfig()
+    st = BlockStructure(prob.blk, cfg.bucket_rounding, cfg.exact_above, 0)
+    _, at_vals = normalize_rows(prob.At_rows, prob.At_cols, prob.At_vals, prob.con_num)
+    return sparse.build_sparse_a_pool(prob.At_rows, prob.At_cols, at_vals, prob.con_num, st,
+                                      (torch.float64, dtype), "cuda")[-1]
+
+
+def _ell_bytes(t: sparse.EllTable, lead: int, size: int, idx=None, placed: bool = True) -> dict:
+    """What one launch over table ``t`` must move at the least: its indices
+    and values, its placement map (none where ``placed`` is False: the
+    compact sums in row order), the entries of x the table's indices name,
+    and the output, once each; ``idx`` in place of the table's indices (the
+    compact half's) for the tables' bytes."""
+    own = torch.cat([i.reshape(-1) for i in t.idx])
+    named = int(torch.unique(own[own < t.in_len]).numel())
+    entries = sum(i.numel() for i in (t.idx if idx is None else idx))
+    rows = sum(i.shape[0] for i in t.idx)
+    maps = 0 if not placed else 8 * (t.out_perm.numel() if t.out_perm is not None else 2 * t.out_pos.numel())
+    return dict(tables=entries * (8 + size) + maps, x=lead * size * named,
+                out=lead * size * (t.out_len if placed else rows))
+
+
+def compare_ell() -> dict:
+    """The ELL kernel (csrc/ell_products.cu) on the tables of G11's torus
+    (one instance and ELL_LEAD, as the family runs them), QUASAR-500 and the
+    G22-size max-cut (A^T by out_pos, AA^T y compact), in f64 and f32: A x,
+    A^T y and AA^T y against the plain versions on the same card tensors
+    (within ELL_REL_TOL, the same bits twice, one launch a product and two
+    an AA^T y), kernel and plain version timed as replayed CUDA graphs
+    beside the byte bound (an AA^T y's without its intermediate; x's
+    entries that the indices name, not all of x). Returns
+    the f64 rows of QUASAR-500's and G11's AA^T y for the kernels line."""
+    t0 = time.perf_counter()
+    probs = (("gset_g11", maxcut_chordal(toroidal_grid(100, 8))[0], (1, ELL_LEAD)),
+             ("quasar500", quasar_problem(QUASAR_POSES), (1,)),
+             ("g22_size", maxcut_sdp(random_graph(G22_NODES, p=G22_EDGE_P, seed=22)), (1,)))
+    print(f"ell problems: {time.perf_counter() - t0:.1f} s")
+    rows = []
+    for name, prob, leads in probs:
+        for dtype in (torch.float64, torch.float32):
+            sa = _ell_tables(prob, dtype)
+            size = 8 if dtype == torch.float64 else 4
+            compact = sa.a_idx_compact is not None
+            for lead in leads:
+                shape = (lead,) if lead > 1 else ()
+                rng = np.random.default_rng(71)
+                x = torch.as_tensor(rng.standard_normal(shape + (sa.vec_len,)), dtype=dtype, device="cuda")
+                y = torch.as_tensor(rng.standard_normal(shape + (sa.con_num,)), dtype=dtype, device="cuda")
+                b_a, b_at = _ell_bytes(sa.a, lead, size), _ell_bytes(sa.at, lead, size)
+                b_second = _ell_bytes(sa.a, lead, size, sa.a_idx_compact) if compact else b_a
+                b_aat = (_ell_bytes(sa.at, lead, size, placed=False) if compact else b_at)["tables"] \
+                    + b_at["x"] + b_second["tables"] + b_second["out"]
+                products = (
+                    ("A x", sparse.spmv_a, lambda v: sparse._ell_matvec_ref(sa.a, v), x, 1, sum(b_a.values())),
+                    ("A^T y", sparse.spmv_at, lambda v: sparse._ell_matvec_ref(sa.at, v), y, 1, sum(b_at.values())),
+                    ("AA^T y", sparse.aat_matvec,
+                     (lambda v: sparse._aat_compact_ref(sa, v)) if compact
+                     else (lambda v: sparse._ell_matvec_ref(sa.a, sparse._ell_matvec_ref(sa.at, v))),
+                     y, 2, b_aat),
+                )
+                for what, fn, ref, v, launches, nbytes in products:
+                    label = f"ell {name} lead {lead} {str(dtype)[6:]} {what}"
+                    before = COUNTS["ell"]
+                    got = fn(sa, v)
+                    again = fn(sa, v)
+                    torch.cuda.synchronize()
+                    check(COUNTS["ell"] == before + 2 * launches,
+                          f"{label}: {COUNTS['ell'] - before} launches for two calls, not {2 * launches}")
+                    check(torch.equal(got, again), f"{label}: two launches differ")
+                    want = ref(v)
+                    rel = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+                    check(rel <= ELL_REL_TOL[dtype], f"{label}: rel err {rel:.3e}")
+                    ms = graph_ms(lambda: fn(sa, v))
+                    plain_ms = graph_ms(lambda: ref(v))
+                    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    rows.append(dict(table=name, lead=lead, dtype=str(dtype)[6:], product=what, rel_err=rel,
+                                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                                     share=bound_ms / ms, bytes=nbytes, launches=launches, compact=compact,
+                                     a_widths=[i.shape[1] for i in sa.a.idx],
+                                     at_widths=[i.shape[1] for i in sa.at.idx], deterministic=True))
+                    print(f"{label}: rel_err={rel:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                          f"bound_ms={bound_ms:.5f} share={bound_ms / ms:.3f}")
+            del sa
+            torch.cuda.empty_cache()
+    emit("ell_gather", rows)
+    pick = lambda table: next(r for r in rows if r["table"] == table and r["lead"] == 1
+                              and r["dtype"] == "float64" and r["product"] == "AA^T y")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rel_err")
+    return {"quasar500_aat": {k: pick("quasar500")[k] for k in keys},
+            "gset_g11_aat": {k: pick("gset_g11")[k] for k in keys}}
 
 
 def _tri_products_per_it(solver) -> int:
@@ -1580,6 +1723,7 @@ def standin_f32(prob: Problem) -> int:
         _gates(res, prob.vec_len, what)
         sweeps = iters * solver.params.neq.applies
         check(counts["k1"] == sweeps, f"{what}: K1 launched {counts['k1']} times, not {sweeps}")
+        _gate_ell(solver, counts["ell"], iters, what)
         lines[dt]["it_per_s"].append(iters / elapsed)
         lines[dt].update(launches=counts, errRp_first=float(res.info["errRp"][0]),
                          errRp_last=float(res.info["errRp"][-1]))
@@ -1745,6 +1889,7 @@ def batched() -> tuple:
     elapsed = time.perf_counter() - t0
     k1 = COUNTS["k1"]
     check(batch.chunk_runner == "graphs", f"batched: chunks ran {batch.chunk_runner!r}, not as graphs")
+    _gate_ell(batch, COUNTS["ell"], iters, "batched")
     sweeps = iters * neq.applies
     check(k1 == sweeps, f"batched: K1 launched {k1} times, not {iters} x {neq.applies}")
     check(COUNTS["k1_rhs"] == BATCH * k1,
@@ -2304,7 +2449,7 @@ def frontends_grid_cuadmm(grid_sedumi: Path) -> tuple:
     finite = all(np.all(np.isfinite(a)) for a in (X, y, S, err, info["errRd_arr"], info["relgap_arr"]))
     check(finite and X.shape == (prob.vec_len,), f"{what}: non-finite output")
     check(err[-1] < err[0], f"{what}: errRp did not decrease ({err[0]} -> {err[-1]})")
-    _gate_launches(solver, counts, FE_GRID_ITERS, 1, what)
+    _gate_launches(solver, counts, FE_GRID_ITERS, 1, what, built=True)
     line = dict(it_per_s=FE_GRID_ITERS / info["total_time"], wall_s=wall_s, applies=neq.applies,
                 launches=counts, errRp_first=float(err[0]), errRp_last=float(err[-1]))
     return line, counts
@@ -2629,6 +2774,7 @@ def main() -> None:
     k4 = timed_phase(compare_k4)
     k2k3 = timed_phase(compare_tri_stream)
     mirror = timed_phase(compare_mirror)
+    ell = timed_phase(compare_ell)
     prob = standin_problem()
     k1_launches = timed_phase(standin, prob)
     k4_launches = timed_phase(grid)
@@ -2662,6 +2808,8 @@ def main() -> None:
                     "G22-size auto f64": report["maxcut G22-size projection=auto"]["launches"]["sym_mirror"],
                     "quasar-500 poly f32": report["quasar-500 float32 projection=poly"]["launches"]["sym_mirror"],
                     "quasar one rank (mesh reference)": ms["quasar_one_rank_mirror"]}
+    ell_paths = {k: v["launches"]["ell"] for k, v in report.items()
+                 if isinstance(v, dict) and isinstance(v.get("launches"), dict) and "ell" in v["launches"]}
     kernels = {"kernels": [
         dict(name="fused_spd_apply", route="cuda", source="cuadmm_tpu_torch/csrc/precond_apply.cu",
              replaces="cuadmm_tpu/ops/precond_apply.py:64", launches=sum(k1_paths.values()),
@@ -2681,6 +2829,9 @@ def main() -> None:
              launches_by_path={"large grid f64": tri_launches["k3"], "large grid f32": k3_f32}, **k2k3["k3"]),
         dict(name="sym_mirror", route="cuda", source="cuadmm_tpu_torch/csrc/sym_mirror.cu", replaces="none",
              launches=sum(mirror_paths.values()), launches_by_path=mirror_paths, **mirror),
+        dict(name="ell_gather", route="cuda", source="cuadmm_tpu_torch/csrc/ell_products.cu",
+             replaces="none (the JAX package's ELL products are XLA gathers)",
+             launches=sum(ell_paths.values()), launches_by_path=ell_paths, **ell),
     ]}
     report.update(kernels)
     REPORT.parent.mkdir(exist_ok=True)

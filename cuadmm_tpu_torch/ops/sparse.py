@@ -8,15 +8,31 @@ multiply and a row sum, followed by one placement of the bucket outputs.
 Index tables are uploaded as int64, the index dtype of torch indexing.
 The products take vectors with leading instance axes, (..., length), for
 the batched solver; the tables are shared by every instance.
+
+On CUDA tensors every product is one launch of the hand-written kernel of
+``csrc/ell_products.cu`` (its source says what bounds it), two where the
+output is mostly zero (a fill, then the kernel's scatter): ``_ell_matvec``,
+and with it ``spmv_a``, ``spmv_at`` and each half of ``aat_matvec``. On CPU
+tensors they run the plain versions, ``_ell_matvec_ref`` and
+``_aat_compact_ref``. There is no fallback: on CUDA they launch or raise.
+A launch adds one to ``trace.COUNTS["ell"]``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Optional, Tuple, Union
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from cuadmm_tpu_torch import _build, trace
+
+MAX_BUCKETS = 32  # the kernel's descriptors a launch (csrc/ell_products.cu)
+
+_LIB = None  # the kernel's library, built on the first CUDA launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +58,11 @@ class EllTable:
     in_len: int
     out_len: int
 
+    @functools.cached_property
+    def launch_desc(self) -> np.ndarray:
+        """The kernel's bucket descriptors (``_descriptors``), made once."""
+        return _descriptors(self.idx, self.vals)
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseA:
@@ -57,6 +78,26 @@ class SparseA:
     con_num: int
     vec_len: int
     a_idx_compact: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @functools.cached_property
+    def compact_desc(self) -> np.ndarray:
+        """The descriptors of A's compact half: ``a_idx_compact`` with A's
+        values."""
+        return _descriptors(self.a_idx_compact, self.a.vals)
+
+
+def _descriptors(idx: Sequence[torch.Tensor], vals: Sequence[torch.Tensor]) -> np.ndarray:
+    """The kernel's view of a table's buckets, as int64: the nb + 1 row
+    offsets of the buckets among the concatenated rows (the total last),
+    then each bucket's index pointer, value pointer and width. The pointers
+    are the table's own tensors, used in place; the frozen table keeps them
+    alive."""
+    rows = [int(i.shape[0]) for i in idx]
+    return np.array(
+        [0, *np.cumsum(rows, dtype=np.int64).tolist(), *(i.data_ptr() for i in idx),
+         *(v.data_ptr() for v in vals), *(int(i.shape[1]) for i in idx)],
+        dtype=np.int64,
+    )
 
 
 def _build_ell_host(
@@ -261,8 +302,8 @@ def build_sparse_a_pool(
     return (first,) + tuple(cast_sparse_a(first, dt) for dt in dtypes[1:]) if several else first
 
 
-def _ell_matvec(t: EllTable, x: torch.Tensor) -> torch.Tensor:
-    """The table's product with ``x`` (..., in_len) -> (..., out_len)."""
+def _ell_matvec_ref(t: EllTable, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``_ell_matvec``."""
     lead = x.shape[:-1]
     x_ext = torch.cat([x, x.new_zeros(lead + (1,))], dim=-1)
     parts = [(v * x_ext[..., i]).sum(dim=-1) for i, v in zip(t.idx, t.vals)]
@@ -273,6 +314,82 @@ def _ell_matvec(t: EllTable, x: torch.Tensor) -> torch.Tensor:
         return out
     parts.append(x.new_zeros(lead + (1,)))  # sentinel for empty rows
     return torch.cat(parts, dim=-1)[..., t.out_perm]
+
+
+def _aat_compact_ref(sa: SparseA, y: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``aat_matvec``'s compact composition."""
+    zero = y.new_zeros(y.shape[:-1] + (1,))
+    y_ext = torch.cat([y, zero], dim=-1)
+    parts = [(v * y_ext[..., i]).sum(dim=-1) for i, v in zip(sa.at.idx, sa.at.vals)]
+    parts.append(zero)  # sentinel for never-written slots
+    cat = torch.cat(parts, dim=-1)
+    parts2 = [(v * cat[..., i]).sum(dim=-1) for i, v in zip(sa.a_idx_compact, sa.a.vals)]
+    parts2.append(zero)
+    return torch.cat(parts2, dim=-1)[..., sa.a.out_perm]
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("ell_products")
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for name in ("f64", "f32"):
+            fn = getattr(lib, f"cuadmm_ell_gather_{name}")
+            fn.argtypes = [p, i, p, q, i, p, p, q, p, q, p]
+            fn.restype = i
+        lib.cuadmm_cuda_error_string.argtypes = [i]
+        lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _gather(desc: np.ndarray, vals: Sequence[torch.Tensor], in_len: int, x: torch.Tensor,
+            src: Optional[torch.Tensor], dst: Optional[torch.Tensor], n_elem: int, out_len: int) -> torch.Tensor:
+    """One launch of the kernel: out (..., out_len) with out[..., at(e)] the
+    sum of row(e) against ``x`` (..., in_len) for e < n_elem, row(e) =
+    src[e] (e where ``src`` is None; past the last row: zero), at(e) =
+    dst[e] (e where ``dst`` is None; the other slots zero). The table's
+    ``vals`` give its dtype and device, which ``x`` must share."""
+    if x.dim() == 0 or x.shape[-1] != in_len:
+        raise ValueError(f"need x (..., {in_len}), got {tuple(x.shape)}")
+    nb = (desc.shape[0] - 1) // 4
+    if nb > MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets, more than the kernel's {MAX_BUCKETS}")
+    dtype, device = (vals[0].dtype, vals[0].device) if vals else (x.dtype, x.device)
+    if x.dtype != dtype or dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"need x of the table's float64 or float32, got {x.dtype} for a {dtype} table")
+    if x.device != device or device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors on the table's device {device}, got x on {x.device}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, in_len).contiguous()
+    n_lead = x2.shape[0]
+    out = (torch.empty if dst is None else torch.zeros)((n_lead, out_len), dtype=dtype, device=device)
+    if n_lead and n_elem:
+        lib = _LIB or _load()
+        fn = lib.cuadmm_ell_gather_f64 if dtype == torch.float64 else lib.cuadmm_ell_gather_f32
+        idx = device.index
+        ptr = lambda t: None if t is None else t.data_ptr()
+        args = (desc.ctypes.data, nb, x2.data_ptr(), in_len, n_lead, ptr(src), ptr(dst), n_elem, out.data_ptr(),
+                out_len, torch._C._cuda_getCurrentRawStream(idx))
+        if idx == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(idx):
+                err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"ell_gather kernel launch failed: {lib.cuadmm_cuda_error_string(err).decode()} "
+                               f"(cudaError {err})")
+        trace.COUNTS["ell"] += 1
+    return out.reshape(lead + (out_len,))
+
+
+def _ell_matvec(t: EllTable, x: torch.Tensor) -> torch.Tensor:
+    """The table's product with ``x`` (..., in_len) -> (..., out_len)."""
+    if x.device.type != "cuda":
+        return _ell_matvec_ref(t, x)
+    if t.out_pos is not None:
+        return _gather(t.launch_desc, t.vals, t.in_len, x, t.out_src, t.out_pos, t.out_pos.shape[0], t.out_len)
+    return _gather(t.launch_desc, t.vals, t.in_len, x, t.out_perm, None, t.out_len, t.out_len)
 
 
 def spmv_a(sa: SparseA, x: torch.Tensor) -> torch.Tensor:
@@ -287,17 +404,16 @@ def spmv_at(sa: SparseA, y: torch.Tensor) -> torch.Tensor:
 
 def aat_matvec(sa: SparseA, y: torch.Tensor) -> torch.Tensor:
     """(A A^T) y, composed compactly when ``a_idx_compact`` exists: the
-    A-direction gathers read A^T's compact partial-sum vector directly."""
+    A-direction gathers read A^T's compact partial-sum vector directly (on
+    CUDA: A^T's launch writes its bucket sums in row order, A's gathers
+    them)."""
     if sa.a_idx_compact is None or sa.a.out_perm is None:
         return spmv_a(sa, spmv_at(sa, y))
-    zero = y.new_zeros(y.shape[:-1] + (1,))
-    y_ext = torch.cat([y, zero], dim=-1)
-    parts = [(v * y_ext[..., i]).sum(dim=-1) for i, v in zip(sa.at.idx, sa.at.vals)]
-    parts.append(zero)  # sentinel for never-written slots
-    cat = torch.cat(parts, dim=-1)
-    parts2 = [(v * cat[..., i]).sum(dim=-1) for i, v in zip(sa.a_idx_compact, sa.a.vals)]
-    parts2.append(zero)
-    return torch.cat(parts2, dim=-1)[..., sa.a.out_perm]
+    if y.device.type != "cuda":
+        return _aat_compact_ref(sa, y)
+    n_cat = int(sa.at.launch_desc[len(sa.at.idx)])
+    cat = _gather(sa.at.launch_desc, sa.at.vals, sa.at.in_len, y, None, None, n_cat, n_cat)
+    return _gather(sa.compact_desc, sa.a.vals, n_cat, cat, sa.a.out_perm, None, sa.a.out_len, sa.a.out_len)
 
 
 def normalize_rows(

@@ -18,6 +18,8 @@ are always on:
   poly_tri_products  triangle products (syrk, syrkx) of the poly filter's
                   one-triangle route (ops/polyfilter.py), on any device
   sym_mirror      mirror-kernel launches (ops/sym_products.py)
+  ell             launches of the bucketed-ELL product kernel (ops/sparse.py):
+                  one a product, two an aat_matvec
   graph_captures  recordings the chunk runner made (solver/step.py)
   graph_replays   replays of those recordings
   graph_launches  CUDA graph parts launched by those replays
@@ -64,7 +66,7 @@ COUNTS: Dict[str, int] = dict(
     k1=0, k1_rhs=0, k2=0, k3=0, k4=0, k4_f32=0,
     cg_solves=0, cg_steps=0, cg_waits=0,
     all_reduce=0, broadcast=0,
-    neq_sweeps=0, poly_tri_products=0, sym_mirror=0, graph_captures=0, graph_replays=0, graph_launches=0,
+    neq_sweeps=0, poly_tri_products=0, sym_mirror=0, ell=0, graph_captures=0, graph_replays=0, graph_launches=0,
     eigh_waits=0,
 )
 
