@@ -25,10 +25,11 @@ Phases, in order; any failure raises and exits non-zero:
    (``jacobi_eigh_ref``, the cyclic order, and ``jacobi_eigh_parallel_ref``,
    the parallel one) at n = 2, 3, 4, 5, 8, 13, 16, 32, 45, 64, 80, 128
    with the batch of the grid problem's bucket each n falls in (80, 598,
-   182, 49, 11; 56 at n = 128, the bucket under pack_to=128) and at the
-   stand-in's 8x1556, in f64 and f32, at full sweeps: sorted eigenvalues, the projection V diag(w+) V^T
-   and the orthogonality of V, relative to the largest |entry|, within
-   1e-10 (f64) / 5e-5 (f32; 5e-5 n/32 past n = 64, see k4_tol), bitwise
+   182, 49, 11; 56 at n = 128, the bucket under pack_to=128), at the
+   stand-in's 8x1556 and at G50's K4 buckets 8x1500, 16x570 and 32x90 (the
+   gset_g50_chordal cell's), in f64 and f32, at full sweeps: sorted
+   eigenvalues, the projection V diag(w+) V^T and the orthogonality of V,
+   relative to the largest |entry|, within 1e-10 (f64) / 5e-5 (f32; 5e-5 n/32 past n = 64, see k4_tol), bitwise
    equal over two launches; the plan ("cta" at 32x49 and 64x11) named in
    each row; at n = 128 in f64 also against torch.linalg.eigh; K4 and K4 +
    reconstruction as
@@ -63,13 +64,16 @@ Phases, in order; any failure raises and exits non-zero:
    svec_from_pool(psd_project_pool(pool_from_svec(x)));
 7. hold K2 (packed_solve) and K3 (band_solve) against their plain versions
    on synthetic factors made on the card (diagonal tiles near the
-   identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at seven layouts,
+   identity, off-diagonal tiles scaled by 1/sqrt(B nbw)) at eight layouts,
    one at a time, K3 in the form the solver runs (the one-hop form, with
    its derived tiles, to nbw 4): packed n=256/B=128, packed at the large
    grid's (nb 67, T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the
    large grid's (B 512, nb 134, nbw 1) and at its B 1024 (nb 67),
-   pendulum N=80's (n 112,028, bandwidth 1,615: nb 110, nbw 2) and PushBox
-   N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21, 13.9 GB, two-hop);
+   pendulum N=80's (n 112,028, bandwidth 1,615: nb 110, nbw 2), PushBox
+   N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21, 13.9 GB, two-hop)
+   and G50's (n 139,192, RCM bandwidth 4: the gset_g50_chordal cell's
+   band, checked to be B 512, nb 272, nbw 1 in the one-hop form under the
+   card's band model);
    relative error <= 1e-5, two solves of one r bitwise equal, exactly 2
    sweep kernels launched per solve (torch.profiler), times from CUDA
    events both eager and as a replayed CUDA graph (the chunk runner's
@@ -89,13 +93,14 @@ Phases, in order; any failure raises and exits non-zero:
 7c. hold the bucketed-ELL product kernel (csrc/ell_products.cu) against
    its plain versions on the tables the solver builds for G11's torus
    (the gset_g11 cells; also with 8 instances, as the family runs them),
-   QUASAR-500 and the G22-size max-cut (A^T placed by out_pos: the
-   compact AA^T), in f64 and f32: A x, A^T y and AA^T y, one launch a
-   product and two an AA^T y, the same bits twice, within 1e-14 (f64) /
-   1e-6 (f32) relative; kernel and plain version timed as replayed CUDA
-   graphs beside the byte bound (tables, maps, input and output once). Every
-   main-path run below is gated on the kernel's launches: 5 an sGS
-   iteration and 3 an ADMM one, two a refinement sweep;
+   G50's (the gset_g50_chordal cell's), QUASAR-500 and the G22-size
+   max-cut (A^T placed by out_pos: the compact AA^T), in f64 and f32:
+   A x, A^T y and AA^T y, one launch a product and two an AA^T y, the
+   same bits twice, within 1e-14 (f64) / 1e-6 (f32) relative; kernel and
+   plain version timed as replayed CUDA graphs beside the byte bound
+   (tables, maps, input and output once). Every main-path run below is
+   gated on the kernel's launches: 5 an sGS iteration and 3 an ADMM one,
+   two a refinement sweep;
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
@@ -325,6 +330,10 @@ GRID_BUCKETS = ((4, 80), (8, 598), (16, 182), (32, 49), (64, 11))
 GRID_N_PAD = 32512
 GRID_WARM, GRID_ITERS, SYNC_ITERS = 100, 200, 10
 PSD_PROJECT_TOL = 1e-10  # psd_project against the pool route, relative to the largest |entry| (f64)
+# G50 (rudy's -toroidal_grid_2D 25 120 through the max-cut pipeline, the
+# gset_g50_chordal cell): its constraints and its band (RCM bandwidth 4)
+# as the card's band model picks it, B 512, nb 272, nbw 1, one-hop.
+G50_GRID, G50_CON, G50_BAND = (25, 120), 139192, (512, 272, 1)
 # K2/K3's layouts, (label, layout); "grid" are the large grid's own.
 TRI_LAYOUTS = (
     ("packed probe", tri_stream.make_layout(256, 128)),
@@ -334,6 +343,7 @@ TRI_LAYOUTS = (
     ("band grid B 1024", tri_stream.make_band_layout(68350, 4, 1024)),
     ("band pendulum N=80", tri_stream.make_band_layout(112028, 1615)),
     ("band PushBox N=30", tri_stream.make_band_layout(154256, 20512)),
+    ("band G50", tri_stream.make_band_layout(G50_CON, 4)),
 )
 TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain version's
 TRI_REPS = 5
@@ -1112,8 +1122,12 @@ def compare_tri_stream() -> dict:
     for i, (label, lay) in enumerate(TRI_LAYOUTS):
         packed = isinstance(lay, tri_stream.PackedLayout)
         tiles = _synthetic_factor(lay, seed=100 + i)
-        form, chain = ("two_hop", None) if packed else chol.chain_tiles(
-            tiles, lay, limits.card_limits(tiles.device).band_max_bytes)
+        card_lim = limits.card_limits(tiles.device)
+        form, chain = ("two_hop", None) if packed else chol.chain_tiles(tiles, lay, card_lim.band_max_bytes)
+        if label == "band G50":
+            picked = tri_stream.make_band_layout(G50_CON, 4, model=card_lim.bound_band_model())
+            check(picked == lay and (lay.block, lay.nb, lay.nbw) == G50_BAND and form == "chain",
+                  f"{label}: the card's band model picks {picked}, form {form}, not {G50_BAND} one-hop")
         if packed:
             kernel = lambda r: tri_stream.packed_solve(tiles, r, lay)
         else:
@@ -1246,16 +1260,18 @@ def _ell_bytes(t: sparse.EllTable, lead: int, size: int, idx=None, placed: bool 
 
 def compare_ell() -> dict:
     """The ELL kernel (csrc/ell_products.cu) on the tables of G11's torus
-    (one instance and ELL_LEAD, as the family runs them), QUASAR-500 and the
-    G22-size max-cut (A^T by out_pos, AA^T y compact), in f64 and f32: A x,
+    (one instance and ELL_LEAD, as the family runs them), G50's,
+    QUASAR-500 and the G22-size max-cut (A^T by out_pos, AA^T y compact),
+    in f64 and f32: A x,
     A^T y and AA^T y against the plain versions on the same card tensors
     (within ELL_REL_TOL, the same bits twice, one launch a product and two
     an AA^T y), kernel and plain version timed as replayed CUDA graphs
     beside the byte bound (an AA^T y's without its intermediate; x's
     entries that the indices name, not all of x). Returns
-    the f64 rows of QUASAR-500's and G11's AA^T y for the kernels line."""
+    the f64 rows of QUASAR-500's, G11's and G50's AA^T y for the kernels line."""
     t0 = time.perf_counter()
     probs = (("gset_g11", maxcut_chordal(toroidal_grid(100, 8))[0], (1, ELL_LEAD)),
+             ("gset_g50", maxcut_chordal(toroidal_grid(*G50_GRID))[0], (1,)),
              ("quasar500", quasar_problem(QUASAR_POSES), (1,)),
              ("g22_size", maxcut_sdp(random_graph(G22_NODES, p=G22_EDGE_P, seed=22)), (1,)))
     print(f"ell problems: {time.perf_counter() - t0:.1f} s")
@@ -1311,7 +1327,8 @@ def compare_ell() -> dict:
                               and r["dtype"] == "float64" and r["product"] == "AA^T y")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rel_err")
     return {"quasar500_aat": {k: pick("quasar500")[k] for k in keys},
-            "gset_g11_aat": {k: pick("gset_g11")[k] for k in keys}}
+            "gset_g11_aat": {k: pick("gset_g11")[k] for k in keys},
+            "gset_g50_aat": {k: pick("gset_g50")[k] for k in keys}}
 
 
 def _tri_products_per_it(solver) -> int:

@@ -60,9 +60,10 @@ def default_sweeps(n: int) -> int:
 
 # (n, batch): the batch of the grid problem's pow2 bucket n falls in (the
 # grid's own buckets: 4x80, 8x598, 16x182, 32x49, 64x11); 128x56 is the
-# grid under pack_to=128, 8x1556 the stand-in's bucket.
+# grid under pack_to=128, 8x1556 the stand-in's bucket; 8x1500, 16x570 and
+# 32x90 are G50's buckets that take K4.
 K4_SHAPES = ((2, 80), (3, 80), (4, 80), (5, 598), (8, 598), (8, 1556), (13, 182), (16, 182),
-             (32, 49), (45, 11), (64, 11), (80, 11), (128, 56))
+             (32, 49), (45, 11), (64, 11), (80, 11), (128, 56), (8, 1500), (16, 570), (32, 90))
 
 
 def k4_tol(n: int, dtype: torch.dtype) -> float:

@@ -35,7 +35,9 @@ card's f64 tensor-core rate (67 TFLOP/s on the H100; syrk and syrkx
 reach about 50 useful TFLOP/s at n = 2004, the full GEMM 55); the mirror
 passes by bytes. Below TRI_MIN_N, where cuBLAS's syrk loses to its GEMM
 (poly_ab.py, PERF.md), and for batched buckets (cuBLAS has no batched
-syrk), a row mesh and stacked instances, the full GEMMs stay.
+syrk), a row mesh and stacked instances, the full GEMMs stay: one batched
+GEMM a product over the whole bucket, 40 a projection with the f64
+schedule and 28 with the f32 one (``trace.COUNTS["poly_gemm_products"]``).
 """
 
 from __future__ import annotations
@@ -137,7 +139,9 @@ def _sym(y: torch.Tensor) -> torch.Tensor:
 
 
 def _product(x: torch.Tensor, y: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """x @ y; over a mesh, this rank's rows of it and one masked all_reduce."""
+    """x @ y, one batched GEMM of the full-GEMM route, counted (on any
+    device); over a mesh, this rank's rows of it and one masked all_reduce."""
+    trace.COUNTS["poly_gemm_products"] += 1
     if mesh is None or mesh.size <= 1:
         return x @ y
     lo, hi = shard_bounds(x.shape[-2], mesh)

@@ -17,6 +17,8 @@ are always on:
   neq_sweeps      refinement sweeps of every normal solve (ops/chol.py)
   poly_tri_products  triangle products (syrk, syrkx) of the poly filter's
                   one-triangle route (ops/polyfilter.py), on any device
+  poly_gemm_products  batched GEMMs (one matmul over a bucket) of the poly
+                  filter's full-GEMM route (ops/polyfilter.py), on any device
   sym_mirror      mirror-kernel launches (ops/sym_products.py)
   ell             launches of the bucketed-ELL product kernel (ops/sparse.py):
                   one a product, two an aat_matvec
@@ -28,10 +30,11 @@ are always on:
                   the same segments), on any device
 
 A kernel wrapper counts its launches on CUDA tensors only (its CPU
-fallback counts nothing); ``poly_tri_products`` counts the route's work,
-not launches, so on the CPU too, and ``eigh_waits`` likewise. A CUDA graph's kernels launch on replay, where
-no wrapper runs: the chunk runner takes a capture's counts back and adds
-them, times the replays, once a chunk.
+fallback counts nothing); ``poly_tri_products`` and ``poly_gemm_products``
+count the routes' work, not launches, so on the CPU too, and ``eigh_waits``
+likewise. A CUDA graph's kernels launch on replay, where no wrapper runs:
+the chunk runner takes a capture's counts back and adds them, times the
+replays, once a chunk.
 
 Spans. ``span(name)`` marks a stretch of host time. With no torch profiler
 active and tracing off it is a shared null context. Under a profiler it is
@@ -66,8 +69,8 @@ COUNTS: Dict[str, int] = dict(
     k1=0, k1_rhs=0, k2=0, k3=0, k4=0, k4_f32=0,
     cg_solves=0, cg_steps=0, cg_waits=0,
     all_reduce=0, broadcast=0,
-    neq_sweeps=0, poly_tri_products=0, sym_mirror=0, ell=0, graph_captures=0, graph_replays=0, graph_launches=0,
-    eigh_waits=0,
+    neq_sweeps=0, poly_tri_products=0, poly_gemm_products=0, sym_mirror=0, ell=0,
+    graph_captures=0, graph_replays=0, graph_launches=0, eigh_waits=0,
 )
 
 
