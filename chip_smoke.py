@@ -70,10 +70,7 @@ Phases, in order; any failure raises and exits non-zero:
    grid's (nb 67, T 2,278, 9.55 GB), band n=512/B=128/nbw=1, band at the
    large grid's (B 512, nb 134, nbw 1) and at its B 1024 (nb 67),
    pendulum N=80's (n 112,028, bandwidth 1,615: nb 110, nbw 2), PushBox
-   N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21, 13.9 GB, two-hop)
-   and G50's (n 139,192, RCM bandwidth 4: the gset_g50_chordal cell's
-   band, checked to be B 512, nb 272, nbw 1 in the one-hop form under the
-   card's band model);
+   N=30's (n 154,256, bandwidth 20,512: nb 151, nbw 21, 13.9 GB, two-hop);
    relative error <= 1e-5, two solves of one r bitwise equal, exactly 2
    sweep kernels launched per solve (torch.profiler), times from CUDA
    events both eager and as a replayed CUDA graph (the chunk runner's
@@ -82,6 +79,16 @@ Phases, in order; any failure raises and exits non-zero:
    between them); at the large grid's two layouts one
    torch.cholesky_solve on the dense expansion of the factor (18.8 GB) as
    library_ms;
+7a. hold K3's segments form (one launch a solve, one thread a segment)
+   against ``band_segments_solve_ref`` on card tensors: G50's normal
+   solver as ``auto`` builds it on the card (the gset_g50_chordal cell's:
+   checked to be banded in the segments form, 51,653 segments, the longest
+   30, no tile) and a synthetic band of SEGMENT_MAX_ROWS-row segments at
+   SEGMENT_MAX_BW, f64 and f32 r: within 1e-12 (f64) or one f32 rounding,
+   the same bits twice, exactly one launch a solve (torch.profiler), the
+   kernel timed as a replayed CUDA graph beside the bound (the band's n
+   (bw + 1) f32 entries, r and y once, as band.k3_roofline counts them);
+   pendulum N=80's and PushBox N=30's bandwidths keep the tile forms;
 7b. hold the mirror kernel of the poly filter's one-triangle route
    (csrc/sym_mirror.cu) against ``mirror_ref`` at QUASAR-500's n = 2004,
    in f64 and f32, plain and with the addend and device scale of the
@@ -104,13 +111,16 @@ Phases, in order; any failure raises and exits non-zero:
 8. run the large grid problem (max-cut, chordally decomposed, 4-neighbour
    20x120 grid graph: 68,350 constraints, past dense_chol_max) plain ADMM,
    projection "auto", 100 warm and 200 timed iterations, with
-   normal_solver "auto" (resolves to banded: RCM bandwidth 4, B 512,
-   nb 134, nbw 1 by the card's band model, K3's one-hop form) and
-   "packed", each gated on the probe rhs residual, finite
-   and decreasing residuals and K3 (resp. K2) on every refinement sweep;
-   the two runs' last errRp agree to 1e-6; host syncs per iteration of
-   each, a profile of the banded run (device ops per iteration, busy
-   share);
+   normal_solver "auto" (resolves to banded: RCM bandwidth 4, run in K3's
+   segments form: 24,354 segments, the longest 27), with "banded" rebuilt
+   with the segments form off (K3's tile forms, as every band too wide or
+   with too long a segment for that form takes them: B 512, nb 134, nbw 1
+   by the card's band model, the one-hop form, under the RCM permutation)
+   and with "packed", each gated on the probe rhs residual, finite and
+   decreasing residuals and K3's segments form, K3's tile forms (resp. K2)
+   on every refinement sweep; each banded run's last errRp agrees with
+   packed's to 1e-6; host syncs per iteration of each, a profile of the
+   banded runs (device ops per iteration, busy share);
 9. run QUASAR-500 at full size (one 2004x2004 block, 756,501 constraints,
    1,515,004 A^T nonzeros, b = 501 e_0 as in the reference's b.txt, C a
    seeded symmetric stand-in for the measurement data) plain ADMM with
@@ -139,8 +149,11 @@ Phases, in order; any failure raises and exits non-zero:
    (or 64 MiB) of its committed line; K3 at B 1024, 512 and 256 on the
    20x120 grid's, a mid, pendulum N=80's and PushBox N=30's bands beside
    the band model's prediction, the model's pick the fastest measured on
-   each or within 3% of it (K3 in the form the solver runs there); the
-   20x60 grid through "banded" (gated as the grid runs) beside phase 6's
+   each or within 3% of it (K3 in the tile form the solver runs there);
+   K3's segments form on synthetic bands of 139,192 rows in segments of
+   1-512 rows at bandwidth 4 and 16 within 20% of SEGMENT_MODEL, and at
+   the large grid's band (where the build takes it) faster than the
+   fastest of the tile-form times there; the 20x60 grid through "banded" (gated as the grid runs) beside phase 6's
    precond rate, and the 20x80 pair of phase 10; precond on QUASAR-500
    (756,501 rows, past the card's n_pad) raising with
    max_memory_allocated unchanged;
@@ -183,7 +196,8 @@ Phases, in order; any failure raises and exits non-zero:
    100 iterations each from one state, in the order eager, graph, graph,
    eager: the stand-in f64 ADMM and sGS (K1, K4), the stand-in f32 with
    rp_hp, the grid with "jacobi" (K1, K4) and "auto" (an eigh segment),
-   the large grid banded with "jacobi" (K3, K4) and "auto", packed (K2),
+   the large grid banded in K3's segments form with "jacobi" (K4) and
+   "auto", in K3's tile forms with "jacobi" (K3, K4), packed (K2),
    QUASAR-500 split "poly" (K1, the mirror kernel) and the 8 batched
    stand-ins (eigh); all
    end states and info rows bitwise equal (else within 1e-12 relative),
@@ -331,9 +345,11 @@ GRID_N_PAD = 32512
 GRID_WARM, GRID_ITERS, SYNC_ITERS = 100, 200, 10
 PSD_PROJECT_TOL = 1e-10  # psd_project against the pool route, relative to the largest |entry| (f64)
 # G50 (rudy's -toroidal_grid_2D 25 120 through the max-cut pipeline, the
-# gset_g50_chordal cell): its constraints and its band (RCM bandwidth 4)
-# as the card's band model picks it, B 512, nb 272, nbw 1, one-hop.
-G50_GRID, G50_CON, G50_BAND = (25, 120), 139192, (512, 272, 1)
+# gset_g50_chordal cell): its constraints, and its band (RCM bandwidth 4)
+# in K3's segments form: its segments and the longest one's rows.
+G50_GRID, G50_CON, G50_SEGMENTS = (25, 120), 139192, (51653, 30)
+SEG_REL_TOL = 1e-12  # the kernel's fma against the plain version's multiply and subtract, both in f64
+SEG_REPS = 200
 # K2/K3's layouts, (label, layout); "grid" are the large grid's own.
 TRI_LAYOUTS = (
     ("packed probe", tri_stream.make_layout(256, 128)),
@@ -343,7 +359,6 @@ TRI_LAYOUTS = (
     ("band grid B 1024", tri_stream.make_band_layout(68350, 4, 1024)),
     ("band pendulum N=80", tri_stream.make_band_layout(112028, 1615)),
     ("band PushBox N=30", tri_stream.make_band_layout(154256, 20512)),
-    ("band G50", tri_stream.make_band_layout(G50_CON, 4)),
 )
 TRI_REL_TOL = 1e-5  # f32 products summed in another order than the plain version's
 TRI_REPS = 5
@@ -356,8 +371,9 @@ LARGE_GRID = (20, 120)
 LARGE_GRID_CON = 68350
 # The large grid's band (RCM bandwidth 4) as the card's band model picks it
 # (ops/limits.py): B 512, nb 134, nbw 1, where K3's one-hop form runs
-# faster than at B 1024 (the JAX package's TPU model's pick; PERF.md §6).
-LARGE_GRID_BAND = (512, 134, 1)
+# faster than at B 1024 (the JAX package's TPU model's pick; PERF.md §6);
+# the solver runs it in the segments form: its segments, the longest's rows.
+LARGE_GRID_BAND, LARGE_GRID_SEGMENTS = (512, 134, 1), (24354, 27)
 ERRRP_AGREE = 1e-6  # two normal solvers: same iteration, another f32 factor
 # QUASAR-500 (cuadmm_tpu_torch/models/quasar.py): constraints, A^T
 # nonzeros, block size, coupled rows and K1's padded prefix.
@@ -378,6 +394,10 @@ BATCH = 8  # stand-ins in the batched phase
 # 20x60 grid's band peaks 29 MB above its tiles at B 1024, 9 MB at B 512;
 # the limits concern factors of tens of GB).
 PEAK_SLACK, PEAK_SLACK_BYTES = 1.02, 64 * 2**20
+# A segments solve's measured time against SEGMENT_MODEL's (ops/limits.py):
+# the fit's worst row read 14% (512-row segments at bandwidth 4), and a
+# new measurement adds its own spread.
+SEGMENT_FIT_TOL = 0.2
 QUASAR_PRECOND_DENSE_CHOL_MAX = 10**6  # lets precond take QUASAR-500's 756,501 rows: past the card
 REPORT = Path("chiprun_out") / "chip_smoke.json"
 report: dict = {}  # everything printed, written to REPORT at the end
@@ -725,14 +745,38 @@ def _gates(res, vec_len: int, what: str) -> None:
 KERNEL_OPS = {  # device-op names of each hand-written kernel
     "k1": ("fused_spd_apply_kernel", "sum_partials_kernel"),
     "k4": ("jacobi_eigh_kernel", "jacobi_cta_kernel"),
-    "k2k3": ("tri_sweep_kernel", "chain_sweep_kernel"),  # the two-hop and the one-hop sweep
+    "k2k3": ("tri_sweep_kernel", "chain_sweep_kernel"),  # the two-hop and one-hop sweeps, the segments solve
     "sym_mirror": ("sym_mirror_kernel",),  # the poly filter's mirror pass
     "ell": ("ell_gather_kernel",),  # the bucketed-ELL products
 }
 # Each normal-solver mode's kernel (split: K1 on the coupled prefix).
 FACTOR_KERNEL = {"precond": "k1", "split": "k1", "packed": "k2", "banded": "k3"}
-# The device op one launch of each wrapper makes exactly once (K2/K3: twice,
-# one sweep kernel per sweep), which the profiler counts.
+
+
+def factor_kernel(neq) -> str:
+    """The counter of ``neq``'s kernel: its mode's, and for banded K3 in
+    its form (``k3_seg``: the segments form)."""
+    return "k3_seg" if isinstance(neq.factor, chol.SegmentFactor) else FACTOR_KERNEL[neq.mode]
+
+
+def band_form(neq) -> str:
+    """K3's form in a banded ``neq``: "segments", or its tile form's name."""
+    return "segments" if isinstance(neq.factor, chol.SegmentFactor) else neq.factor.form
+
+
+def in_tile_forms(solver) -> None:
+    """Rebuild ``solver``'s banded normal solver with K3's segments form off
+    (``card_fit.tile_forms``), so it runs the tile forms that every band
+    wider than SEGMENT_MAX_BW or with a segment longer than
+    SEGMENT_MAX_ROWS takes, and swap it into the solver's parameters."""
+    neq = solver._normal_solver("banded", solver.config.cg_max_iter, limits=card_fit.tile_forms(solver.device))
+    check(isinstance(neq.factor, chol.BandFactor), f"tile forms: built {type(neq.factor).__name__}")
+    solver.params = dataclasses.replace(solver.params, neq=neq)
+
+
+# The device op one launch of each wrapper makes exactly once (K2/K3's tile
+# forms: twice, one sweep kernel per sweep; the segments form once), which
+# the profiler counts.
 # K4 launches one of its plans' kernels.
 # The ELL kernel's launches are gated by ``ell_schedule`` instead: 11 to 25
 # an iteration, they would make a dropped profiler event (below) hit a
@@ -785,7 +829,8 @@ def profiled(fn, iters: int, what: str, graphed: bool = True) -> tuple:
         dev = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and SPIN_KERNEL not in e.key]
         events = _profiler_launches(dev)
-        want = dict(k1=counted["k1"], k4=counted["k4"], k2k3=2 * (counted["k2"] + counted["k3"]),
+        want = dict(k1=counted["k1"], k4=counted["k4"],
+                    k2k3=2 * (counted["k2"] + counted["k3"]) + counted["k3_seg"],
                     sym_mirror=counted["sym_mirror"])
         if events == want or not graphed:
             return dev, wall_us, counted, events, iters
@@ -881,11 +926,12 @@ def _gate_ell(solver, launched: int, iters: int, what: str, built: bool = False)
 
 
 def _gate_launches(solver, counts: dict, iters: int, solves: int, what: str, built: bool = False) -> None:
-    """The normal solver's kernel (K1, K2 or K3 by its mode) on every
-    refinement sweep; K4 on every jacobi bucket of every iteration, and
-    nowhere else; the ELL kernel as ``ell_schedule`` says (``_gate_ell``)."""
+    """The normal solver's kernel (K1, K2 or K3 by its mode and form,
+    ``factor_kernel``) on every refinement sweep; K4 on every jacobi bucket
+    of every iteration, and nowhere else; the ELL kernel as
+    ``ell_schedule`` says (``_gate_ell``)."""
     applies = solver.params.neq.applies
-    k = FACTOR_KERNEL[solver.params.neq.mode]
+    k = factor_kernel(solver.params.neq)
     check(counts[k] >= iters * solves * applies,
           f"{what}: {k} launched {counts[k]} times, fewer than {iters}x{solves}x{applies} sweeps")
     k4_buckets = sum(m == "jacobi" and bk.n > 1
@@ -1094,11 +1140,17 @@ def _launches_per_solve(kernel, r, tries: int = 3) -> tuple:
     The wrapper launches or raises, so a trace with no sweep kernel at all
     after a solve whose result was checked is a trace that dropped its
     events (it happens on the card, rarely; the count of such traces goes
-    into the K2/K3 line); it is taken again, up to ``tries`` times."""
+    into the K2/K3 line); it is taken again, up to ``tries`` times. As in
+    ``profiled``, PROFILE_SPINS spin kernels open each trace: a solve of
+    one launch (K3's segments form) lost it in all three traces of this
+    long process on an H100, though it was kept when run alone."""
     act = torch.profiler.ProfilerActivity
     for empty in range(tries):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(PROFILE_SPINS):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             kernel(r)
             torch.cuda.synchronize()
         launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1124,10 +1176,6 @@ def compare_tri_stream() -> dict:
         tiles = _synthetic_factor(lay, seed=100 + i)
         card_lim = limits.card_limits(tiles.device)
         form, chain = ("two_hop", None) if packed else chol.chain_tiles(tiles, lay, card_lim.band_max_bytes)
-        if label == "band G50":
-            picked = tri_stream.make_band_layout(G50_CON, 4, model=card_lim.bound_band_model())
-            check(picked == lay and (lay.block, lay.nb, lay.nbw) == G50_BAND and form == "chain",
-                  f"{label}: the card's band model picks {picked}, form {form}, not {G50_BAND} one-hop")
         if packed:
             kernel = lambda r: tri_stream.packed_solve(tiles, r, lay)
         else:
@@ -1180,6 +1228,77 @@ def compare_tri_stream() -> dict:
         del tiles, chain, r, y, ref
         torch.cuda.empty_cache()
     return at_grid
+
+
+def _card_normal_solver(prob: Problem):
+    """``prob``'s normal solver as ``auto`` builds it on the card, rows
+    normalized as SDPSolver does (f64, no sweeps calibrated)."""
+    _, vals = normalize_rows(prob.At_rows, prob.At_cols, prob.At_vals, prob.con_num)
+    args = (prob.At_rows, prob.At_cols, vals, prob.con_num, prob.vec_len)
+    dev = torch.device("cuda")
+    return chol.build_normal_solver(*args, build_sparse_a(*args, torch.float64, dev), "auto", torch.float64, dev,
+                                    applies=0)
+
+
+def compare_segments() -> dict:
+    """K3's segments form (csrc/tri_stream.cu) against
+    ``band_segments_solve_ref`` on card tensors: at G50's factor as the card
+    builds it (``_card_normal_solver``: banded, the segments form,
+    G50_SEGMENTS) and at a synthetic band of SEGMENT_MAX_ROWS-row
+    segments at SEGMENT_MAX_BW (``card_fit.synthetic_segments``), each with
+    f64 and f32 r: within SEG_REL_TOL (f64 r; f32: one rounding of y), the
+    same bits twice, one launch a solve (the profiler); the kernel as a
+    replayed CUDA graph of SEG_REPS solves and the plain version once,
+    beside the bound, the band's n (bw + 1) f32 entries, r and y once (f32)
+    at the HBM rate, the bytes band.k3_roofline counts. Bands as wide as
+    pendulum N=80's and PushBox N=30's keep the tile forms. Returns G50's
+    f64 row for the kernels line."""
+    model = limits.card_limits(torch.device("cuda")).segment_model
+    for label, bw in (("pendulum N=80", 1615), ("PushBox N=30", 20512)):
+        check(not limits.segment_form(model, G50_CON, bw, 1, float("inf")),
+              f"segments: a band of {label}'s bandwidth {bw} takes the segments form")
+    neq = _card_normal_solver(maxcut_chordal(toroidal_grid(*G50_GRID))[0])
+    segments = isinstance(neq.factor, chol.SegmentFactor)
+    seg = neq.factor.segments if segments else None
+    check(segments and (seg.n_segments, seg.max_seg) == G50_SEGMENTS,
+          f"segments: G50 resolved to {neq.mode} ({type(neq.factor).__name__}), "
+          f"{None if seg is None else (seg.n_segments, seg.max_seg)}, not the segments form's {G50_SEGMENTS}")
+    bands = (("G50", seg, neq.applies),
+             ("synthetic max rows", card_fit.synthetic_segments(card_fit.SEG_N, limits.SEGMENT_MAX_ROWS,
+                                                                limits.SEGMENT_MAX_BW, 300, "cuda"), None))
+    g50 = None
+    for label, band, applies in bands:
+        n = band.n
+        for dtype in (torch.float64, torch.float32):
+            r = torch.randn(n, dtype=dtype, device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+            kernel = lambda r: tri_stream.band_segments_solve(band, r)
+            plain = lambda r: tri_stream.band_segments_solve_ref(band, r)
+            y, ref = kernel(r), plain(r.double())
+            torch.cuda.synchronize()
+            rel = float(torch.linalg.norm(y.double() - ref) / torch.linalg.norm(ref))
+            tol = SEG_REL_TOL if dtype == torch.float64 else 1e-7
+            what = f"segments {label} {str(dtype)[6:]}"
+            check(y.dtype == dtype and bool(torch.isfinite(y).all()) and rel <= tol, f"{what}: rel err {rel:.3e}")
+            check(torch.equal(kernel(r), y), f"{what}: two solves of one r differ")
+            launches, empty_traces = _launches_per_solve(kernel, r)
+            check(launches == 1, f"{what}: {launches} kernel launches a solve, not 1")
+            g_ms = graph_ms(lambda: kernel(r), SEG_REPS)
+            p_ms = _time_ms(lambda: plain(r), 1)
+            bound_ms = (4 * n * (band.bw + 1) + 8 * n) / HBM_BYTES_PER_S * 1e3
+            row = dict(band=label, dtype=str(dtype)[6:], n=n, bw=band.bw, segments=band.n_segments,
+                       max_seg=band.max_seg, chunks=band.chunks.shape[0] - 1, chunk_rows=band.rows,
+                       applies=applies, rel_err=rel, deterministic=True, launches_per_solve=launches,
+                       empty_traces=empty_traces, ms=g_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                       share_of_bound=bound_ms / g_ms)
+            print("K3 segments " + json.dumps(row), flush=True)
+            report.setdefault("k3_segments", []).append(row)
+            if label == "G50" and dtype == torch.float64:
+                g50 = dict(max_abs_err=float((y - ref).abs().max()), ms=g_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by="bytes", library_ms=None)
+        del band
+    del neq, seg
+    torch.cuda.empty_cache()
+    return g50
 
 
 def compare_mirror() -> dict:
@@ -1352,25 +1471,37 @@ def large_grid_problem() -> Problem:
 
 
 def large_grid(prob: Problem) -> dict:
-    """The 20x120 grid past dense_chol_max: normal_solver "auto" (banded)
-    and "packed", each timed, gated and counted; returns K2's and K3's
-    launch counts from those runs."""
+    """The 20x120 grid past dense_chol_max: normal_solver "auto" (banded, in
+    K3's segments form), "banded" rebuilt in K3's tile forms
+    (``in_tile_forms``) and "packed", each timed, gated and counted;
+    returns the launches of K3's segments form (``k3_seg``), of its tile
+    forms (``k3``) and of K2 from those runs."""
     launches, last = {}, {}
-    for ns, mode, k in (("auto", "banded", "k3"), ("packed", "packed", "k2")):
+    for ns, mode, k in (("auto", "banded", "k3_seg"), ("banded tile forms", "banded", "k3"),
+                        ("packed", "packed", "k2")):
         what = f"large grid normal_solver={ns}"
         cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0,
-                           projection="auto", normal_solver=ns)
+                           projection="auto", normal_solver=ns.split()[0])
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         solver = SDPSolver(prob, cfg, device="cuda")
+        if k == "k3":
+            in_tile_forms(solver)
         init_s = time.perf_counter() - t0
         neq = solver.params.neq
-        check(neq.mode == mode, f"{what}: resolved to {neq.mode!r}, not {mode!r}")
-        if mode == "banded":
+        check(neq.mode == mode and factor_kernel(neq) == k,
+              f"{what}: resolved to {neq.mode!r} ({type(neq.factor).__name__}), not {mode!r} with {k}")
+        lay = None
+        if k == "k3_seg":
+            seg = neq.factor.segments
+            check((seg.n_segments, seg.max_seg) == LARGE_GRID_SEGMENTS,
+                  f"{what}: {seg.n_segments} segments, the longest {seg.max_seg}, not {LARGE_GRID_SEGMENTS}")
+        elif k == "k3":
             lay = neq.factor.layout
             check((lay.block, lay.nb, lay.nbw) == LARGE_GRID_BAND, f"{what}: band layout {lay}")
-            check(neq.factor.form == "chain" and neq.factor.chain is not None,
-                  f"{what}: {neq.factor.form} form: nbw 1 takes K3's one-hop form with its derived tiles")
+            check(neq.factor.form == "chain" and neq.factor.chain is not None and neq.factor.perm is not None,
+                  f"{what}: {neq.factor.form} form: nbw 1 takes K3's one-hop form with its derived tiles, "
+                  f"under the RCM permutation")
         else:
             lay = neq.factor.layout
             check((lay.nb, lay.T) == (67, 2278), f"{what}: packed layout {lay}")
@@ -1381,8 +1512,8 @@ def large_grid(prob: Problem) -> dict:
         launches[k] = counts[k]
         last[ns] = float(res.info["errRp"][-1])
         out = dict(
-            it_per_s=GRID_ITERS / elapsed, init_s=init_s, mode=neq.mode, layout=lay._asdict(),
-            band_permuted=neq.factor.perm is not None if mode == "banded" else None,
+            it_per_s=GRID_ITERS / elapsed, init_s=init_s, mode=neq.mode, layout=None if lay is None else lay._asdict(),
+            band_form=band_form(neq) if mode == "banded" else None,
             methods=_methods(solver), applies=neq.applies, eps_used=neq.eps_used, launches=counts,
             residual_norm=resid, errRp_first=float(res.info["errRp"][0]), errRp_last=last[ns],
             init_breakdown=solver.init_breakdown, host_syncs=host_syncs_per_iteration(solver),
@@ -1393,9 +1524,10 @@ def large_grid(prob: Problem) -> dict:
         emit(what, out)
         del solver, neq, res
         torch.cuda.empty_cache()
-    agree = abs(last["auto"] - last["packed"]) / abs(last["packed"])
-    emit("large grid errRp agreement", dict(banded=last["auto"], packed=last["packed"], rel=agree))
-    check(agree <= ERRRP_AGREE, f"large grid: banded and packed errRp differ by {agree:.3e}")
+    for ns in ("auto", "banded tile forms"):
+        agree = abs(last[ns] - last["packed"]) / abs(last["packed"])
+        emit(f"large grid errRp agreement {ns}", dict(banded=last[ns], packed=last["packed"], rel=agree))
+        check(agree <= ERRRP_AGREE, f"large grid: banded ({ns}) and packed errRp differ by {agree:.3e}")
     return launches
 
 
@@ -1536,7 +1668,10 @@ def limits_phase(large: Problem, cap: Problem, quasar_prob: Problem) -> None:
     peaks they were fitted to, measured again (card_fit.py) and held to the
     committed lines within PEAK_SLACK; K3 at B 1024, 512 and 256 on four
     bands beside the band model's prediction, its pick the fastest measured
-    on each; the 20x60 grid through "banded" beside its precond run of the
+    on each; K3's segments form on synthetic bands held to SEGMENT_MODEL
+    within SEGMENT_FIT_TOL, and at the large grid's band, where the build
+    takes it, faster than the tile forms' fastest measured time there;
+    the 20x60 grid through "banded" beside its precond run of the
     grid phase (projection "auto" both); the 20x80 grid's precond init of
     the previous phase (dense A on the card); and precond past the card's
     n_pad (QUASAR-500's 756,501 rows) raising before it allocates."""
@@ -1563,8 +1698,31 @@ def limits_phase(large: Problem, cap: Problem, quasar_prob: Problem) -> None:
         print("limits K3 ranking " + json.dumps(r), flush=True)
         check(r["pick_is_fastest"], f"limits: the band model picks B {r['model'][0]} on {r['band']}, "
                                     f"more than {card_fit.K3_TIE:.0%} slower than the fastest, B {r['measured'][0]}")
+    for row in measured["k3_segments"]:
+        row["model_ms"] = limits.SEGMENT_MODEL(row["n"], row["bw"], row["max_seg"]) * 1e3
+        print("limits K3 segments " + json.dumps(row), flush=True)
+        check(abs(row["model_ms"] / row["ms"] - 1) <= SEGMENT_FIT_TOL,
+              f"limits: K3's segments form at bw {row['bw']}, {row['max_seg']}-row segments took {row['ms']:.4f} ms, "
+              f"SEGMENT_MODEL says {row['model_ms']:.4f}")
+    neq = _card_normal_solver(large)
+    check(isinstance(neq.factor, chol.SegmentFactor),
+          f"limits: the large grid's band built {type(neq.factor).__name__}, not the segments form")
+    seg = neq.factor.segments
+    r = torch.randn(seg.n, dtype=torch.float64, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    solve = lambda: tri_stream.band_segments_solve(seg, r)
+    for _ in range(3):
+        solve()
+    tile_ms = min(row["ms"] for row in measured["k3"] if row["n"] == large.con_num)
+    grid_form = dict(segments_ms=min(_time_ms(solve, card_fit.K3_REPS) for _ in range(card_fit.K3_ROUNDS)),
+                     tile_forms_ms=tile_ms, segments=seg.n_segments, max_seg=seg.max_seg,
+                     segments_model_ms=limits.SEGMENT_MODEL(seg.n, seg.bw, seg.max_seg) * 1e3)
+    print("limits K3 form at the large grid " + json.dumps(grid_form), flush=True)
+    check(grid_form["segments_ms"] < tile_ms,
+          f"limits: the large grid's band takes the segments form, {grid_form['segments_ms']:.4f} ms a solve, "
+          f"slower than the tile forms' {tile_ms:.4f}")
+    del neq, seg, r
     out.update(peaks=measured["peaks"], k3=measured["k3"], k3_ranking=ranking,
-               refit=card_fit.fit(measured))
+               k3_segments=measured["k3_segments"], k3_form_at_large_grid=grid_form, refit=card_fit.fit(measured))
 
     what = "grid normal_solver=banded"
     cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection="auto",
@@ -1582,7 +1740,7 @@ def limits_phase(large: Problem, cap: Problem, quasar_prob: Problem) -> None:
     out["grid precond and banded"] = dict(
         con_num=grid.con_num, precond_it_per_s=precond["it_per_s"], precond_applies=precond["applies"],
         banded_it_per_s=GRID_ITERS / elapsed, banded_applies=neq.applies, banded_init_s=init_s,
-        band_layout=neq.factor.layout._asdict(), banded_launches=counts,
+        band_form=band_form(neq), banded_launches=counts,
         banded_residual_norm=resid, banded_errRp_last=float(res.info["errRp"][-1]),
         precond_errRp_last=precond["errRp_last"])
     del solver, neq, res
@@ -1798,7 +1956,7 @@ def grid_f32() -> int:
 def large_grid_f32(prob: Problem) -> int:
     """The large grid in f32, normal_solver "auto" (banded + K3): 100 warm
     and 200 timed iterations, gated as the f64 run; rate and device time
-    beside its. Returns K3's launches."""
+    beside its. Returns K3's launches (in the form it runs)."""
     what = "large grid float32 normal_solver=auto"
     cfg = SolverConfig(verbose=False, check_every=100, switch_admm=0, stop_tol=0.0, projection="auto",
                        dtype="float32")
@@ -1819,7 +1977,7 @@ def large_grid_f32(prob: Problem) -> int:
     f64 = report["large grid normal_solver=auto"]
     out["f64"] = dict(_profile_numbers(f64), applies=f64["applies"])
     emit(what, out)
-    return counts["k3"]
+    return counts[factor_kernel(neq)]
 
 
 def quasar_f32(prob: Problem) -> None:
@@ -2072,7 +2230,8 @@ def graphs(standin_prob: Problem, large: Problem, quasar_prob: Problem, family: 
     """Every main path through the graph runner and the eager loop in one
     process (``graph_path``): the stand-in f64 in ADMM and sGS (K1, K4),
     the grid with "jacobi" (K1, K4) and "auto" (an eigh segment), the large
-    grid banded under "jacobi" (K3, K4) and "auto" (eigh segment) and
+    grid banded in K3's segments form under "jacobi" (K4) and "auto" (eigh
+    segment), in K3's tile forms under "jacobi" (``in_tile_forms``), and
     packed (K2), QUASAR-500 split with "poly" (K1, the mirror kernel of the
     poly filter's one-triangle route), the stand-in in f32
     with rp_hp (K1), and the 8 batched stand-ins (eigh: one segment)."""
@@ -2101,9 +2260,13 @@ def graphs(standin_prob: Problem, large: Problem, quasar_prob: Problem, family: 
     torch.cuda.empty_cache()
     solver = SDPSolver(large, SolverConfig(projection="auto", **admm), device="cuda")
     check(solver.params.neq.mode == "banded", f"graphs large grid: {solver.params.neq.mode!r}")
-    run("large grid banded jacobi", solver, _step_for(solver, projection="jacobi"), ("k3", "k4"),
+    check(factor_kernel(solver.params.neq) == "k3_seg", f"graphs large grid: {type(solver.params.neq.factor).__name__}")
+    run("large grid banded jacobi", solver, _step_for(solver, projection="jacobi"), ("k3_seg", "k4"),
         projection="jacobi")
-    run("large grid banded auto", solver, _step_for(solver), ("k3",))
+    run("large grid banded auto", solver, _step_for(solver), ("k3_seg",))
+    in_tile_forms(solver)
+    run("large grid banded tile forms jacobi", solver, _step_for(solver, projection="jacobi"), ("k3", "k4"),
+        projection="jacobi")
     del solver
     torch.cuda.empty_cache()
     solver = SDPSolver(large, SolverConfig(projection="jacobi", normal_solver="packed", **admm), device="cuda")
@@ -2790,6 +2953,7 @@ def main() -> None:
     k1 = timed_phase(compare_k1)
     k4 = timed_phase(compare_k4)
     k2k3 = timed_phase(compare_tri_stream)
+    k3_seg = timed_phase(compare_segments)
     mirror = timed_phase(compare_mirror)
     ell = timed_phase(compare_ell)
     prob = standin_problem()
@@ -2841,9 +3005,15 @@ def main() -> None:
              launches_by_path=k4_paths, **k4),
         dict(name="packed_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
              replaces="cuadmm_tpu/ops/tri_stream.py:264", launches=tri_launches["k2"], **k2k3["k2"]),
+        # "auto" runs the large grid's band in K3's segments form; its tile
+        # forms run where the segments form is off (large_grid checks both).
         dict(name="band_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
-             replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"] + k3_f32,
-             launches_by_path={"large grid f64": tri_launches["k3"], "large grid f32": k3_f32}, **k2k3["k3"]),
+             replaces="cuadmm_tpu/ops/tri_stream.py:584", launches=tri_launches["k3"],
+             launches_by_path={"large grid f64 tile forms": tri_launches["k3"]}, **k2k3["k3"]),
+        dict(name="band_segments_solve", route="cuda", source="cuadmm_tpu_torch/csrc/tri_stream.cu",
+             replaces="none (K3's segments form: the JAX package streams band tiles)",
+             launches=tri_launches["k3_seg"] + k3_f32,
+             launches_by_path={"large grid f64": tri_launches["k3_seg"], "large grid f32": k3_f32}, **k3_seg),
         dict(name="sym_mirror", route="cuda", source="cuadmm_tpu_torch/csrc/sym_mirror.cu", replaces="none",
              launches=sum(mirror_paths.values()), launches_by_path=mirror_paths, **mirror),
         dict(name="ell_gather", route="cuda", source="cuadmm_tpu_torch/csrc/ell_products.cu",

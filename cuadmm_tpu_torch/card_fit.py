@@ -14,12 +14,17 @@ On the first CUDA device:
 - K3's solve time (CUDA events, synthetic factors) at B in
   (1024, 512, 256) on four bands: the 20x120 grid's, pendulum N=80's,
   PushBox N=30's and a mid band;
+- K3's segments form (replayed CUDA graphs): synthetic segment bands of
+  G50's rows in segments of 1 to 512 rows at bandwidth 4 and 16;
 
-then fits each mode's peak line (``fit_peak``) and K3's band model
-(``fit_band_model``; ops/limits.py says why its form), and prints the card line and one JSON line, also
+then fits each mode's peak line (``fit_peak``), K3's band model
+(``fit_band_model``; ops/limits.py says why its form) and the segments
+form's (``fit_segment_model``), and prints the card line and one JSON line, also
 written to chiprun_out/card_fit.json. ``chip_smoke.py``'s ``limits``
 phase runs the same measurements each time and holds them to the
-committed fit.
+committed fit. The banded builds are pinned to K3's tile forms
+(``tile_forms``): the peak line bounds the tiles, which the segments
+form never makes.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from scipy.optimize import nnls
 import torch
 
 from cuadmm_tpu_torch.device import card_line, resolve_device
+from cuadmm_tpu_torch.k4_ab import graph_ms
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.ops import limits as lim
 from cuadmm_tpu_torch.ops import tri_stream
@@ -57,6 +63,18 @@ K3_TIE = 0.03
 PEAK_BUILDS = (("packed", (20, 60)), ("packed", (20, 120)), ("banded", (20, 60)),
                ("banded", (20, 120)), ("precond", (20, 60)), ("precond", (20, 80)))
 REPORT = Path("chiprun_out") / "card_fit.json"
+# K3's segments form: bands of G50's rows in segments of each length, at
+# each bandwidth (limits.SEGMENT_MODEL).
+SEG_N = 139192
+SEG_LENGTHS = (1, 8, 30, 64, 128, 256, 512)
+SEG_BWS = (4, 16)
+SEG_REPS = 200
+
+
+def tile_forms(device: torch.device) -> lim.CardLimits:
+    """The card's limits with K3's segments form off: a banded build takes
+    the tile forms whose peaks and solve times this module fits."""
+    return dataclasses.replace(lim.card_limits(device), segment_model=None)
 
 
 def grid_problem(shape):
@@ -92,7 +110,7 @@ def build_peak(prob, mode: str, device: torch.device) -> dict:
     timings: dict = {}
     t0 = time.perf_counter()
     neq = build_normal_solver(*args, sa, mode, torch.float64, device, applies=0, timings=timings,
-                              dense_chol_max=max(32768, prob.con_num))
+                              dense_chol_max=max(32768, prob.con_num), limits=tile_forms(device))
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     out = dict(mode=mode, con_num=prob.con_num, vec_len=prob.vec_len, factor_bytes=_factor_bytes(neq),
@@ -182,6 +200,56 @@ def k3_times(bands=BANDS, blocks=BLOCKS) -> list:
     return rows
 
 
+def synthetic_segments(n: int, m: int, bw: int, seed: int, device=None) -> tri_stream.SegmentBand:
+    """K3's segments form of a diagonally dominant SPD band of ``n`` rows in
+    segments of ``m`` rows (the last shorter), bandwidth ``bw`` (off-band
+    entries N(0, 1), each diagonal 1 + its row's absolute sum), its solver
+    rows shuffled, built as the solver builds it (``segment_band``)."""
+    rng = np.random.default_rng(seed)
+    bounds = np.r_[np.arange(0, n, m), n]
+    seg = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))
+    lo, hi = [], []
+    for k in range(1, bw + 1):
+        i = np.flatnonzero(seg[k:] == seg[:-k])
+        lo.append(i)
+        hi.append(i + k)
+    lo, hi = np.concatenate(lo), np.concatenate(hi)
+    off = rng.standard_normal(len(lo))
+    diag = 1.0 + np.bincount(lo, np.abs(off), n) + np.bincount(hi, np.abs(off), n)
+    rows = np.concatenate([lo, hi, np.arange(n)])
+    cols = np.concatenate([hi, lo, np.arange(n)])
+    vals = np.concatenate([off, off, diag])
+    band, ok = tri_stream.segment_band(rows, cols, vals, bounds, bw, rng.permutation(n), 1e-7, 1.0, device)
+    assert ok, "a diagonally dominant band factors"
+    return band
+
+
+def segment_times(n: int = SEG_N, lengths=SEG_LENGTHS, bws=SEG_BWS) -> list:
+    """The segments form's solve time (one launch, forward and backward, f64
+    r) on ``synthetic_segments`` at each length and bandwidth: SEG_REPS
+    solves captured into a CUDA graph, the chunk runner's way
+    (``k4_ab.graph_ms``)."""
+    rows = []
+    for bw in bws:
+        for i, m in enumerate(lengths):
+            seg = synthetic_segments(n, m, bw, seed=200 + i, device="cuda")
+            r = torch.randn(n, dtype=torch.float64, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(i))
+            ms = graph_ms(lambda: tri_stream.band_segments_solve(seg, r), SEG_REPS)
+            rows.append(dict(n=n, bw=bw, max_seg=m, chunks=seg.chunks.shape[0] - 1, rows=seg.rows, ms=ms))
+            del seg, r
+    return rows
+
+
+def fit_segment_model(rows: list) -> lim.SegmentModel:
+    """``limits.SegmentModel`` by non-negative least squares on the solve
+    times of ``rows``, relative (every band counts alike)."""
+    t = np.array([r["ms"] * 1e-3 for r in rows])
+    X = np.array([[1.0, r["n"] * (4 * (r["bw"] + 1) + 16), r["max_seg"] * (r["bw"] + 1)] for r in rows]) / t[:, None]
+    fixed, per_byte, entry = nnls(X, np.ones_like(t))[0]
+    return lim.SegmentModel(fixed_s=float(fixed), bytes_per_s=float(1.0 / per_byte), entry_s=float(entry))
+
+
 def fit_peak(points: list) -> lim.PeakModel:
     """peak = multiple x factor bytes + constant by least squares over
     ``points`` (dicts with factor_bytes and peak_bytes), the constant then
@@ -244,7 +312,7 @@ def measure(problems: dict, device: torch.device) -> dict:
             problems[shape] = grid_problem(shape)
         peaks.append(dict(build_peak(problems[shape], mode, device), grid=f"{shape[0]}x{shape[1]}"))
     peaks.append(dict(synthetic_band_peak(*PUSHBOX[1:]), grid=PUSHBOX[0] + " (synthetic)"))
-    return dict(peaks=peaks, k3=k3_times())
+    return dict(peaks=peaks, k3=k3_times(), k3_segments=segment_times())
 
 
 def fit(measured: dict) -> dict:
@@ -253,7 +321,8 @@ def fit(measured: dict) -> dict:
     band = fit_band_model(measured["k3"])
     return dict(peaks={k: m._asdict() for k, m in models.items()},
                 band_model=dataclasses.asdict(band),
-                ranking=band_ranking(measured["k3"], band))
+                ranking=band_ranking(measured["k3"], band),
+                segment_model=dataclasses.asdict(fit_segment_model(measured["k3_segments"])))
 
 
 def main() -> None:

@@ -85,6 +85,35 @@
 //
 // Constraints (the wrapper raises before the launch): 128 <= B <= 1024,
 // B % 128 == 0, all pointers 16-byte aligned.
+//
+// The segments form (chain_sweep_kernel_segments; K3 on bands whose RCM
+// order falls apart into short independent segments, ops/tri_stream.py's
+// SegmentBand; replaces no TPU kernel: the JAX package streams tiles
+// whatever the band holds). The factor of a block-diagonal matrix is
+// block-diagonal, so L x = r and L^T y = x fall apart into one short chain
+// a segment. The tiles are gone: the band's rows are held compactly, N x
+// (bw + 1) f32 with 1 / L_ii last (G50: about 139,192 x 5, 2.79 MB with
+// its padding, against 1.14 GB of tiles), and one launch solves both ways.
+// Bound. The bytes (the band, r and y once: 3.9 MB at G50, 1.2 us at
+// 3.35 TB/s) are not what bounds it: a launch, a few dependent memory
+// trips and the longest segment's chain of dependent rows are (30 rows
+// each way at G50). So the bytes are kept off the chain:
+// - a CTA owns a chunk of whole segments (at most kSegThreads of them and
+//   about 256 rows: more CTAs, less staging each), which its threads first
+//   stage into shared memory with every load in flight at once: the
+//   band's rows in one coalesced stream (stored column by column), r's
+//   entries gathered through the order (in f64), the order itself;
+// - a chunk is laid out position-major, row j of its t-th segment at j T +
+//   t, so at each step of their chains a warp's threads touch neighbouring
+//   words (a first layout, each segment's rows together, cost G50 21.6 us
+//   a solve on an H100 in bank conflicts; this one 8.1);
+// - each thread substitutes its own segment forward and backward in f64,
+//   the last bw solved entries in registers (``win``, the widest band a
+//   template holds), so only the newest one is on the chain;
+// - the CTA writes y through the order in r's dtype.
+// No cooperative launch, no tagged scratch, no epoch: chunks share
+// nothing. The segments come longest first, so a warp's 32 chains have
+// near lengths. Deterministic: fixed order, no atomics.
 
 #include <cuda_runtime.h>
 
@@ -655,6 +684,117 @@ int chain_sweep(const float* tiles, const float* chain, int B, int nb, int stage
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The segments form. chunks (C + 1 int2): each CTA's first segment and first
+// row, then (S, N); seg_len (S ints): each segment's rows, longest first;
+// order (N ints): the solver row of each row, -1 on padding; band (N x
+// (bw + 1) f32): row q's entries L[q, q-bw..q-1], zero before its segment,
+// then 1 / L[q, q]. A chunk of T segments, the longest M rows, holds M T
+// rows position-major: row j of its segment t at its first row + j T + t.
+
+constexpr int kSegThreads = 128;
+constexpr size_t kSegSmem = 48 * 1024;
+
+// W: the widest band the thread's window holds (bw <= W), so the window of
+// the last W solved entries lives in registers.
+template <typename T, int W>
+__global__ void __launch_bounds__(kSegThreads)
+    chain_sweep_kernel_segments(const float* __restrict__ band, int bw, const int* __restrict__ seg_len,
+                                const int2* __restrict__ chunks, const int* __restrict__ order,
+                                const T* __restrict__ r, T* __restrict__ y) {
+  extern __shared__ double seg_smem[];
+  const int2 c0 = __ldg(chunks + blockIdx.x), c1 = __ldg(chunks + blockIdx.x + 1);
+  const int segs = c1.x - c0.x, q0 = c0.y, rows = c1.y - c0.y;
+  const int w = bw + 1;
+  double* x = seg_smem;  // the chunk's r, then x, then y
+  float* l = reinterpret_cast<float*>(x + rows);  // the chunk's band entries, column-major: l[k rows + i]
+  int* o = reinterpret_cast<int*>(l + static_cast<size_t>(w) * rows);  // the chunk's order
+  const int tid = threadIdx.x;
+  const int m = tid < segs ? __ldg(seg_len + c0.x + tid) : 0;
+
+  // Staging: every load of the chunk in flight at once.
+  const float* src = band + static_cast<size_t>(q0) * w;
+  for (int e = tid; e < rows * w; e += kSegThreads) {
+    const int i = e / w;
+    l[(e - i * w) * rows + i] = __ldg(src + e);
+  }
+  for (int i = tid; i < rows; i += kSegThreads) {
+    const int at = __ldg(order + q0 + i);
+    o[i] = at;
+    x[i] = at >= 0 ? static_cast<double>(__ldg(r + at)) : 0.0;
+  }
+  __syncthreads();
+
+  // Thread t's segment, forward then backward, its newest W solved entries
+  // in ``win`` (newest first; zero before the segment's first row and past
+  // its last, where the band's entries are zero too). A row's terms are
+  // taken oldest first, so the shared-memory loads and all but the newest
+  // term do not wait on the row before. (Summing the older terms of row j
+  // + 1 while row j is solved made G50's solve slower on an H100, 12.6 us
+  // against 8.1: PERF.md §6.)
+  if (tid < segs) {
+    double win[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) win[k] = 0.0;
+    for (int j = 0, i = tid; j < m; ++j, i += segs) {
+      double acc = x[i];
+#pragma unroll
+      for (int k = W; k >= 1; --k) {
+        if (k <= bw) acc = fma(-static_cast<double>(l[(bw - k) * rows + i]), win[k - 1], acc);
+      }
+      const double v = acc * static_cast<double>(l[bw * rows + i]);
+#pragma unroll
+      for (int k = W - 1; k >= 1; --k) win[k] = win[k - 1];
+      win[0] = v;
+      x[i] = v;
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) win[k] = 0.0;
+    for (int j = m - 1, i = tid + (m - 1) * segs; j >= 0; --j, i -= segs) {
+      double acc = x[i];
+#pragma unroll
+      for (int k = W; k >= 1; --k) {
+        if (k <= bw && j + k < m) acc = fma(-static_cast<double>(l[(bw - k) * rows + i + k * segs]), win[k - 1], acc);
+      }
+      const double v = acc * static_cast<double>(l[bw * rows + i]);
+#pragma unroll
+      for (int k = W - 1; k >= 1; --k) win[k] = win[k - 1];
+      win[0] = v;
+      x[i] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows; i += kSegThreads) {
+    if (o[i] >= 0) y[o[i]] = static_cast<T>(x[i]);
+  }
+}
+
+template <typename T, int W>
+cudaError_t segments_launch(const float* band, int bw, const int* seg_len, const int2* chunks, int n_chunks,
+                            const int* order, const void* r, void* y, size_t smem, cudaStream_t stream) {
+  chain_sweep_kernel_segments<T, W><<<n_chunks, kSegThreads, smem, stream>>>(
+      band, bw, seg_len, chunks, order, static_cast<const T*>(r), static_cast<T*>(y));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int segments_solve(const float* band, int bw, const int* seg_len, const int* chunks, int n_chunks,
+                   const int* order, const void* r, void* y, int rows, void* stream) {
+  const size_t smem = static_cast<size_t>(rows) * (sizeof(double) + sizeof(float) * (bw + 1) + sizeof(int));
+  if (bw < 0 || bw > 16 || n_chunks <= 0 || rows <= 0 || smem > kSegSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int2* c = reinterpret_cast<const int2*>(chunks);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bw <= 1) err = segments_launch<T, 1>(band, bw, seg_len, c, n_chunks, order, r, y, smem, s);
+  else if (bw <= 2) err = segments_launch<T, 2>(band, bw, seg_len, c, n_chunks, order, r, y, smem, s);
+  else if (bw <= 4) err = segments_launch<T, 4>(band, bw, seg_len, c, n_chunks, order, r, y, smem, s);
+  else if (bw <= 8) err = segments_launch<T, 8>(band, bw, seg_len, c, n_chunks, order, r, y, smem, s);
+  else err = segments_launch<T, 16>(band, bw, seg_len, c, n_chunks, order, r, y, smem, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -712,6 +852,17 @@ int cuadmm_tri_chain_bwd(const float* tiles, const float* chain, int B, int nb, 
                          const int* offs, const float* rhs, float* out, void* solved, unsigned* epoch, int ctas,
                          void* stream) {
   return chain_sweep<true>(tiles, chain, B, nb, stages, steps, offs, rhs, out, solved, epoch, ctas, stream);
+}
+
+// The segments form's solve (forward and backward in one launch) of r into
+// y, both in the solver's order and f64 (``f64`` 1) or f32 (0), over the
+// tables above (bandwidth at most 16), ``n_chunks`` CTAs on ``stream``
+// without synchronizing; ``rows`` is the most rows a chunk holds (its
+// shared memory, at most 48 KB). Returns the launch error.
+int cuadmm_tri_segments(const float* band, int bw, const int* seg_len, const int* chunks, int n_chunks,
+                        const int* order, const void* r, void* y, int f64, int rows, void* stream) {
+  return f64 ? segments_solve<double>(band, bw, seg_len, chunks, n_chunks, order, r, y, rows, stream)
+             : segments_solve<float>(band, bw, seg_len, chunks, n_chunks, order, r, y, rows, stream);
 }
 
 #ifdef CUADMM_TRI_STAMPS

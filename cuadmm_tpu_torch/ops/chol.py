@@ -16,9 +16,10 @@ its sweep (``NormalEqSolver`` runs the sweeps): ``precond``
 ``CholFactor``, ``split`` a ``SplitFactor`` (AA^T block-diagonal under
 [S, S^c], S the rows that share an svec column with another row),
 ``packed`` and ``banded`` K2's and K3's tiles (``PackedFactor``,
-``BandFactor``; ops/tri_stream.py), ``sharded`` a ``ShardedFactor`` over
-a rank mesh (parallel/tri_shard.py). ``cg`` and ``host`` have no factor
-and no sweeps: ``CGSolver`` (preconditioned CG in f64 over an ELL table
+``BandFactor``; ops/tri_stream.py) or, for a band of short independent
+segments, K3's segments form (``SegmentFactor``), ``sharded`` a
+``ShardedFactor`` over a rank mesh (parallel/tri_shard.py). ``cg`` and
+``host`` have no factor and no sweeps: ``CGSolver`` (preconditioned CG in f64 over an ELL table
 of AA^T, preconditioned by FSAI (ops/fsai.py), block-Jacobi or Jacobi)
 and ``HostSolver`` (a scipy sparse LU of AA^T + eps I on the host).
 
@@ -43,6 +44,7 @@ import scipy.sparse.linalg as spla
 import torch
 
 from cuadmm_tpu_torch import trace
+from cuadmm_tpu_torch.ops import limits as lim
 from cuadmm_tpu_torch.ops import tri_stream
 from cuadmm_tpu_torch.ops.fsai import build_fsai, fsai_tables
 from cuadmm_tpu_torch.ops.limits import CardLimits, card_limits
@@ -166,14 +168,18 @@ def _each(fn: Callable, x: torch.Tensor, *rest) -> torch.Tensor:
 class _Factor:
     """What the sweeps apply: ``buffer(lead)`` the zeroed f32 (*lead, n_pad)
     buffer an f32 factor reads (None for an f64 one), ``sweep`` one sweep
-    y + P^{-1} (rhs - AA^T y), in f64 but for an f32 factor. A CUDA graph
-    holds every factor's solve (``eager`` None)."""
+    y + P^{-1} (rhs - AA^T y), in f64 but for an f32 factor (here an f64
+    factor's: P^{-1} by its ``apply_head``). A CUDA graph holds every
+    factor's solve (``eager`` None)."""
 
     sweeps = True
     eager = None
 
     def buffer(self, lead: tuple = ()) -> Optional[torch.Tensor]:
         return None
+
+    def sweep(self, sparse_a: SparseA, rhs: torch.Tensor, y: torch.Tensor, buf: None) -> torch.Tensor:
+        return y + self.apply_head(rhs - aat_matvec(sparse_a, y))
 
 
 class _PaddedFactor(_Factor):
@@ -219,9 +225,6 @@ class CholFactor(_Factor):
     def apply_head(self, r: torch.Tensor, buf: None = None) -> torch.Tensor:
         return _each(lambda v: torch.cholesky_solve(v.unsqueeze(-1), self.chol_l).squeeze(-1), r)
 
-    def sweep(self, sparse_a: SparseA, rhs: torch.Tensor, y: torch.Tensor, buf: None) -> torch.Tensor:
-        return y + self.apply_head(rhs - aat_matvec(sparse_a, y))
-
 
 @dataclasses.dataclass
 class PackedFactor(_PaddedFactor):
@@ -263,6 +266,19 @@ class BandFactor(_PaddedFactor):
             r = r[: self.perm.shape[0]][self.perm]
         y = tri_stream.band_solve(self.tiles, r, self.layout, chain=self.chain, form=self.form)
         return y if self.inv_perm is None else y[self.inv_perm]
+
+
+@dataclasses.dataclass
+class SegmentFactor(_Factor):
+    """banded, K3's segments form: the band's independent segments, each
+    factored on its own, no tile (``tri_stream.SegmentBand``). The sweep's
+    f64 residual goes to the kernel as it is, through the order the
+    segments carry, and its f64 answer comes back."""
+
+    segments: tri_stream.SegmentBand
+
+    def apply_head(self, r: torch.Tensor, buf: None = None) -> torch.Tensor:
+        return _each(lambda v: tri_stream.band_segments_solve(self.segments, v), r)
 
 
 @dataclasses.dataclass
@@ -501,20 +517,31 @@ def _device_factorize(
     return _jitter_cholesky(aat, scale, eps, "AA^T ")
 
 
+def _jitter_ladder(attempt: Callable, eps: float, what: str):
+    """``attempt(eps)`` -> (factor, good) with jitter eps, x10 until good.
+    Returns (factor, eps)."""
+    cur = float(eps)
+    while True:
+        factor, good = attempt(cur)
+        if good:
+            return factor, cur
+        del factor
+        cur *= 10.0
+        if cur > 1e-1:
+            raise RuntimeError(f"{what} AA^T Cholesky failed even with jitter 1e-1")
+
+
 def _tile_factorize(scatter: Callable, factor: Callable, last_tile: int, eps: float, what: str):
     """Scatter and factor tiles with jitter eps, x10 until every diagonal
     tile factored (``factor``'s device status) and the last diagonal entry
     is finite: both read in one device wait. Returns (tiles, eps)."""
-    cur = float(eps)
-    while True:
+
+    def attempt(cur: float):
         tiles = scatter(cur)
         status = factor(tiles)
-        if bool((status == 0) & torch.isfinite(tiles[last_tile, -1, -1])):
-            return tiles, cur
-        del tiles
-        cur *= 10.0
-        if cur > 1e-1:
-            raise RuntimeError(f"{what} AA^T Cholesky failed even with jitter 1e-1")
+        return tiles, bool((status == 0) & torch.isfinite(tiles[last_tile, -1, -1]))
+
+    return _jitter_ladder(attempt, eps, what)
 
 
 def _tri_inv(l: torch.Tensor) -> torch.Tensor:
@@ -731,36 +758,56 @@ def _packed_factor(aat, con_num, precond_eps, device, stages):
 
 
 def _band_factor(aat, con_num, band_probe, precond_eps, device, limits, timings, stages):
-    """banded: AA^T's block band under its RCM permutation (``band_probe``,
+    """banded: AA^T's band under its RCM permutation (``band_probe``,
     computed here when ``auto`` did not), its block picked by ``limits``'
-    band model, factored in f32, and K3's form for the card."""
+    band model. Where the band falls apart into independent segments and
+    K3's segments form beats the tile forms' model of it
+    (``limits.segment_form``), each segment is factored on its own
+    (``SegmentFactor``); else the block band is factored in f32 and K3
+    takes its tile form for the card (``BandFactor``)."""
     coo = aat.tocoo()
     diag_mean = float(aat.diagonal().mean())
     bw, perm = band_probe if band_probe is not None else _rcm_bandwidth(aat)
     pinv = np.empty_like(perm)
     pinv[perm] = np.arange(con_num)
-    lay = tri_stream.make_band_layout(con_num, bw, model=None if limits is None else limits.bound_band_model())
+    model = lim.BAND_MODEL if limits is None else limits.bound_band_model()
+    lay = tri_stream.make_band_layout(con_num, bw, model=model)
     rows, cols = pinv[coo.row].astype(np.int64), pinv[coo.col].astype(np.int64)
+    bounds = tri_stream.segment_bounds(np.minimum(rows, cols), np.maximum(rows, cols), con_num)
+    max_seg = int(np.diff(bounds).max())
+    seg_model = lim.SEGMENT_MODEL if limits is None else limits.segment_model
     # The jitter ladder starts at 1e-5 rather than precond_eps: a
     # band factors fine there, and the looser 1e-4 costs a sweep.
-    tiles, eps_used = _tile_factorize(
-        lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, torch.float32, device),
-        lambda tl: tri_stream.band_cholesky(tl, lay),
-        tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
-        max(min(precond_eps, 1e-5), 1e-7),
-        "band",
-    )
-    stages.begin("calibrate")
-    form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
+    eps = max(min(precond_eps, 1e-5), 1e-7)
+    if lim.segment_form(seg_model, con_num, bw, max_seg, model(lay.T, lay.block, lay.nb)):
+        # Each segment factored in f64 on the host.
+        seg, eps_used = _jitter_ladder(
+            lambda e: tri_stream.segment_band(rows, cols, coo.data, bounds, bw, perm, e, diag_mean, device), eps,
+            "band")
+        factor = SegmentFactor(seg)
+        stages.begin("calibrate")
+        held = f"form=segments segments={seg.n_segments} max={seg.max_seg} bytes={seg.band.numel() * 4}"
+    else:
+        tiles, eps_used = _tile_factorize(
+            lambda e: tri_stream.scatter_band_aat(rows, cols, coo.data, lay, e, diag_mean, torch.float32, device),
+            lambda tl: tri_stream.band_cholesky(tl, lay),
+            tri_stream.tid_band(lay.nb - 1, lay.nb - 1, lay),
+            eps,
+            "band",
+        )
+        stages.begin("calibrate")
+        form, chain = chain_tiles(tiles, lay, None if limits is None else limits.band_max_bytes)
+        held = (f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
+                f"form={'one-hop' if form == 'chain' else 'two-hop'}")
+        identity = bool(np.array_equal(perm, np.arange(con_num)))
+        as_idx = lambda p: None if identity else torch.as_tensor(np.asarray(p, np.int64), device=device)
+        factor = BandFactor(tiles, lay, form, chain, as_idx(perm), as_idx(pinv))
     if timings is not None:
         timings["band_bw"] = int(bw)
-        timings["band_layout"] = (
-            f"nb={lay.nb} nbw={lay.nbw} B={lay.block} bytes={tri_stream.band_bytes(lay, form)} "
-            f"form={'one-hop' if form == 'chain' else 'two-hop'}"
-        )
-    identity = bool(np.array_equal(perm, np.arange(con_num)))
-    as_idx = lambda p: None if identity else torch.as_tensor(np.asarray(p, np.int64), device=device)
-    return BandFactor(tiles, lay, form, chain, as_idx(perm), as_idx(pinv)), eps_used
+        timings["band_layout"] = held
+        timings["band_segments"] = len(bounds) - 1
+        timings["band_max_segment"] = max_seg
+    return factor, eps_used
 
 
 def _cg_solver(aat, con_num, eps, cg_tol, cg_max_iter, cg_block_jacobi, cg_precond,

@@ -63,6 +63,23 @@ fastest in the one-hop form (0.441 against 0.518 ms at B 1024). The JAX
 package's TPU model is the two-hop form without the step terms, with its
 TPU's rates (cuadmm_tpu/ops/tri_stream.py:463-478).
 ``tri_stream.make_band_layout`` picks the B the model predicts fastest.
+
+K3's third form, "segments" (``tri_stream.band_segments_solve``), holds
+no tile: where the band's RCM order falls apart into independent
+segments (no nonzero crosses a cut), each segment is one thread's chain
+of forward and backward substitution in one launch, so a solve costs a
+launch, the staging of its bytes and the longest chain. Its model,
+fitted the same way (``card_fit.py``: solves of synthetic bands of
+139,192 rows in segments of 1 to 512 rows at bandwidth 4 and 16, within
+14% of each),
+
+    t_solve = fixed_s + n (4 (bw + 1) + 16) / bytes_per_s + max_seg (bw + 1) entry_s,
+
+a launch, the band's f32 rows with r and y in f64 staged once, and each
+of the longest chain's rows paying for its bw + 1 terms, is set against the tile forms' model of the same band: the build takes
+the segments form where it is faster, the band is at most
+``SEGMENT_MAX_BW`` wide and no segment is longer than
+``SEGMENT_MAX_ROWS`` (both what a CTA's shared memory stages).
 """
 
 from __future__ import annotations
@@ -159,6 +176,43 @@ BAND_MODEL = BandModel(bytes_per_s=2606775805619.3306, tile_s=1.0361712840547813
                                          step_s=1.110786131302426e-06, row_s=0.0))
 
 
+# The segments form's bounds: a CTA of csrc/tri_stream.cu's segments
+# kernel stages its rows (f64 solution, bw + 1 f32 factor entries each) in
+# 48 KB of shared memory, 646 rows at bandwidth 16.
+SEGMENT_MAX_BW = 16
+SEGMENT_MAX_ROWS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentModel:
+    """K3's segments form: the seconds of a solve of ``n`` rows at
+    bandwidth ``bw`` whose longest segment has ``max_seg`` rows,
+    ``fixed_s + n (4 (bw + 1) + 16) / bytes_per_s + max_seg (bw + 1)
+    entry_s``."""
+
+    fixed_s: float
+    bytes_per_s: float
+    entry_s: float
+
+    def __call__(self, n: int, bw: int, max_seg: int) -> float:
+        return self.fixed_s + n * (4 * (bw + 1) + 16) / self.bytes_per_s + max_seg * (bw + 1) * self.entry_s
+
+
+# Fitted on NVIDIA H100 80GB HBM3, 700.00 W (card_fit.py's segment_times; PERF.md §6).
+SEGMENT_MODEL = SegmentModel(fixed_s=1.05170497547464e-06, bytes_per_s=1203080985128.8613,
+                             entry_s=3.4380009650419183e-08)
+
+
+def segment_form(model: "SegmentModel | None", n: int, bw: int, max_seg: int, tile_s: float) -> bool:
+    """Whether a band of ``n`` rows and bandwidth ``bw`` whose longest
+    independent segment has ``max_seg`` rows takes K3's segments form:
+    within SEGMENT_MAX_BW and SEGMENT_MAX_ROWS, and faster by ``model``
+    than ``tile_s``, the tile forms' modelled solve of the same band. No
+    model: never."""
+    return (model is not None and bw <= SEGMENT_MAX_BW and max_seg <= SEGMENT_MAX_ROWS
+            and model(n, bw, max_seg) < tile_s)
+
+
 @dataclasses.dataclass(frozen=True)
 class CardLimits:
     """What ``auto`` and the factor builds may place on one card."""
@@ -169,6 +223,7 @@ class CardLimits:
     dense_a_budget: int  # bytes for dense A beside AA^T and its jitter clone
     precond_max_n_pad: int  # largest n_pad of precond's (or split's prefix's) inverse factor
     band_model: BandModel  # K3's solve time: picks the band's block
+    segment_model: "SegmentModel | None" = SEGMENT_MODEL  # the segments form's (None: tile forms only)
 
     def bound_band_model(self):
         """``band_model`` as the card's band is picked with it: a BandModel

@@ -31,6 +31,16 @@ array for array (tests/test_torch_tri_stream.py).
   sum_j W_ij x_j and y_i = inv(L_ii)^T x_i - sum_j Ut_ij y_j, one wait on
   the newest solved block per block step where the two-hop form waits
   twice (csrc/tri_stream.cu says why). The same tiles are read per sweep.
+- The segments form (``SegmentBand``, ``band_segments_solve``): a band
+  whose order falls apart into short independent segments (no nonzero
+  crosses a cut: ``segment_bounds``) is factored segment by segment
+  (``segment_cholesky``, f64 on the host, one batched Cholesky a segment
+  length) into its band rows alone, (n, bw + 1) f32, and solved in one
+  launch, one thread a segment, forward and backward. No tile exists;
+  what bounds a solve is a launch and the longest segment's chain of
+  dependent rows, not bytes (csrc/tri_stream.cu says how the kernel
+  keeps the bytes off that chain). ``band_segments_solve_ref`` is its
+  plain version.
 
 Dropped from the JAX package: the pow2 padding of panels and chunks, the
 sentinel-tile writes and the scan of dynamic slices, which only bound
@@ -53,9 +63,10 @@ from cuadmm_tpu_torch.ops.limits import BAND_MODEL, NBW_CHAIN
 
 UPDATE_CHUNK = 64  # panel outer products per _pair_chunk_step
 
-# Each wrapper's entry in trace.COUNTS (a call queues the forward and
-# the backward sweep of csrc/tri_stream.cu, one persistent launch each).
-COUNTER = {"packed_solve": "k2", "band_solve": "k3"}
+# Each wrapper's entry in trace.COUNTS (a tile form's call queues the
+# forward and the backward sweep of csrc/tri_stream.cu, one persistent
+# launch each; the segments form's call one launch).
+COUNTER = {"packed_solve": "k2", "band_solve": "k3", "band_segments_solve": "k3_seg"}
 
 # NBW_CHAIN (ops/limits.py, beside K3's model): the widest block band that
 # takes the one-hop form; wider bands keep the two-hop form, where the
@@ -414,6 +425,197 @@ def band_solve_ref(tiles: torch.Tensor, r: torch.Tensor, lay: BandLayout) -> tor
 
 
 # ----------------------------------------------------------------------
+# The segments form: a narrow band's independent segments.
+# ----------------------------------------------------------------------
+
+SEG_THREADS = 128  # segments a CTA solves, one a thread (csrc/tri_stream.cu kSegThreads)
+SEG_SMEM = 48 * 1024  # shared memory a CTA stages its rows in (csrc/tri_stream.cu kSegSmem)
+SEG_ROWS = 256  # rows a CTA's chunk holds at most, unless its one segment is longer
+
+
+class SegmentBand(NamedTuple):
+    """K3's segments form of a factored band, on one device.
+
+    The band's independent segments, longest first (ties in band order),
+    are cut into chunks, one a CTA: at most SEG_THREADS segments and
+    SEG_ROWS rows (a longer segment alone). A chunk of T segments, the
+    longest M rows, holds M T rows, position-major: row j of its t-th
+    segment at its first row + j T + t, the rows past a shorter segment's
+    end padding. So a warp's threads read neighbouring words at every
+    step of their chains.
+
+    band: (N, bw + 1) f32, row q holding L[q, q-bw..q-1] (zero before its
+    segment's first row, and on padding) and, last, 1 / L[q, q]; order:
+    (N,) int32, the solver row of each row, -1 on padding; seg_len: (S,)
+    int32, each segment's rows; chunks: (C + 1, 2) int32, each chunk's
+    first segment and first row, then (S, N); rows: the most rows a chunk
+    holds; max_seg: the longest segment's rows; n: the band's rows."""
+
+    band: torch.Tensor
+    order: torch.Tensor
+    seg_len: torch.Tensor
+    chunks: torch.Tensor
+    rows: int
+    max_seg: int
+    n: int
+
+    @property
+    def bw(self) -> int:
+        return self.band.shape[1] - 1
+
+    @property
+    def n_segments(self) -> int:
+        return self.seg_len.shape[0]
+
+
+def segment_bounds(lo: np.ndarray, hi: np.ndarray, n: int) -> np.ndarray:
+    """The independent segments of a symmetric pattern of n rows in band
+    order, from its entries' lower and higher index (``lo`` <= ``hi``):
+    (S + 1,) int64 boundaries, 0 first and n last, at every cut, a position
+    c that no entry crosses (lo < c <= hi)."""
+    reach = np.arange(n)
+    np.maximum.at(reach, np.asarray(lo, np.int64), np.asarray(hi, np.int64))
+    cuts = np.flatnonzero(np.maximum.accumulate(reach)[:-1] == np.arange(n - 1)) + 1
+    return np.r_[0, cuts, n].astype(np.int64)
+
+
+def segment_chunk_rows(bw: int) -> int:
+    """The rows a CTA of the segments kernel stages at bandwidth ``bw``: an
+    f64 solution entry, bw + 1 f32 factor entries and an int32 order entry
+    each, in SEG_SMEM."""
+    return SEG_SMEM // (8 + 4 * (bw + 1) + 4)
+
+
+def segment_chunks(seg_len: np.ndarray, bw: int) -> np.ndarray:
+    """The chunks of segments of ``seg_len`` rows (longest first): (C + 1,
+    2) int64, as ``SegmentBand.chunks``. A chunk takes the next segment
+    while it holds fewer than SEG_THREADS and its padded rows stay within
+    SEG_ROWS and what SEG_SMEM stages at bandwidth ``bw``."""
+    cap = min(SEG_ROWS, segment_chunk_rows(bw))
+    lens = [int(v) for v in seg_len]
+    firsts, rows, first = [0], [0], 0
+    for s in range(1, len(lens)):
+        if s - first == SEG_THREADS or lens[first] * (s - first + 1) > cap:
+            rows.append(rows[-1] + lens[first] * (s - first))
+            firsts.append(s)
+            first = s
+    rows.append(rows[-1] + lens[first] * (len(lens) - first))
+    return np.stack([np.r_[firsts, len(lens)], np.asarray(rows)], 1).astype(np.int64)
+
+
+def _segment_rows(seg_len, chunks):
+    """Per segment: its row 0 in the layout and the step between its rows
+    (its chunk's segments), as ``chunks`` and ``seg_len`` lay them out."""
+    per = chunks[1:, 0] - chunks[:-1, 0]
+    chunk = np.repeat(np.arange(len(per)), per)
+    return chunks[chunk, 1] + np.arange(len(seg_len)) - chunks[chunk, 0], per[chunk]
+
+
+def segment_cholesky(seg: np.ndarray, a: np.ndarray, b: np.ndarray, vals: np.ndarray, seg_len: np.ndarray,
+                     bw: int, eps: float, diag_mean: float) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """The Cholesky factor of AA^T + eps*scale*I (scale = max(diag_mean, 1),
+    as the tile forms' scatter), segment by segment, from AA^T's COO
+    entries as (segment, row, column) inside the segments of ``seg_len``
+    (longest first): each segment's dense block factored in f64 on the
+    host, one batched ``cholesky_ex`` a segment length. Returns (lower,
+    inv_diag, ok): per segment row, concatenated in segment order, its
+    entries L[i, i-bw..i-1] (zero before the segment) and 1 / L[i, i],
+    both f64; ok False where a block did not factor or the factor is not
+    finite."""
+    starts = np.r_[0, np.cumsum(seg_len)]
+    by_seg = np.argsort(seg, kind="stable")
+    seg, a, b, v = seg[by_seg], a[by_seg], b[by_seg], np.asarray(vals, np.float64)[by_seg]
+    scale = max(float(diag_mean), 1.0)
+    lower = np.zeros((int(starts[-1]), bw))
+    inv_diag = np.zeros(int(starts[-1]))
+    ok = True
+    for m in np.unique(seg_len):  # the segments of one length are consecutive (longest first)
+        s0, s1 = np.flatnonzero(seg_len == m)[[0, -1]]
+        e0, e1 = np.searchsorted(seg, [s0, s1 + 1])
+        dense = np.zeros((s1 + 1 - s0, m, m))
+        np.add.at(dense, (seg[e0:e1] - s0, a[e0:e1], b[e0:e1]), v[e0:e1])
+        diag = np.arange(m)
+        dense[:, diag, diag] += eps * scale
+        fac, info = torch.linalg.cholesky_ex(torch.from_numpy(dense))
+        fac = fac.numpy()
+        ok = ok and not info.any() and bool(np.isfinite(fac).all())
+        q = slice(int(starts[s0]), int(starts[s1 + 1]))
+        inv_diag[q] = (1.0 / fac[:, diag, diag]).reshape(-1)
+        blk = lower[q].reshape(-1, m, bw) if bw else None
+        for k in range(1, min(bw, m - 1) + 1):
+            blk[:, k:, bw - k] = fac[:, diag[k:], diag[:-k]]
+    return lower, inv_diag, ok
+
+
+def segment_band(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, bounds: np.ndarray, bw: int,
+                 solver_row: np.ndarray, eps: float, diag_mean: float, device=None) -> Tuple[SegmentBand, bool]:
+    """K3's segments form of AA^T + eps*scale*I on ``device``, from AA^T's
+    COO entries in band order (bandwidth ``bw``), its segments ``bounds``
+    (``segment_bounds``) and the solver row of each band row: the segments
+    longest first (a stable sort), their chunks (``segment_chunks``) and
+    the factor (``segment_cholesky``) rounded to f32
+    once into the layout; the factor's ok beside it."""
+    lens = np.diff(bounds)
+    segs = np.argsort(-lens, kind="stable")
+    seg_len = lens[segs]
+    rank = np.empty_like(segs)
+    rank[segs] = np.arange(len(segs))
+    band_seg = np.repeat(np.arange(len(lens)), lens)  # each band row's segment, in band order
+    local = np.arange(bounds[-1]) - bounds[band_seg]
+    lower, inv_diag, ok = segment_cholesky(rank[band_seg[rows]], local[rows], local[cols], vals, seg_len, bw, eps,
+                                           diag_mean)
+    chunks = segment_chunks(seg_len, bw)
+    first, step = _segment_rows(seg_len, chunks)
+    s = rank[band_seg]
+    at = first[s] + local * step[s]  # each band row's row in the layout
+    contiguous = np.r_[0, np.cumsum(seg_len)][s] + local  # and in segment_cholesky's order
+    band = np.zeros((int(chunks[-1, 1]), bw + 1), np.float32)
+    band[at, :bw] = lower[contiguous]
+    band[at, bw] = inv_diag[contiguous]
+    order = np.full(len(band), -1, np.int64)
+    order[at] = solver_row
+    as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    seg = SegmentBand(band=torch.as_tensor(band, device=device), order=as_i32(order), seg_len=as_i32(seg_len),
+                      chunks=as_i32(chunks), rows=int(np.diff(chunks[:, 1]).max()), max_seg=int(seg_len[0]),
+                      n=int(bounds[-1]))
+    return seg, ok
+
+
+def band_segments_solve_ref(seg: SegmentBand, r: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's segments form: y = (L L^T)^{-1} r over ``seg``,
+    r and y (..., n) in the solver's order; in f64 whatever r's dtype, y in
+    r's dtype. Vectorised over the segments: step j solves row j of every
+    segment longer than j, forward, then backward; each row's terms are
+    taken oldest first, as the kernel takes them."""
+    bw, n = seg.bw, r.shape[-1]
+    seg_len, chunks = seg.seg_len.cpu().numpy().astype(np.int64), seg.chunks.cpu().numpy().astype(np.int64)
+    first, step = (torch.as_tensor(v, device=r.device) for v in _segment_rows(seg_len, chunks))
+    lower = seg.band.to(torch.float64)
+    live = seg.order >= 0
+    solver_row = seg.order[live].long()
+    x = torch.zeros(r.shape[:-1] + (seg.band.shape[0],), dtype=torch.float64, device=r.device)
+    x[..., live] = r[..., solver_row].to(torch.float64)
+    longer = [int((seg_len > j).sum()) for j in range(seg.max_seg)] + [0] * (bw + 1)  # segments longer than j
+    for j in range(seg.max_seg):
+        q, d = first[: longer[j]] + j * step[: longer[j]], step[: longer[j]]
+        acc = x[..., q]
+        for k in range(min(j, bw), 0, -1):
+            acc = acc - lower[q, bw - k] * x[..., q - k * d]
+        x[..., q] = acc * lower[q, bw]
+    for j in range(seg.max_seg - 1, -1, -1):
+        q, d = first[: longer[j]] + j * step[: longer[j]], step[: longer[j]]
+        acc = x[..., q]
+        for k in range(bw, 0, -1):
+            c = longer[j + k]  # the segments holding row j + k
+            nxt = q[:c] + k * d[:c]
+            acc[..., :c] -= lower[nxt, bw - k] * x[..., nxt]
+        x[..., q] = acc * lower[q, bw]
+    y = torch.empty_like(r)
+    y[..., solver_row] = x[..., live].to(r.dtype)
+    return y
+
+
+# ----------------------------------------------------------------------
 # Streaming solves: the kernel.
 # ----------------------------------------------------------------------
 
@@ -541,6 +743,8 @@ def _load(variant: Optional[str] = None) -> ctypes.CDLL:
         lib.cuadmm_tri_stream_capacity.restype = I
         lib.cuadmm_tri_chain_plan.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I)]
         lib.cuadmm_tri_chain_plan.restype = I
+        lib.cuadmm_tri_segments.argtypes = [P, I, P, P, I, P, P, P, I, I, P]
+        lib.cuadmm_tri_segments.restype = I
         lib.cuadmm_cuda_error_string.argtypes = [I]
         lib.cuadmm_cuda_error_string.restype = ctypes.c_char_p
         if variant == "stamps":
@@ -666,3 +870,35 @@ def band_solve(tiles: torch.Tensor, r: torch.Tensor, lay: BandLayout, chain: Opt
     if form not in ("chain", "two_hop"):
         raise ValueError(f"form must be 'chain' or 'two_hop', got {form!r}")
     return _solve(tiles, r, lay, "band_solve", chain=chain if form == "chain" else None, form=form)
+
+
+def band_segments_solve(seg: SegmentBand, r: torch.Tensor) -> torch.Tensor:
+    """y = (L L^T)^{-1} r in K3's segments form (``SegmentBand``), r and y in
+    the solver's order, of length n, f64 or f32. On CUDA one launch of the
+    segments kernel (csrc/tri_stream.cu) reads r through ``seg.order``,
+    solves each segment in one thread in f64 and writes y through it, in
+    r's dtype, queued on the current stream without synchronizing; on the
+    CPU the plain version, ``band_segments_solve_ref``."""
+    if r.dim() != 1 or r.shape[0] != seg.n:
+        raise ValueError(f"need r of length n={seg.n}, got {tuple(r.shape)}")
+    if r.device != seg.band.device:
+        raise ValueError(f"band on {seg.band.device} but r on {r.device}")
+    if r.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"r must be float32 or float64, got {r.dtype}")
+    if r.device.type == "cpu":
+        return band_segments_solve_ref(seg, r)
+    if r.device.type != "cuda":
+        raise ValueError(f"unsupported device {r.device}")
+    lib = _load()
+    r = r.contiguous()
+    y = torch.empty_like(r)
+    idx = r.device.index if r.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(idx):
+        err = lib.cuadmm_tri_segments(
+            seg.band.data_ptr(), seg.bw, seg.seg_len.data_ptr(), seg.chunks.data_ptr(), seg.chunks.shape[0] - 1,
+            seg.order.data_ptr(), r.data_ptr(), y.data_ptr(), int(r.dtype == torch.float64), seg.rows,
+            torch.cuda.current_stream(idx).cuda_stream,
+        )
+    _check(lib, err, "band_segments_solve launch")
+    trace.COUNTS[COUNTER["band_segments_solve"]] += 1
+    return y

@@ -87,9 +87,9 @@ def rate(pkg, prob, projection: str, iters: int, **config) -> dict:
                            **config)
     solver = pkg.SDPSolver(prob, cfg, device="cuda")
     neq = solver.params.neq
-    if neq.mode == "banded":  # an older ROOT's solver keeps the layout as band_layout
-        band = dict(band_layout=list(neq.factor.layout if hasattr(neq, "factor") else neq.band_layout),
-                    applies=neq.applies)
+    if neq.mode == "banded":  # an older ROOT's solver keeps the layout as band_layout; K3's segments form has none
+        lay = getattr(neq.factor, "layout", None) if hasattr(neq, "factor") else neq.band_layout
+        band = dict(band_layout=None if lay is None else list(lay), applies=neq.applies)
     else:
         band = {}
     solver.solve(max_iter=WARM, stop_tol=0.0)

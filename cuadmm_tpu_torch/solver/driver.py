@@ -239,8 +239,9 @@ class SDPSolver:
         if self._verbose:
             print(f"init {self.init_time:.1f}s: {self.init_breakdown}")
 
-    def _normal_solver(self, mode: str, cg_max_iter: int, timings=None):
-        """The normal solver on the f64 tables. In f32 state its calibrated
+    def _normal_solver(self, mode: str, cg_max_iter: int, timings=None, limits=None):
+        """The normal solver on the f64 tables, under the card's ``limits``
+        (None: ``card_limits`` of the device). In f32 state its calibrated
         sweep count need only reach clip(0.03 stop_tol, 1e-6, 1e-5): every
         sweep more reads the factor once more an iteration
         (cuadmm_tpu/solver/driver.py:233-241)."""
@@ -267,6 +268,7 @@ class SDPSolver:
             fsai_pattern_power=cfg.fsai_pattern_power,
             calibrate_target=target,
             mesh=self.mesh,
+            limits=limits,
         )
 
     def _true_errRp(self, X_pool: torch.Tensor) -> float:

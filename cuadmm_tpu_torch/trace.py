@@ -6,7 +6,9 @@ are always on:
   k1              fused_spd_apply launches (ops/precond_apply.py)
   k1_rhs          the right-hand sides those launches served (a batch's B, up to 8, a launch)
   k2              packed_solve launches (ops/tri_stream.py; one call queues both sweeps)
-  k3              band_solve launches (ops/tri_stream.py; likewise)
+  k3              band_solve launches (ops/tri_stream.py; likewise): K3's tile forms
+  k3_seg          band_segments_solve launches (ops/tri_stream.py): K3's segments
+                  form, one launch an apply (forward and backward)
   k4              jacobi_eigh launches (ops/jacobi.py), every dtype
   k4_f32          jacobi_eigh's float32 launches among k4's
   cg_solves       cg normal solves (ops/chol.py)
@@ -66,7 +68,7 @@ import torch.autograd.profiler as _profiler
 from cuadmm_tpu_torch.device import synchronize
 
 COUNTS: Dict[str, int] = dict(
-    k1=0, k1_rhs=0, k2=0, k3=0, k4=0, k4_f32=0,
+    k1=0, k1_rhs=0, k2=0, k3=0, k3_seg=0, k4=0, k4_f32=0,
     cg_solves=0, cg_steps=0, cg_waits=0,
     all_reduce=0, broadcast=0,
     neq_sweeps=0, poly_tri_products=0, poly_gemm_products=0, sym_mirror=0, ell=0,

@@ -25,6 +25,8 @@ from cuadmm_tpu_torch import BatchedSDPSolver
 from cuadmm_tpu_torch.models.chordal import maxcut_chordal
 from cuadmm_tpu_torch.models.quasar import quasar_constraints
 from cuadmm_tpu_torch.models.random_sdp import random_certified_sdp
+from cuadmm_tpu_torch.ops import chol as tchol
+from cuadmm_tpu_torch.ops import limits as tlim
 from cuadmm_tpu_torch.ops.dispatch import bucket_method
 from cuadmm_tpu_torch.trace import COUNTS
 from cuadmm_tpu_torch.solver import driver
@@ -351,6 +353,7 @@ CUDA_CASES = {
     "precond_jacobi_k1_k4": (lambda: _grid(8, 12), dict(switch_admm=6), {}, [10, 4]),
     "eigh_segments": (_grid, dict(projection="eigh"), {}, [6, 4]),
     "banded_k3": (lambda: _grid(8, 12), dict(normal_solver="banded"), {}, [5, 5]),
+    "banded_k3_tiles": (lambda: _grid(8, 12), dict(normal_solver="banded"), {}, [5, 5]),
     "packed_k2": (lambda: _grid(8, 12), dict(normal_solver="packed"), {}, [5, 5]),
     "split_k1": (_quasar, dict(normal_solver="auto"), {}, [5, 5]),
     "dense": (_certified, dict(normal_solver="dense"), {}, [5, 5]),
@@ -360,11 +363,19 @@ CUDA_CASES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CUDA_CASES))
-def test_graphs_match_eager_on_card(case):
+def test_graphs_match_eager_on_card(monkeypatch, case):
+    """Each case's chunks through the graph runner and the eager loop, bit
+    for bit. ``banded_k3`` runs the grid's band in K3's segments form,
+    ``banded_k3_tiles`` with that form off, in K3's one-hop tile form."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    if case == "banded_k3_tiles":
+        monkeypatch.setattr(tchol, "card_limits", lambda d: dataclasses.replace(tlim.card_limits(d), segment_model=None))
     make, cfg, opts, chunks = CUDA_CASES[case]
     solver = _solver(make(), device="cuda", **cfg)
+    if case.startswith("banded"):
+        tiles = isinstance(solver.params.neq.factor, tchol.BandFactor)
+        assert tiles == (case == "banded_k3_tiles") and (not tiles or solver.params.neq.factor.form == "chain")
     step = _step(solver, **opts)
     state = _start(solver)
     step_mod.run_chunk(step, state, solver.params, 0, 1)  # builds every kernel before counting
@@ -380,6 +391,8 @@ def test_graphs_match_eager_on_card(case):
     assert all(v % 2 == 0 for v in both.values()), both
     mode = solver.params.neq.mode
     kernel = {"precond": "k1", "split": "k1", "banded": "k3", "packed": "k2"}.get(mode)
+    if isinstance(solver.params.neq.factor, tchol.SegmentFactor):
+        kernel = "k3_seg"  # K3's segments form: one launch a sweep
     if kernel is not None:
         assert both[kernel] >= 2 * sum(chunks) * solver.params.neq.applies, (kernel, both)
 

@@ -60,8 +60,11 @@ def test_g50_is_the_configurations_size(g50):
 def test_g50_normal_solve_resolves_to_k3s_one_hop_band(g50):
     """Past dense_chol_max and with 118,073 coupled rows (too many for
     split), ``auto`` probes AA^T's RCM bandwidth (4) on an H100 and takes
-    the band: B 512 by K3's model, nb 272, nbw 1, T 544, in the one-hop
-    form (the band and its derived tiles, 1.14 GB, fit the card)."""
+    the band. Its tile layout would be B 512 by K3's model, nb 272, nbw 1,
+    T 544, in the one-hop form (1.14 GB with its derived tiles); but the
+    band falls apart into AA^T's 51,653 connected blocks, the longest 30
+    rows, and K3's segments form beats that by the card's models, so the
+    build takes it and makes no tile."""
     card = lim.limits_for(H100_BYTES)
     a = (g50.At_rows, g50.At_cols, g50.At_vals, g50.con_num, g50.vec_len)
     mode, aat, (bw, perm) = tchol._resolve_auto(*a, torch.float64, True, SolverConfig().dense_chol_max, 1, card)
@@ -77,6 +80,25 @@ def test_g50_normal_solve_resolves_to_k3s_one_hop_band(g50):
     # G50's are all small.
     _, labels = csgraph.connected_components(aat, directed=False)
     assert labels.max() + 1 == 51_653 and np.bincount(labels).max() == 30
+    # The band's segments in the RCM order are exactly those blocks.
+    pinv = np.empty_like(perm)
+    pinv[perm] = np.arange(g50.con_num)
+    coo = aat.tocoo()
+    lo, hi = np.minimum(pinv[coo.row], pinv[coo.col]), np.maximum(pinv[coo.row], pinv[coo.col])
+    bounds = tts.segment_bounds(lo, hi, g50.con_num)
+    lens = np.diff(bounds)
+    assert len(lens) == 51_653 and lens.max() == 30 and sorted(lens) == sorted(np.bincount(labels))
+    tile_s = card.bound_band_model()(lay.T, lay.block, lay.nb)
+    assert lim.segment_form(card.segment_model, g50.con_num, bw, 30, tile_s)
+    from cuadmm_tpu_torch.ops.sparse import build_sparse_a
+
+    timings = {}
+    neq = tchol.build_normal_solver(*a, build_sparse_a(*a, torch.float64, torch.device("cpu")), "banded",
+                                    torch.float64, torch.device("cpu"), applies=2, timings=timings, limits=card)
+    assert neq.mode == "banded" and isinstance(neq.factor, tchol.SegmentFactor)
+    assert (neq.factor.segments.n_segments, neq.factor.segments.max_seg) == (51_653, 30)
+    assert (timings["band_bw"], timings["band_segments"], timings["band_max_segment"]) == (4, 51_653, 30)
+    assert timings["band_layout"].startswith("form=segments segments=51653 max=30 bytes=")
 
 
 def test_g50_projection_resolves_to_jacobi_and_the_poly_gemm_route(g50):
@@ -144,7 +166,8 @@ def test_poly_gemm_products_counts_each_poly_bucket_of_a_pool():
 def test_banded_solve_with_poly_gemms_follows_the_reference(monkeypatch):
     """The benchmark's entry on a small odd torus (5 x 24: 1,833
     constraints, cliques of 5 to 15, buckets 8 and 16) through G50's route
-    on the CPU: ``banded`` (K3's plain path, one-hop form), K4's plain
+    on the CPU: ``banded`` (K3's plain path, in the segments form as on
+    G50: 729 segments of at most 14 rows), K4's plain
     version on bucket 8 and the poly filter's GEMM route on bucket 16,
     against the plain reference over 200 sGS iterations from the cold
     start. The chunk runner's replays count the filter's GEMMs as the
@@ -166,7 +189,7 @@ def test_banded_solve_with_poly_gemms_follows_the_reference(monkeypatch):
     program = sdp_solve.build(prob, settings, "cpu")
     facts = program.facts()
     assert facts["normal_solver"] == "banded" and facts["projection"] == {0: "jacobi", 1: "poly"}
-    assert "form=one-hop" in program.init_breakdown["neq.band_layout"]
+    assert "form=segments segments=729 max=14" in program.init_breakdown["neq.band_layout"]
     before = trace.counts()
     res = program.solve(200, 0.0)
     assert trace.COUNTS["poly_gemm_products"] - before["poly_gemm_products"] == 40 * 200
@@ -178,3 +201,26 @@ def test_banded_solve_with_poly_gemms_follows_the_reference(monkeypatch):
     # eigenvalues of 1e-6 of the scale; the reference solves directly with
     # eigh. Both read about 1e-11 here.
     assert gaps["iterate_gap"] < 1e-8 and gaps["info_gap"] < 1e-8, gaps
+
+
+@pytest.mark.parametrize("rows,cols", [(5, 24), (7, 10)])
+def test_segments_form_follows_the_tile_forms_info_rows(monkeypatch, rows, cols):
+    """A banded sGS solve (stop_tol 0, 60 iterations, the switch to ADMM at
+    30) in K3's segments form against the same solve with the segments
+    form off (``limits.SEGMENT_MODEL`` None: the tile forms, as before it
+    existed): every info row within 1e-9, relative. Both factors are the
+    same regularized AA^T rounded to f32, refined to 1e-10 in f64."""
+    from portbench.entries import sdp_solve
+
+    prob = toroidal_maxcut.generate(dict(rows=rows, cols=cols), 2**31 + 5)
+    settings = dict(G50["solver"], dtype="float64", normal_solver="banded", switch_admm=30)
+    info = {}
+    for form in ("segments", "tile"):
+        if form == "tile":
+            monkeypatch.setattr(lim, "SEGMENT_MODEL", None)
+        program = sdp_solve.build(prob, settings, "cpu")
+        assert isinstance(program.solver.params.neq.factor, tchol.SegmentFactor) == (form == "segments")
+        res = program.solve(60, 0.0)
+        assert res["failure"] is None and res["iterations"] == 60
+        info[form] = res["info"]
+    np.testing.assert_allclose(info["segments"], info["tile"], rtol=1e-9, atol=0)

@@ -23,6 +23,7 @@ from cuadmm_tpu.models.random_sdp import random_certified_sdp
 
 import cuadmm_tpu_torch
 from cuadmm_tpu_torch.ops import chol as tchol
+from cuadmm_tpu_torch.ops import limits as tlim
 
 torch.set_num_threads(1)
 
@@ -308,11 +309,18 @@ def test_level2_recovery_converges_like_jax():
     assert res2.diverged and res2.recoveries == 0
 
 
-@pytest.mark.parametrize("mode", ["packed", "banded"])
-def test_grid_packed_and_banded_match_jax(mode):
-    """The 8x12 grid max-cut (1,342 constraints) through both solvers with
-    the tiled factor: packed B 256, nb 6; banded B 512, nb 3 under a real
-    RCM permutation (natural bandwidth 1,261, RCM 4)."""
+@pytest.mark.parametrize("mode", ["packed", "banded", "banded_tiles"])
+def test_grid_packed_and_banded_match_jax(monkeypatch, mode):
+    """The 8x12 grid max-cut (1,342 constraints) through both solvers past
+    dense_chol_max: packed B 256, nb 6; banded in K3's segments form (441
+    segments, the longest 18, every solver row laid out once) and, with
+    that form off (``banded_tiles``: ``limits.SEGMENT_MODEL`` None), in
+    its one-hop tile form at B 512, nb 3 under a real RCM permutation
+    (natural bandwidth 1,261, RCM 4); the JAX package in its band tiles."""
+    tiles = mode == "banded_tiles"
+    if tiles:
+        monkeypatch.setattr(tlim, "SEGMENT_MODEL", None)
+        mode = "banded"
     prob = _grid(8, 12)
     assert prob.con_num == 1342
     j, t = _both(prob, normal_solver=mode, switch_admm=25, check_every=10)
@@ -320,8 +328,14 @@ def test_grid_packed_and_banded_match_jax(mode):
     assert neq.mode == j.params.neq.mode == mode
     if mode == "packed":
         assert neq.factor.layout[2:4] == (256, 6)
-    else:
+    elif tiles:
+        assert isinstance(neq.factor, tchol.BandFactor) and neq.factor.form == "chain"
         assert neq.factor.layout[2:5] == (512, 3, 1) and neq.factor.perm is not None
+        assert t.init_breakdown["neq.band_bw"] == 4
+    else:
+        seg = neq.factor.segments
+        assert isinstance(neq.factor, tchol.SegmentFactor)
+        assert (seg.n_segments, seg.max_seg) == (441, 18) and sorted(seg.order[seg.order >= 0]) == list(range(1342))
         assert t.init_breakdown["neq.band_bw"] == 4
     rj = j.solve(max_iter=50, stop_tol=0.0)
     rt = t.solve(max_iter=50, stop_tol=0.0)
@@ -348,14 +362,19 @@ def test_auto_past_the_ceiling_raises_cg_on_the_cpu():
 def test_banded_level1_recovery_adds_two_sweeps():
     """Level-1 recovery adds two refinement sweeps in banded mode too (the
     JAX package's driver.py:356 skips banded; that defect is not copied).
-    Poisoned band tiles; one iteration, so only level 1 runs."""
+    Poisoned factor (its band tiles, or its segments' band rows); one
+    iteration, so only level 1 runs."""
     cfg = cuadmm_tpu_torch.SolverConfig(
         verbose=False, check_every=10, normal_solver="banded", switch_admm=10**9
     )
     s = cuadmm_tpu_torch.SDPSolver(_grid(), cfg, device="cpu")
     neq = s.params.neq
     assert neq.mode == "banded"
-    poisoned = dataclasses.replace(neq.factor, tiles=torch.full_like(neq.factor.tiles, float("nan")))
+    f = neq.factor
+    if isinstance(f, tchol.SegmentFactor):
+        poisoned = dataclasses.replace(f, segments=f.segments._replace(band=torch.full_like(f.segments.band, float("nan"))))
+    else:
+        poisoned = dataclasses.replace(f, tiles=torch.full_like(f.tiles, float("nan")))
     bad = dataclasses.replace(neq, factor=poisoned)
     s.params = dataclasses.replace(s.params, neq=bad)
     res = s.solve(max_iter=1, stop_tol=1e-6)

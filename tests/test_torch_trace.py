@@ -159,7 +159,7 @@ NEQ_KEYS = {
     "cg": ["fsai_build", "fsai_nnz"],
     "host": [],
     "packed": ["packed_factorize", "calibrate"],
-    "banded": ["band_factorize", "band_bw", "band_layout", "calibrate"],
+    "banded": ["band_factorize", "band_bw", "band_layout", "band_segments", "band_max_segment", "calibrate"],
 }
 
 
@@ -175,7 +175,8 @@ def test_init_breakdown_keeps_its_keys_and_gains_the_build(mode):
     assert list(s.init_breakdown) == keys and s.init_breakdown["neq.build"] == 0.0
     spans = trace.solve_record("init")["spans"]
     assert [(n, p) for n, p, _, _ in spans if p == "init"] == [(f"init.{k}", "init") for k in INIT_KEYS + ["params"]]
-    stages = [k for k in NEQ_KEYS[mode] if k not in ("aat", "fsai_nnz", "band_bw", "band_layout")]
+    stages = [k for k in NEQ_KEYS[mode]
+              if k not in ("aat", "fsai_nnz", "band_bw", "band_layout", "band_segments", "band_max_segment")]
     assert [n for n, p, _, _ in spans if p == "init.normal_solver"] == [f"neq.{k}" for k in stages]
 
 

@@ -797,3 +797,244 @@ def test_captured_solve_replays_on_a_new_epoch_on_card(lay):
     for r, y in zip(rhs, replays):
         assert torch.equal(y, kernel(r))
     assert not torch.equal(replays[0], replays[1])
+
+
+# ----------------------------------------------------------------------
+# The segments form.
+# ----------------------------------------------------------------------
+
+
+def _segment_problem(lengths, bw, seed):
+    """A diagonally dominant SPD matrix of independent banded blocks of
+    ``lengths`` rows laid end to end (bandwidth ``bw`` inside each, every
+    band entry nonzero), as COO entries (both triangles) with its true
+    segment bounds."""
+    rng = np.random.default_rng(seed)
+    bounds = np.r_[0, np.cumsum(lengths)].astype(np.int64)
+    n = int(bounds[-1])
+    seg = np.repeat(np.arange(len(lengths)), lengths)
+    lo = np.concatenate([np.flatnonzero(seg[k:] == seg[:-k]) for k in range(1, bw + 1)])
+    hi = np.concatenate([np.flatnonzero(seg[k:] == seg[:-k]) + k for k in range(1, bw + 1)])
+    off = rng.standard_normal(len(lo))
+    diag = 1.0 + np.bincount(lo, np.abs(off), n) + np.bincount(hi, np.abs(off), n)
+    i = np.arange(n)
+    return np.r_[lo, hi, i], np.r_[hi, lo, i], np.r_[off, off, diag], bounds
+
+
+SEGMENT_CASES = [((1, 3, 40, 2, 7, 1, 1, 25, 12, 9), 1), ((5, 1, 38, 2, 17, 4, 4, 30, 11), 2),
+                 ((40, 1, 2, 3, 33, 8, 1, 19), 3), ((1, 1, 6, 40, 2, 29, 13, 7, 4, 4, 21), 4)]
+
+
+@pytest.mark.parametrize("lengths,bw", SEGMENT_CASES, ids=[f"bw{bw}" for _, bw in SEGMENT_CASES])
+@pytest.mark.parametrize("cap", [None, 40], ids=["seg_rows", "cap40"])
+def test_segment_bounds_and_layout(monkeypatch, lengths, bw, cap):
+    """segment_bounds finds exactly the blocks' cuts; segment_band lays the
+    segments out longest first (ties in band order) in chunks of at most
+    SEG_THREADS segments and SEG_ROWS padded rows (``cap``: 40, for several
+    chunks here; a longer segment alone),
+    position-major: row j of a chunk's t-th segment at its first row + j T
+    + t, every solver row once, padding marked -1, its band rows zero."""
+    rows, cols, vals, bounds = _segment_problem(lengths, bw, seed=1)
+    n = int(bounds[-1])
+    np.testing.assert_array_equal(tts.segment_bounds(np.minimum(rows, cols), np.maximum(rows, cols), n), bounds)
+    solver_row = np.random.default_rng(2).permutation(n)
+    if cap is not None:
+        monkeypatch.setattr(tts, "SEG_ROWS", cap)
+    seg, ok = tts.segment_band(rows, cols, vals, bounds, bw, solver_row, 1e-6, 1.0)
+    lens, chunks, order = seg.seg_len.numpy(), seg.chunks.numpy(), seg.order.numpy()
+    assert ok and seg.n == n and seg.max_seg == max(lengths) and seg.bw == bw
+    np.testing.assert_array_equal(lens, sorted(lengths, reverse=True))
+    assert sorted(order[order >= 0]) == list(range(n)) and chunks[-1, 0] == len(lens) and chunks[-1, 1] == len(order)
+    per = np.diff(chunks[:, 0])
+    assert np.all(per >= 1) and np.all(per <= tts.SEG_THREADS)
+    assert np.all(np.diff(chunks[:, 1]) == lens[chunks[:-1, 0]] * per)
+    limit = min(tts.SEG_ROWS, tts.segment_chunk_rows(bw))
+    assert np.all((np.diff(chunks[:, 1]) <= limit) | (per == 1)) and seg.rows == np.diff(chunks[:, 1]).max()
+    band_of = np.empty(n, np.int64)
+    band_of[solver_row] = np.arange(n)  # each solver row's band row
+    starts = bounds[:-1][np.argsort(-np.diff(bounds), kind="stable")]  # each laid-out segment's first band row
+    for c in range(len(per)):
+        for t in range(per[c]):
+            s = chunks[c, 0] + t
+            at = chunks[c, 1] + np.arange(lens[chunks[c, 0]]) * per[c] + t
+            np.testing.assert_array_equal(band_of[order[at[: lens[s]]]], starts[s] + np.arange(lens[s]))
+            assert np.all(order[at[lens[s]:]] == -1) and not seg.band[at[lens[s]:]].any()
+
+
+def _segments_and_tiles(lengths, bw, eps, seed):
+    """The segments form (solver rows shuffled) and the f64 band tiles
+    (B 64) of one matrix plus eps I, the dense regularized matrix, and its
+    solver-order permutation."""
+    rows, cols, vals, bounds = _segment_problem(lengths, bw, seed)
+    n = int(bounds[-1])
+    solver_row = np.random.default_rng(seed + 1).permutation(n)
+    seg, ok = tts.segment_band(rows, cols, vals, bounds, bw, solver_row, eps, 1.0)
+    assert ok and seg.max_seg == max(lengths) and seg.n_segments == len(lengths)
+    lay = tts.make_band_layout(n, bw, 64)
+    tiles = tts.scatter_band_aat(rows, cols, vals, lay, eps, 1.0, torch.float64)
+    assert int(tts.band_cholesky(tiles, lay)) == 0
+    dense = np.zeros((n, n))
+    np.add.at(dense, (rows, cols), vals)
+    return seg, lay, tiles, dense + eps * np.eye(n), solver_row
+
+
+@pytest.mark.parametrize("lengths,bw", SEGMENT_CASES, ids=[f"bw{bw}" for _, bw in SEGMENT_CASES])
+def test_segments_solve_matches_tiles_and_pallas_interpret(lengths, bw):
+    """band_segments_solve (the plain version on the CPU) against
+    band_solve_ref on the f64 tiles of the same matrix, the JAX package's
+    band_solve (interpret mode) on its own f64 tiles, and a dense solve:
+    1e-6 (the segments' factor is rounded to f32 once), in the solver's
+    order; f32 r gives f32 y within 1e-6 of the f64 r's."""
+    jts, jnp = _jax()
+    seg, lay, tiles, dense, solver_row = _segments_and_tiles(lengths, bw, 1e-6, seed=3)
+    n = lay.n
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(n))
+    before = dict(COUNTS)
+    y = tts.band_segments_solve(seg, r)
+    assert COUNTS == before and y.dtype == torch.float64
+    r_band = r[torch.as_tensor(solver_row)]  # band row i holds solver row solver_row[i]
+    y_tiles = torch.empty_like(r)
+    y_tiles[torch.as_tensor(solver_row)] = tts.band_solve_ref(tiles, r_band, lay)
+    rows, cols, vals, _ = _segment_problem(lengths, bw, seed=3)
+    jlay = jts.make_band_layout(n, bw, 64)
+    jtiles = jts.band_cholesky(jts.scatter_band_aat(rows, cols, vals, jlay, 1e-6, 1.0, jnp.float64), jlay)
+    y_jax = torch.empty_like(r)
+    y_jax[torch.as_tensor(solver_row)] = torch.as_tensor(np.array(
+        jts.band_solve(jtiles, jnp.asarray(r_band.numpy()), jlay, interpret=True)))
+    p = np.empty(n, np.int64)
+    p[solver_row] = np.arange(n)
+    y_dense = torch.as_tensor(np.linalg.solve(dense[np.ix_(p, p)], r.numpy()))  # the solver's order
+    rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    for other in (y_tiles, y_jax, y_dense):
+        assert rel(y, other) < 1e-6
+    y32 = tts.band_segments_solve(seg, r.float())
+    assert y32.dtype == torch.float32 and rel(y32.double(), y) < 1e-6
+
+
+def test_segments_solve_on_the_g50_route_torus():
+    """The small odd torus of the G50 route test (5 x 24, 1,833
+    constraints): its banded build takes the segments form (729 segments,
+    the longest 14, no tile); its solve agrees with the tile form's
+    (``segment_model=None``) to the f32 factors' rounding, and both
+    calibrated solvers reach the 1e-10 target."""
+    from cuadmm_tpu_torch.ops import chol as tchol
+    from cuadmm_tpu_torch.ops import limits as lim
+    from cuadmm_tpu_torch.ops.sparse import build_sparse_a
+    from portbench.generators import toroidal_maxcut
+
+    prob = toroidal_maxcut.generate(dict(rows=5, cols=24), 2**31 + 5)
+    args = (prob.At_rows, prob.At_cols, prob.At_vals, prob.con_num, prob.vec_len)
+    sa = build_sparse_a(*args, torch.float64, torch.device("cpu"))
+    card = lim.limits_for(85_017_493_504)
+    timings = {}
+    seg = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=0,
+                                    timings=timings, limits=card)
+    tile = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=0,
+                                     limits=dataclasses.replace(card, segment_model=None))
+    assert isinstance(seg.factor, tchol.SegmentFactor)
+    assert isinstance(tile.factor, tchol.BandFactor) and tile.factor.form == "chain"
+    assert (timings["band_segments"], timings["band_max_segment"], timings["band_bw"]) == (729, 14, 4)
+    held = seg.factor.segments.band.numel() * 4  # the band's rows and the chunks' padding
+    assert timings["band_layout"] == f"form=segments segments=729 max=14 bytes={held}"
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(prob.con_num))
+    buf = tile.factor.buffer()
+    buf[: prob.con_num] = r
+    y_seg, y_tile = seg.factor.apply_head(r), tile.factor.apply(buf)[: prob.con_num]
+    assert float(torch.linalg.norm(y_seg - y_tile.double()) / torch.linalg.norm(y_seg)) < 1e-5
+    rhs = tchol.aat_matvec(sa, torch.as_tensor(np.random.default_rng(6).standard_normal(prob.con_num)))
+    for neq in (seg, tile):
+        assert float(neq.residual_norm(rhs, neq.solve(rhs))) < 1e-10
+
+
+def test_long_segments_and_wide_bands_keep_the_tile_forms():
+    """The segments form only within SEGMENT_MAX_BW and SEGMENT_MAX_ROWS and
+    where its model beats the tile forms'; a band with a long segment (the
+    2,500-row chain: two segments) builds the tile form as before."""
+    from cuadmm_tpu_torch.ops import chol as tchol
+    from cuadmm_tpu_torch.ops import limits as lim
+    from cuadmm_tpu_torch.ops import sparse as tsparse
+    from cuadmm_tpu_torch.structure import BlockStructure
+
+    model = lim.SEGMENT_MODEL
+    n = 139_192
+    assert lim.segment_form(model, n, 4, 30, 1.0) and not lim.segment_form(None, n, 4, 30, 1.0)
+    assert not lim.segment_form(model, n, 4, lim.SEGMENT_MAX_ROWS + 1, 1.0)
+    assert not lim.segment_form(model, n, lim.SEGMENT_MAX_BW + 1, 30, 1.0)
+    assert not lim.segment_form(model, n, 4, 30, model(n, 4, 30))
+    assert lim.SEGMENT_MAX_ROWS <= tts.segment_chunk_rows(lim.SEGMENT_MAX_BW)
+    A = _chain_a(2500)
+    con, vec_len = A.shape
+    coo = A.tocoo()
+    args = (coo.col.astype(np.int64), coo.row.astype(np.int64), coo.data, con, vec_len)
+    sa = tsparse.build_sparse_a_pool(*args[:4], BlockStructure([("u", vec_len)], "pow2", 64, 0),
+                                     torch.float64, torch.device("cpu"))
+    timings = {}
+    neq = tchol.build_normal_solver(*args, sa, "banded", torch.float64, torch.device("cpu"), applies=2,
+                                    timings=timings)
+    assert timings["band_max_segment"] > lim.SEGMENT_MAX_ROWS
+    assert isinstance(neq.factor, tchol.BandFactor) and neq.factor.form == "chain"
+
+
+def _card_segments(lengths, bw, seed):
+    seg, _ = tts.segment_band(*_segment_problem(lengths, bw, seed)[:4], bw,
+                              np.random.default_rng(seed).permutation(sum(lengths)), 1e-6, 1.0, "cuda")
+    return seg
+
+
+# G50's mix of lengths (1-30, mostly short) over many chunks, long
+# segments at bandwidth 16 (a chunk of few), and the longest allowed.
+CARD_SEGMENTS = [
+    (tuple(np.random.default_rng(0).choice([1, 1, 2, 2, 3, 5, 8, 13, 30], 20000)), 4),
+    ((300,) * 7 + (1, 2, 90), 16),
+    ((512, 3, 1), 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths,bw", CARD_SEGMENTS, ids=["g50_mix_bw4", "long_bw16", "max_rows_bw1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_segments_kernel_matches_plain_on_card(lengths, bw, dtype):
+    """The segments kernel against band_segments_solve_ref on the card (f64
+    arithmetic both: 1e-12 for f64 r; f32 r and y within one f32 rounding),
+    y in r's dtype; bitwise repeatable; one k3_seg count and one launch an
+    apply, no k3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    seg = _card_segments(lengths, bw, 7)
+    r = torch.randn(seg.n, device="cuda", dtype=dtype, generator=torch.Generator(device="cuda").manual_seed(8))
+    before = dict(COUNTS)
+    y = tts.band_segments_solve(seg, r)
+    torch.cuda.synchronize()
+    assert COUNTS["k3_seg"] == before["k3_seg"] + 1 and COUNTS["k3"] == before["k3"]
+    plain = tts.band_segments_solve_ref(seg, r.double())
+    tol = 1e-12 if dtype == torch.float64 else 1e-7
+    assert y.dtype == dtype and float(torch.linalg.norm(y.double() - plain) / torch.linalg.norm(plain)) < tol
+    assert torch.equal(tts.band_segments_solve(seg, r), y)
+    assert _sweeps_per_solve(lambda: tts.band_segments_solve(seg, r)) == 1
+
+
+@pytest.mark.cuda
+def test_captured_segments_solve_replays_on_card():
+    """A segments solve captured into a CUDA graph, replayed twice with new
+    right-hand sides copied in: each replay equals an eager solve of its
+    rhs bit for bit, and the replays differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seg = _card_segments(CARD_SEGMENTS[0][0], 4, 9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    r_static = torch.randn(seg.n, dtype=torch.float64, device="cuda", generator=gen)
+    tts.band_segments_solve(seg, r_static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_static = tts.band_segments_solve(seg, r_static)
+    rhs, replays = [], []
+    for _ in range(2):
+        rhs.append(torch.randn(seg.n, dtype=torch.float64, device="cuda", generator=gen))
+        r_static.copy_(rhs[-1])
+        graph.replay()
+        replays.append(y_static.clone())
+    torch.cuda.synchronize()
+    for r, y in zip(rhs, replays):
+        assert torch.equal(y, tts.band_segments_solve(seg, r))
+    assert not torch.equal(replays[0], replays[1])
